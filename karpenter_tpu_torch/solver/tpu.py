@@ -1,0 +1,648 @@
+"""TorchScheduler: the provisioning solve on torch tensors (scan path).
+
+A port of the reference's `solver/tpu.py` `TpuScheduler` on the scan path:
+the same constructor and `solve(pods) -> Results` surface, wrapping the
+port's copy of `oracle.Scheduler` the same way. A solve runs
+
+1. host encode (`tpu_problem.encode_problem`),
+2. the FFD order (`_order_pods`),
+3. table upload with the pod x type screen (`_tables`, `_pod_typeok`
+   through the `typeok_screen` kernel, `_upload_pod_tables`),
+4. requeue rounds: `_pod_xs` gathers a round's rows, then
+   `tpu_kernel.solve_scan` (the `scan_step` kernel on the card); a claim
+   slot overflow doubles N and re-solves,
+5. `_decode` back to Results, writing claims, existing-node usage, pool
+   limits and topology counts onto the shared oracle.
+
+Decisions are bit-identical to the oracle's for supported problems.
+Problems with relaxation tiers raise UnsupportedBySolver (callers fall back
+to the oracle on that exception); the relax tier loop and the run kernel
+are not ported yet.
+"""
+
+from __future__ import annotations
+
+import collections
+import ctypes
+import functools
+import time as time_mod
+from typing import Optional
+
+import numpy as np
+import torch
+
+from karpenter_tpu_torch import _build
+from karpenter_tpu_torch.api import labels as well_known
+from karpenter_tpu_torch.api.objects import NodePool, Operator, Pod
+from karpenter_tpu_torch.cloudprovider.types import InstanceTypes
+from karpenter_tpu_torch.device import pack, resolve_device, to_tensor
+from karpenter_tpu_torch.ops.encode import Reqs, decode_row, empty_reqs
+from karpenter_tpu_torch.ops.kernels import VocabArrays, intersects_only
+from karpenter_tpu_torch.scheduling import Requirement, Requirements
+from karpenter_tpu_torch.solver import buckets
+from karpenter_tpu_torch.solver import nodes as nodes_mod
+from karpenter_tpu_torch.solver import tpu_kernel as K
+from karpenter_tpu_torch.solver.nodes import (
+    SchedulingNodeClaim,
+    StateNodeView,
+    filter_instance_types,
+)
+from karpenter_tpu_torch.solver.oracle import Results, Scheduler, SchedulerOptions
+from karpenter_tpu_torch.solver.topology import Topology
+from karpenter_tpu_torch.solver.tpu_problem import (
+    EncodedProblem,
+    UnsupportedBySolver,
+    _pow2,
+    encode_problem,
+)
+from karpenter_tpu_torch.utils import resources as res
+
+# launches of the CUDA type-screen kernel
+LAUNCHES = {"typeok_screen": 0}
+
+
+# ---------------------------------------------------------------------------
+# K1 typeok_screen
+#
+# Replaces karpenter_tpu/solver/tpu.py:61 `_typeok_chunk_impl`: [B, IW]
+# words, bit t set when requirement class b intersects instance type t.
+# Bound on an H100: bytes (type rows + class rows, a few hundred KB at the
+# headline shape), so launch latency dominates; one warp per (class, type
+# word) packs its word with __ballot_sync (csrc/typeok.cu).
+
+
+def typeok_plain(ireq: Reqs, va: VocabArrays, preq_rows: Reqs, iw: int) -> torch.Tensor:
+    """The plain version: pairwise class x type Intersects, packed."""
+    a = Reqs(*(x[None] for x in ireq))  # [1, I, ...]
+    b = Reqs(*(x[:, None] for x in preq_rows))  # [B, 1, ...]
+    return pack(intersects_only(a, b, va), iw)  # [B, IW]
+
+
+_TYPEOK_FIELDS = ("mask", "exmask", "other", "notin", "defined", "gt", "lt", "minv")
+
+
+class _TypeokArgs(ctypes.Structure):
+    _fields_ = (
+        [("i" + f, ctypes.c_void_p) for f in _TYPEOK_FIELDS]
+        + [("p" + f, ctypes.c_void_p) for f in _TYPEOK_FIELDS]
+        + [("word2key", ctypes.c_void_p), ("out", ctypes.c_void_p)]
+        + [(n, ctypes.c_int) for n in ("B", "I", "TW", "K", "IW")]
+    )
+
+
+@functools.lru_cache(maxsize=None)
+def _typeok_lib():
+    lib = _build.library("typeok")
+    lib.typeok_args_size.restype = ctypes.c_int
+    lib.typeok_screen_launch.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+    lib.typeok_screen_launch.restype = ctypes.c_int
+    if lib.typeok_args_size() != ctypes.sizeof(_TypeokArgs):
+        raise RuntimeError("typeok_screen: argument layout disagrees with the library")
+    return lib
+
+
+def typeok_screen(ireq: Reqs, va: VocabArrays, preq_rows: Reqs, iw: int) -> torch.Tensor:
+    """[B, IW] int32 words. CPU tensors take the plain version; CUDA
+    tensors launch the kernel."""
+    dev = ireq.mask.device
+    if dev.type == "cpu":
+        return typeok_plain(ireq, va, preq_rows, iw)
+    B, TW = preq_rows.mask.shape
+    I = ireq.mask.shape[0]
+    Kk = va.num_keys
+    if Kk > 64:
+        raise ValueError(f"typeok_screen: {Kk} keys exceed the kernel's 64")
+    if iw * 32 < I:
+        raise ValueError(f"typeok_screen: {iw} words cannot hold {I} types")
+    w2k = va.word2key.to(torch.int32)
+    out = torch.empty((B, iw), dtype=torch.int32, device=dev)
+    vals = {"word2key": K.checked_ptr(w2k, torch.int32, dev, "word2key"), "out": K.checked_ptr(out, torch.int32, dev, "out")}
+    for prefix, r in (("i", ireq), ("p", preq_rows)):
+        for f, t, dt in zip(_TYPEOK_FIELDS, r, K.REQS_DTYPES):
+            vals[prefix + f] = K.checked_ptr(t, dt, dev, prefix + f)
+    args = _TypeokArgs(B=B, I=I, TW=TW, K=Kk, IW=iw, **vals)
+    lib = _typeok_lib()
+    code = lib.typeok_screen_launch(ctypes.byref(args), ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
+    _build.check_launch("typeok_screen", code)
+    LAUNCHES["typeok_screen"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+
+_DecodeView = collections.namedtuple(
+    "_DecodeView",
+    ["n_claims", "creq", "crequests", "alive", "tmpl", "eavail", "ereq", "v_cnt", "h_cnt"],
+)
+
+
+def _np_words(t: torch.Tensor) -> np.ndarray:
+    """int32 bit words on any device -> host uint32 (the same bits)."""
+    return t.cpu().numpy().view(np.uint32)
+
+
+class TorchScheduler:
+    """Same surface as oracle.Scheduler, solving with torch on `device`
+    (None = the CUDA device; pass "cpu" for the plain versions)."""
+
+    def __init__(
+        self,
+        node_pools: list[NodePool],
+        instance_types_by_pool: dict,
+        topology: Topology,
+        state_nodes: Optional[list[StateNodeView]] = None,
+        daemonset_pods: Optional[list[Pod]] = None,
+        options: Optional[SchedulerOptions] = None,
+        device=None,
+    ):
+        self.device = resolve_device(device)
+        # reuse the oracle's init wholesale: template filtering, daemon
+        # overhead, existing-node ordering, limits
+        self.oracle = Scheduler(
+            node_pools, instance_types_by_pool, topology, state_nodes, daemonset_pods, options
+        )
+        self.opts = self.oracle.opts
+        # per-solve device counters: kernel steps walked (pads included),
+        # solve_scan dispatches, claim-slot overflow re-solves
+        self.last_odometer = None
+
+    # -- solve ----------------------------------------------------------
+
+    def solve(self, pods: list[Pod]) -> Results:
+        """May raise UnsupportedBySolver; callers fall back to the oracle."""
+        if not pods:
+            return Results(new_node_claims=[], existing_nodes=self.oracle.existing_nodes, pod_errors={})
+        problem = encode_problem(self.oracle, pods)
+        if (problem.ntiers_r > 1).any():
+            raise UnsupportedBySolver("relaxation tiers: not yet ported")
+        deadline = (
+            time_mod.monotonic() + self.opts.timeout_seconds if self.opts.timeout_seconds else None
+        )
+        order = self._order_pods(problem)
+        tb = self._tables(problem)  # also sets self._typeok
+        self._upload_pod_tables(problem)
+
+        # the scan path re-solves from scratch on overflow, so its slot
+        # pool is not undersized
+        div = min(max(1, int(self.opts.claim_slot_div)), 4)
+        N = min(_pow2(max(64, (len(pods) + div - 1) // div)), _pow2(len(pods)))
+        odo = {"steps": 0, "dispatches": 0, "overflow_signals": 0}
+        self.last_odometer = odo
+        while True:
+            st = self._init_state(problem, N)
+            kinds = np.full(len(pods), K.KIND_FAIL, dtype=np.int32)
+            slots = np.full(len(pods), -1, dtype=np.int32)
+            pending = list(order)
+            timed_out = False
+            overflowed = False
+            while pending:
+                if deadline is not None and time_mod.monotonic() > deadline:
+                    timed_out = True
+                    break
+                # one requeue round over `pending`
+                batch = pending
+                xs = self._pod_xs(problem, batch)
+                st, got_kinds, got_slots, got_over, steps = K.solve_scan(tb, st, xs)
+                odo["steps"] += steps
+                odo["dispatches"] += 1
+                if bool(got_over):
+                    overflowed = True
+                    odo["overflow_signals"] += 1
+                    break
+                got_kinds = got_kinds.cpu().numpy()[: len(batch)]
+                got_slots = got_slots.cpu().numpy()[: len(batch)]
+                kinds[batch] = got_kinds
+                slots[batch] = got_slots
+                round_failed = [i for i, k in zip(batch, got_kinds) if k == K.KIND_FAIL]
+                if len(round_failed) == len(pending):
+                    break  # no progress: stall
+                pending = round_failed
+            if not overflowed:
+                break
+            N *= 2  # slots exhausted: re-solve with room
+        return self._decode(problem, st, kinds, slots, timed_out)
+
+    def _order_pods(self, p: EncodedProblem) -> list:
+        """FFD order from class columns; also points cached_pod_data at one
+        shared PodData per class."""
+        from karpenter_tpu_torch.solver.ordering import ffd_order_cols, pod_class_signature
+
+        pods = p.pods
+        data = self.oracle.cached_pod_data
+        pd_c = []
+        for i in p.class_reps:
+            self.oracle._update_cached_pod_data(pods[i])
+            pd_c.append(data[pods[i].uid])
+        for pod, c in zip(pods, p.pod_class.tolist()):
+            data[pod.uid] = pd_c[c]
+        cpu_c = np.fromiter((pd.requests.get(res.CPU, 0) for pd in pd_c), np.int64, len(pd_c))
+        mem_c = np.fromiter((pd.requests.get(res.MEMORY, 0) for pd in pd_c), np.int64, len(pd_c))
+        sig_c = np.fromiter(
+            (pod_class_signature(pods[i]) for i in p.class_reps), np.int64, len(p.class_reps)
+        )
+        cls = p.pod_class
+        ts_list = [pod.metadata.creation_timestamp for pod in pods]
+        uids = [pod.uid for pod in pods]
+        return ffd_order_cols(cpu_c[cls], mem_c[cls], sig_c[cls], ts_list, uids)
+
+    def _cr_padded(self, p: EncodedProblem) -> np.ndarray:
+        """[NR_pad] class index per requirement class, bucket-padded by
+        repeating real rows (pad rows are never gathered)."""
+        cr = np.asarray(p.rclass_creps, dtype=np.int64)
+        if not buckets.enabled() or len(cr) == 0:
+            return cr
+        return cr[np.arange(buckets.bucket(len(cr))) % len(cr)]
+
+    def _pod_typeok(self, p: EncodedProblem, tb: K.Tables) -> torch.Tensor:
+        """[NR_pad, IW] words — per requirement class, the instance types
+        whose requirements intersect the class's (the pairwise screen; the
+        step stays exact for three-way intersections, offerings and
+        minValues)."""
+        IW = max(1, (p.num_types + 31) // 32)
+        cr = self._cr_padded(p)
+        if len(cr) == 0:
+            return torch.zeros((0, IW), dtype=torch.int32, device=self.device)
+        rows = Reqs(*(to_tensor(a[cr], self.device) for a in p.preq_c))
+        return typeok_screen(tb.ireq, tb.va, rows, IW)
+
+    # -- tensor construction --------------------------------------------
+
+    def _t(self, a) -> torch.Tensor:
+        return to_tensor(np.asarray(a), self.device)
+
+    def _reqs(self, r: Reqs) -> Reqs:
+        return Reqs(*(self._t(a) for a in r))
+
+    def _tables(self, p: EncodedProblem) -> K.Tables:
+        t = self._t
+
+        def pad_group_v(a, fill=0):
+            if a.shape[0] == 0:
+                return t(np.full((1,) + a.shape[1:], fill, dtype=a.dtype))
+            return t(a)
+
+        Gv, Gh = len(p.vgroups), len(p.hgroups)
+        v_anti = np.array([g.group.type.value == 2 for g in p.vgroups], dtype=bool).reshape(Gv)
+        h_inverse = np.array([g.inverse for g in p.hgroups], dtype=bool).reshape(Gh)
+        tb = K.Tables(
+            va=VocabArrays.from_vocab(p.vocab, self.device),
+            treq=self._reqs(p.treq),
+            tdaemon=t(p.tdaemon),
+            ttypes=t(p.ttypes),
+            tlimit_def=t(p.tlimit_def),
+            thas_limits=t(p.thas_limits),
+            ireq=self._reqs(p.ireq),
+            ialloc=t(p.ialloc),
+            icap=t(p.icap),
+            otype=t(p.otype),
+            oword=t(p.oword),
+            obit=t(p.obit),
+            orid=t(p.orid if p.orid is not None else np.full(p.otype.shape[0], -1, np.int32)),
+            ovalid=t(p.ovalid if p.ovalid is not None else np.ones(p.otype.shape[0], bool)),
+            v_kid=pad_group_v(p.v_kid),
+            v_word=pad_group_v(p.v_word, fill=-1),
+            v_bit=pad_group_v(p.v_bit),
+            v_reg=pad_group_v(p.v_reg, fill=False),
+            v_skew=pad_group_v(p.v_skew),
+            v_mindom=pad_group_v(p.v_mindom, fill=-1),
+            v_filt=pad_group_v(p.v_filt, fill=-1),
+            v_anti=pad_group_v(v_anti, fill=False),
+            h_skew=pad_group_v(p.h_skew),
+            h_filt=pad_group_v(p.h_filt, fill=-1),
+            h_inverse=pad_group_v(h_inverse, fill=False),
+            filter_reqs=self._reqs(p.filter_reqs),
+            thp=t(p.thp if p.thp is not None else np.zeros((p.num_templates, 0), np.uint32)),
+            # relax tables: not ported yet (solve() refuses tiered problems)
+            rt_preq=self._reqs(p.rt_preq),
+            rt_typeok=torch.zeros((1, 1, max(1, (p.num_types + 31) // 32)), dtype=torch.int32, device=self.device),
+            rt_tol_t=t(p.rt_tol_t),
+            rt_tol_e=t(p.rt_tol_e),
+            rt_kind=t(p.rt_kind),
+            rt_gid=t(p.rt_gid),
+            rt_sel=t(p.rt_sel),
+        )
+        self._typeok = self._pod_typeok(p, tb)
+        return tb
+
+    def _init_state(self, p: EncodedProblem, N: int) -> K.State:
+        dev = self.device
+        R = p.table.num_resources
+        IW = max(1, (p.num_types + 31) // 32)
+        E = p.num_existing
+        Gh = max(len(p.hgroups), 1)
+        S = E + N
+        v_cnt = p.v_cnt if len(p.vgroups) else np.zeros((1, p.vmax or 1), np.int32)
+        h_cnt = np.zeros((Gh, S), np.int32)
+        for g, slot, c in p.h_seed:
+            h_cnt[g, slot] += c
+        i32 = torch.int32
+        ehp = p.ehp if p.ehp is not None else np.zeros((E, 0), np.uint32)
+        hpw = (p.num_host_ports + 31) // 32
+        return K.State(
+            active=torch.zeros(N, dtype=torch.bool, device=dev),
+            count=torch.zeros(N, dtype=i32, device=dev),
+            rank=torch.zeros(N, dtype=i32, device=dev),
+            tmpl=torch.zeros(N, dtype=i32, device=dev),
+            creq=self._reqs(empty_reqs(p.vocab, (N,))),
+            crequests=torch.zeros((N, R), dtype=i32, device=dev),
+            alive=torch.zeros((N, IW), dtype=i32, device=dev),
+            cmax_alloc=torch.zeros((N, R), dtype=i32, device=dev),
+            n_claims=torch.zeros((), dtype=i32, device=dev),
+            ereq=self._reqs(p.ereq),
+            eavail=self._t(p.eavail),
+            trem=self._t(p.tlimit_rem),
+            v_cnt=self._t(v_cnt),
+            h_cnt=self._t(h_cnt),
+            rescap=self._t(p.rescap0 if p.rescap0 is not None else np.zeros(0, np.int32)),
+            held=torch.zeros((N, (p.num_reservations + 31) // 32), dtype=i32, device=dev),
+            hp_used=torch.cat([self._t(ehp), torch.zeros((N, hpw), dtype=i32, device=dev)]),
+        )
+
+    def _upload_pod_tables(self, p: EncodedProblem) -> None:
+        """Pod tables on the device once per solve; a round's batch is then
+        an index array. Heavy rows live per requirement class, request
+        vectors and inverse rows per encode class, selection rows per
+        unique (namespace, labels)."""
+        t = self._t
+        cr = self._cr_padded(p)
+        Gv = max(len(p.vgroups), 1)
+        Gh = max(len(p.hgroups), 1)
+
+        def pad_g(a, G):
+            return a if a.shape[1] == G else np.zeros((a.shape[0], G), a.dtype)
+
+        if buckets.enabled():
+            NC_pad = buckets.bucket(p.prequests_c.shape[0])
+            U_pad = buckets.bucket(p.sel_rows_v.shape[0])
+        else:
+            NC_pad = p.prequests_c.shape[0]
+            U_pad = p.sel_rows_v.shape[0]
+        pad_c = lambda a: buckets.pad_rows(a, NC_pad)
+        pad_u = lambda a: buckets.pad_rows(a, U_pad)
+        self._dev_tables = dict(
+            preq_r=Reqs(*(t(a[cr]) for a in p.preq_c)),
+            typeok_r=self._typeok,
+            tol_t_r=t(p.ptol_t_c[cr]),
+            tol_e_r=t(p.ptol_e_c[cr]),
+            kind_r=t(p.ptopo_kind_c[cr]),
+            gid_r=t(p.ptopo_gid_c[cr]),
+            tsel_r=t(p.ptopo_sel_c[cr]),
+            rcls_of=t(pad_c(p.rcls_of).astype(np.int64)),
+            prequests_c=t(pad_c(p.prequests_c)),
+            cls=t(np.asarray(p.pod_class, dtype=np.int64)),
+            srow=t(np.asarray(p.srow, dtype=np.int64)),
+            sel_rows_v=t(pad_u(pad_g(p.sel_rows_v, Gv))),
+            sel_rows_h=t(pad_u(pad_g(p.sel_rows_h, Gh))),
+            inv_c=t(pad_c(pad_g(p.pinv_h_c, Gh))),
+            own_c=t(pad_c(pad_g(p.pown_h_c, Gh))),
+            hp_own_r=t(p.php_own_c[cr]),
+            hp_conf_r=t(p.php_conf_c[cr]),
+        )
+
+    def _pod_xs(self, p: EncodedProblem, indices: list[int]) -> K.PodX:
+        """Gather one round's PodX rows (pow2-padded; pads carry pod 0's
+        rows with valid=False)."""
+        d = self._dev_tables
+        n = len(indices)
+        P_pad = _pow2(n)
+        idx = np.zeros(P_pad, dtype=np.int64)
+        idx[:n] = indices
+        idx = torch.from_numpy(idx).to(self.device)
+        ci = d["cls"][idx]
+        ri = d["rcls_of"][ci]
+        si = d["srow"][idx]
+        zeros = torch.zeros(P_pad, dtype=torch.int32, device=self.device)
+        return K.PodX(
+            preq=Reqs(*(a[ri] for a in d["preq_r"])),
+            prequests=d["prequests_c"][ci],
+            typeok=d["typeok_r"][ri],
+            tol_t=d["tol_t_r"][ri],
+            tol_e=d["tol_e_r"][ri],
+            topo_kind=d["kind_r"][ri],
+            topo_gid=d["gid_r"][ri],
+            topo_sel=d["tsel_r"][ri],
+            sel_v=d["sel_rows_v"][si],
+            sel_h=d["sel_rows_h"][si],
+            inv_h=d["inv_c"][ci],
+            own_h=d["own_c"][ci],
+            valid=torch.arange(P_pad, device=self.device) < n,
+            rrow=zeros,
+            ntiers=zeros + 1,
+            hp_own=d["hp_own_r"][ri],
+            hp_conf=d["hp_conf_r"][ri],
+        )
+
+    # -- decoding --------------------------------------------------------
+
+    def _decode(self, p: EncodedProblem, st: K.State, kinds, slots, timed_out: bool) -> Results:
+        vocab, table = p.vocab, p.table
+        scheduler = self.oracle
+        n_claims = int(st.n_claims)
+        N = st.active.shape[0]
+        # fetch only the live claim rows (pow2-bucketed)
+        n2 = min(_pow2(max(n_claims, 1), floor=64), N)
+        E = st.eavail.shape[0]
+        word_fields = ("mask", "exmask")
+
+        def host_reqs(r: Reqs, rows) -> Reqs:
+            return Reqs(
+                *(
+                    _np_words(a[rows]) if f in word_fields else a[rows].cpu().numpy()
+                    for f, a in zip(Reqs._fields, r)
+                )
+            )
+
+        creq = host_reqs(st.creq, slice(0, n2))
+        alive = _np_words(st.alive[:n2])
+        tmpl = st.tmpl[:n2].cpu().numpy()
+        crequests = st.crequests[:n2].cpu().numpy()
+        eavail = st.eavail.cpu().numpy()
+        ereq = host_reqs(st.ereq, slice(None))
+        v_cnt = st.v_cnt.cpu().numpy()
+        h_cnt = st.h_cnt[:, : E + n2].cpu().numpy()
+        trem = st.trem.cpu().numpy()
+
+        # global type table order (same construction as encode_problem)
+        type_idx: dict[int, int] = {}
+        for nct in scheduler.templates:
+            for it in nct.instance_type_options:
+                if id(it) not in type_idx:
+                    type_idx[id(it)] = len(type_idx)
+        alive_bits = np.unpackbits(
+            np.ascontiguousarray(alive[:n_claims]).astype("<u4").view(np.uint8),
+            axis=-1,
+            bitorder="little",
+        )
+        ordered_types = [None] * len(type_idx)
+        for it_id, i in type_idx.items():
+            ordered_types[i] = it_id
+        types_by_id = {}
+        for nct in scheduler.templates:
+            for it in nct.instance_type_options:
+                types_by_id[id(it)] = it
+
+        # claims often share requirement rows and surviving-type sets:
+        # decode each distinct one once
+        row_cache: dict[bytes, Requirements] = {}
+        live_cache: dict[bytes, list] = {}
+
+        def decode_cached(slot: int) -> Requirements:
+            key = b"".join(np.ascontiguousarray(a[slot]).tobytes() for a in creq)
+            got = row_cache.get(key)
+            if got is None:
+                got = decode_row(vocab, creq.row(slot))
+                row_cache[key] = got
+            return got.copy()
+
+        claims: list[SchedulingNodeClaim] = []
+        for slot in range(n_claims):
+            nct = scheduler.templates[int(tmpl[slot])]
+            claim = SchedulingNodeClaim.__new__(SchedulingNodeClaim)
+            claim.template = nct
+            claim.hostname = nodes_mod.next_placeholder_hostname()
+            claim.requirements = decode_cached(slot)
+            akey = alive_bits[slot].tobytes()
+            live = live_cache.get(akey)
+            if live is None:
+                live = [types_by_id[ordered_types[i]] for i in np.flatnonzero(alive_bits[slot])]
+                live_cache[akey] = live
+            claim.instance_type_options = InstanceTypes(live)
+            claim.requests = table.decode(crequests[slot])
+            claim.daemon_resources = scheduler.daemon_overhead[nct]
+            claim.pods = []
+            claim.topology = scheduler.topology
+            claim.host_port_usage = scheduler.daemon_host_ports[nct].copy()
+            claim.reservation_manager = scheduler.reservation_manager
+            claim.reserved_offerings = []
+            claim.reserved_offering_strict = False
+            claim.reserved_capacity_enabled = self.opts.reserved_capacity_enabled
+            claim.annotations = dict(nct.annotations)
+            claims.append(claim)
+
+        # reserved capacity: the device's per-claim held words become the
+        # claims' reserved offerings and the host ReservationManager's state
+        if p.num_reservations and n_claims:
+            held_bits = np.unpackbits(
+                np.ascontiguousarray(_np_words(st.held[:n_claims])).astype("<u4").view(np.uint8),
+                axis=-1,
+                bitorder="little",
+            )[:, : p.num_reservations]
+            from karpenter_tpu_torch.scheduling import ALLOW_UNDEFINED_WELL_KNOWN_LABELS
+
+            for slot, claim in enumerate(claims):
+                rids = {p.rid_names[r] for r in np.flatnonzero(held_bits[slot])}
+                if not rids:
+                    continue
+                offs = [
+                    o
+                    for it in claim.instance_type_options
+                    for o in it.offerings
+                    if o.available
+                    and o.capacity_type() == well_known.CAPACITY_TYPE_RESERVED
+                    and o.reservation_id() in rids
+                    and claim.requirements.is_compatible(o.requirements, ALLOW_UNDEFINED_WELL_KNOWN_LABELS)
+                ]
+                claim.reserved_offerings = offs
+                scheduler.reservation_manager.reserve(claim.hostname, *offs)
+
+        for e, node in enumerate(scheduler.existing_nodes):
+            node.remaining_resources = table.decode(eavail[e])
+            reqs = decode_row(vocab, ereq.row(e))
+            reqs.add(Requirement(well_known.HOSTNAME_LABEL_KEY, Operator.IN, [node.view.hostname]))
+            node.requirements = reqs
+
+        # nodepool-limit spend back to the host (subtractMax lives in trem)
+        for t, nct in enumerate(scheduler.templates):
+            if not p.thas_limits[t]:
+                continue
+            rem = {}
+            for name, ri in table.index.items():
+                if p.tlimit_def[t, ri]:
+                    rem[name] = int(trem[t, ri]) * table.scale[ri]
+            scheduler.remaining_resources[nct.nodepool_name] = rem
+
+        from karpenter_tpu_torch.scheduling.hostports import get_host_ports
+
+        pod_errors: dict[str, str] = {}
+        for i, pod in enumerate(p.pods):
+            kind, slot = int(kinds[i]), int(slots[i])
+            if kind == K.KIND_EXISTING:
+                scheduler.existing_nodes[slot].pods.append(pod)
+                if p.num_host_ports:
+                    hp = get_host_ports(pod)
+                    if hp:
+                        scheduler.existing_nodes[slot].host_port_usage.add(pod, hp)
+            elif kind in (K.KIND_CLAIM, K.KIND_NEW):
+                claims[slot].pods.append(pod)
+                if p.num_host_ports:
+                    hp = get_host_ports(pod)
+                    if hp:
+                        claims[slot].host_port_usage.add(pod, hp)
+            elif not timed_out:
+                pod_errors[pod.uid] = self._error_for(pod)
+
+        scheduler.new_node_claims = claims
+
+        # sync the host Topology's domain counts from the device state
+        for g, vg in enumerate(p.vgroups):
+            vals = vocab.values[vg.kid]
+            tg = vg.group
+            for vid, val in enumerate(vals):
+                if p.v_reg[g, vid] or v_cnt[g, vid]:
+                    tg.domains[val] = int(v_cnt[g, vid])
+        # claim slots sit at offset p.num_existing (the pow2-padded count)
+        hostnames = [(slot, n.view.hostname) for slot, n in enumerate(scheduler.existing_nodes)] + [
+            (p.num_existing + j, c.hostname) for j, c in enumerate(claims)
+        ]
+        for g, hg in enumerate(p.hgroups):
+            tg = hg.group
+            for slot, hn in hostnames:
+                c = int(h_cnt[g, slot])
+                if c:
+                    tg.domains[hn] = c
+        return Results(
+            new_node_claims=claims,
+            existing_nodes=scheduler.existing_nodes,
+            pod_errors=pod_errors,
+            timed_out=timed_out,
+        )
+
+    def _error_for(self, pod: Pod) -> str:
+        """A template-level failure message with the oracle's wording:
+        limits filter, then requirements compat, then the instance-type
+        filter; topology-caused failures get a generic message."""
+        from karpenter_tpu_torch.scheduling import ALLOW_UNDEFINED_WELL_KNOWN_LABELS, Taints
+        from karpenter_tpu_torch.solver.oracle import _filter_by_remaining_resources
+
+        scheduler = self.oracle
+        data = scheduler.cached_pod_data[pod.uid]
+        errs = []
+        for nct in scheduler.templates:
+            its = nct.instance_type_options
+            rem = scheduler.remaining_resources.get(nct.nodepool_name)
+            if rem is not None:
+                its = InstanceTypes(_filter_by_remaining_resources(its, rem))
+                if not its:
+                    errs.append(
+                        f"all available instance types exceed limits for nodepool {nct.nodepool_name!r}"
+                    )
+                    continue
+            terr = Taints(nct.taints).tolerates_pod(pod)
+            if terr is not None:
+                errs.append(terr)
+                continue
+            requirements = Requirements(nct.requirements.values())
+            err = requirements.compatible(data.requirements, ALLOW_UNDEFINED_WELL_KNOWN_LABELS)
+            if err is not None:
+                errs.append(f"incompatible requirements, {err}")
+                continue
+            requirements.add(*data.requirements.values())
+            total = res.merge(scheduler.daemon_overhead[nct], data.requests)
+            _, _, ferr = filter_instance_types(
+                its, requirements, data.requests, scheduler.daemon_overhead[nct], total
+            )
+            if ferr is not None:
+                errs.append(str(ferr))
+        if not errs:
+            return "unsatisfiable topology constraint"
+        return "; ".join(errs)

@@ -1,0 +1,857 @@
+"""The greedy-packing step: one pod's exact FFD decision and commit.
+
+A port of the reference's `solver/tpu_kernel.py` (relax=False). It
+reproduces the oracle's decision sequence exactly: existing nodes in fixed
+order, then in-flight claims in stable-sorted (pod-count, attainment-order)
+rank with an exact per-claim type verify in rank order, then a new claim
+from the first feasible template in weight order.
+
+Two versions of the same function live here:
+
+- the plain version (`_step`, `solve_scan_plain`): torch tensor code that
+  mirrors the reference line for line, vectorized over candidates. The CPU
+  tests hold it against the JAX package; on the card it is the yardstick
+  the kernel is compared with.
+- the CUDA kernel `scan_step` (csrc/scan_step.cu), launched by
+  `solve_scan` for CUDA tensors. One persistent single-CTA launch walks the
+  whole pod batch in order; per pod, `__syncthreads()` separates the
+  existing-node screen, the claim screen, the exact verify loop, the
+  template branch and the commit. State is updated in place in device
+  memory (a few MB at the headline size, resident in L2).
+
+  Replaces: karpenter_tpu/solver/tpu_kernel.py:560 `_step` and :931
+  `solve_scan` (relax=False).
+  Bound on an H100: by bytes, the state and tables it must read per pod
+  (claim rows dominate: N x (2 TW + 3 K) words); in practice the pod
+  sequence is a dependent chain of small reductions, so launch-free
+  latency per pod, not bandwidth, decides its time. The design keeps the
+  whole batch in one launch (no host round trip per pod) and spreads each
+  pod's candidate screens over the CTA's threads.
+
+Bit words are int32 (device.py). Every scatter whose index may fall past
+the array (the new-claim slot m == N) is guarded, and every gather the
+reference leaves to XLA's clamping is clamped explicitly.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import NamedTuple
+
+import torch
+
+from karpenter_tpu_torch import _build
+from karpenter_tpu_torch.device import gather_bits, pack, unpack
+from karpenter_tpu_torch.ops.encode import Reqs
+from karpenter_tpu_torch.ops.kernels import (
+    VocabArrays,
+    bitwise_or_reduce,
+    compat,
+    intersect,
+    intersects_only,
+    seg_any,
+    seg_popcount,
+)
+from karpenter_tpu_torch.solver.tpu_problem import (
+    TOPO_AFFINITY_H,
+    TOPO_AFFINITY_V,
+    TOPO_ANTI_V,
+    TOPO_NONE,
+    TOPO_SPREAD_H,
+    TOPO_SPREAD_V,
+)
+
+INF_I = 1 << 30
+
+KIND_EXISTING = 0
+KIND_CLAIM = 1
+KIND_NEW = 2
+KIND_FAIL = 3
+
+# launches of the CUDA step kernel (one per solve_scan call on the card)
+LAUNCHES = {"scan_step": 0}
+
+
+class Tables(NamedTuple):
+    """Static (per-solve) tensors; the reference's layout and field names."""
+
+    va: VocabArrays
+    # templates [T]
+    treq: Reqs
+    tdaemon: torch.Tensor  # [T, R]
+    ttypes: torch.Tensor  # [T, IW] words
+    tlimit_def: torch.Tensor  # [T, R] bool
+    thas_limits: torch.Tensor  # [T] bool
+    # instance types [I]
+    ireq: Reqs
+    ialloc: torch.Tensor  # [I, R]
+    icap: torch.Tensor  # [I, R]
+    # offerings [O]; ovalid=False rows are bucket padding
+    otype: torch.Tensor  # [O]
+    oword: torch.Tensor  # [O, 3]
+    obit: torch.Tensor  # [O, 3]
+    ovalid: torch.Tensor  # [O] bool
+    orid: torch.Tensor  # [O] reservation index, -1 = none
+    # zone-family groups [Gv, VMAX]
+    v_kid: torch.Tensor
+    v_word: torch.Tensor
+    v_bit: torch.Tensor
+    v_reg: torch.Tensor
+    v_skew: torch.Tensor
+    v_mindom: torch.Tensor
+    v_filt: torch.Tensor  # [Gv, 2]
+    v_anti: torch.Tensor  # [Gv] bool
+    # hostname-family groups [Gh]
+    h_skew: torch.Tensor
+    h_filt: torch.Tensor  # [Gh, 2]
+    h_inverse: torch.Tensor  # [Gh] bool
+    # node filters [F]
+    filter_reqs: Reqs
+    # template daemonset host-port seeds [T, HPW] words (zero-width if none)
+    thp: torch.Tensor
+    # relaxation-tier tables [NR, L, ...]: carried for layout parity with
+    # the reference; the relax step is not ported yet
+    rt_preq: Reqs
+    rt_typeok: torch.Tensor
+    rt_tol_t: torch.Tensor
+    rt_tol_e: torch.Tensor
+    rt_kind: torch.Tensor
+    rt_gid: torch.Tensor
+    rt_sel: torch.Tensor
+
+
+class State(NamedTuple):
+    """Carried solver state."""
+
+    # claims [N]
+    active: torch.Tensor
+    count: torch.Tensor
+    rank: torch.Tensor
+    tmpl: torch.Tensor
+    creq: Reqs
+    crequests: torch.Tensor  # [N, R]
+    alive: torch.Tensor  # [N, IW] words
+    cmax_alloc: torch.Tensor  # [N, R]
+    n_claims: torch.Tensor  # 0-dim int32
+    # existing nodes [E]
+    ereq: Reqs
+    eavail: torch.Tensor  # [E, R]
+    # per-template remaining limits [T, R]
+    trem: torch.Tensor
+    # topology counts
+    v_cnt: torch.Tensor  # [Gv, VMAX]
+    h_cnt: torch.Tensor  # [Gh, S]  S = E + N
+    # reserved capacity (zero-width when there are no reservations)
+    rescap: torch.Tensor  # [NRES]
+    held: torch.Tensor  # [N, NRESW] words
+    # host-port usage per slot [S, HPW] words
+    hp_used: torch.Tensor
+
+
+class PodX(NamedTuple):
+    """Per-pod scan inputs (batched [P, ...] for solve_scan)."""
+
+    preq: Reqs
+    prequests: torch.Tensor  # [R]
+    typeok: torch.Tensor  # [IW] words — types whose reqs intersect the pod's
+    tol_t: torch.Tensor  # [T]
+    tol_e: torch.Tensor  # [E]
+    topo_kind: torch.Tensor  # [C]
+    topo_gid: torch.Tensor  # [C]
+    topo_sel: torch.Tensor  # [C]
+    sel_v: torch.Tensor  # [Gv]
+    sel_h: torch.Tensor  # [Gh]
+    inv_h: torch.Tensor  # [Gh]
+    own_h: torch.Tensor  # [Gh]
+    valid: torch.Tensor  # 0-dim bool
+    rrow: torch.Tensor  # 0-dim int32
+    ntiers: torch.Tensor  # 0-dim int32
+    hp_own: torch.Tensor  # [HPW] words
+    hp_conf: torch.Tensor  # [HPW] words
+
+
+def _row(r: Reqs, i) -> Reqs:
+    return Reqs(*(a[i] for a in r))
+
+
+def _reqs_where(c, a: Reqs, b: Reqs) -> Reqs:
+    return Reqs(*(torch.where(c[..., None], x, y) for x, y in zip(a, b)))
+
+
+def _set_row(dst: Reqs, i, row: Reqs, pred) -> None:
+    """In place: dst[i] = row where pred (i must be in range)."""
+    for a, v in zip(dst, row):
+        a[i] = torch.where(pred, v, a[i])
+
+
+def _broadcast_row(r: Reqs, n: int) -> Reqs:
+    return Reqs(*(a.expand((n,) + a.shape) for a in r))
+
+
+def _i32(v, dev) -> torch.Tensor:
+    return torch.tensor(v, dtype=torch.int32, device=dev)
+
+
+# ---------------------------------------------------------------------------
+# topology evaluation
+
+
+class TopoEval(NamedTuple):
+    viable: torch.Tensor  # [B]
+    tight: torch.Tensor  # [B, TW] mask to AND in
+    touched: torch.Tensor  # [K] keys tightened by zone-family constraints
+
+
+def _first_true(b: torch.Tensor) -> torch.Tensor:
+    """argmax of a bool tensor along the last dim (0 when none is set)."""
+    return torch.argmax(b.to(torch.int32), dim=-1)
+
+
+def _eval_topology(merged: Reqs, slot_cnt_h, nonempty_h, x: PodX, st: State, tb: Tables) -> TopoEval:
+    dev = merged.mask.device
+    B = merged.mask.shape[0]
+    TW = merged.mask.shape[-1]
+    Gv = tb.v_reg.shape[0]
+    K = tb.va.num_keys
+    viable = torch.ones(B, dtype=torch.bool, device=dev)
+    tight = tb.va.full_mask.expand(B, TW)
+    touched = torch.zeros(K, dtype=torch.bool, device=dev)
+    inf = _i32(INF_I, dev)
+    ones_w = _i32(-1, dev)  # 0xFFFFFFFF
+
+    # inverse anti-affinity applies to any selected pod
+    inv_bad = torch.any(x.inv_h[:, None] & (slot_cnt_h > 0), dim=0)
+    viable = viable & ~inv_bad
+
+    for c in range(x.topo_kind.shape[0]):
+        kind = x.topo_kind[c]
+        gid = x.topo_gid[c]
+        selfsel = x.topo_sel[c].to(torch.int32)
+
+        # zone-family quantities (safe even when kind is hostname)
+        gv = gid.clamp(0, max(Gv - 1, 0)).long()
+        words = tb.v_word[gv]
+        bitsp = tb.v_bit[gv]
+        reg = tb.v_reg[gv]
+        cnt = st.v_cnt[gv]
+        skew = tb.v_skew[gv]
+        node_bits = gather_bits(merged.mask, words, bitsp)  # [B, VMAX]
+        pod_dom = gather_bits(x.preq.mask, words, bitsp)  # [VMAX]
+        eff = cnt + selfsel
+        vmax = words.shape[0]
+        vidx = torch.arange(vmax, device=dev)
+
+        # spread: min over pod-supported registered domains; first domain
+        # (lowest value id) holding the minimum count
+        sup = reg & pod_dom
+        min_cnt = torch.min(torch.where(sup, cnt, inf))
+        n_sup = sup.to(torch.int32).sum()
+        mindom = tb.v_mindom[gv]
+        min_cnt = torch.where((mindom >= 0) & (n_sup < mindom), _i32(0, dev), min_cnt)
+        cand_s = node_bits & reg
+        ok_s = cand_s & (eff - min_cnt <= skew)
+        best_eff = torch.min(torch.where(ok_s, eff, inf), dim=-1, keepdim=True).values
+        spread_viable = torch.any(ok_s, dim=-1)
+        first = _first_true(ok_s & (eff == best_eff))
+        spread_bits = (vidx == first[:, None]) & spread_viable[:, None]
+
+        # affinity
+        pos = reg & (cnt > 0)
+        aff_set = node_bits & pos & pod_dom
+        aff_direct = torch.any(aff_set, dim=-1)
+        nonempty_total = torch.any(pos)
+        any_compat = torch.any(pos & pod_dom)
+        bootstrap = (selfsel > 0) & (~nonempty_total | ~any_compat)
+        b_cand = reg & pod_dom & node_bits
+        b_first = _first_true(b_cand)
+        b_ok = torch.any(b_cand, dim=-1) & bootstrap
+        b_bits = (vidx == b_first[:, None]) & b_ok[:, None]
+        aff_viable = aff_direct | b_ok
+        aff_bits = torch.where(aff_direct[:, None], aff_set, b_bits)
+
+        # anti: only empty registered domains
+        anti_bits = reg & (cnt == 0) & node_bits & pod_dom
+        anti_viable = torch.any(anti_bits, dim=-1)
+
+        # hostname-family
+        gh_cnt = slot_cnt_h[gid.clamp(0, slot_cnt_h.shape[0] - 1).long()]  # [B]
+        h_skew = tb.h_skew[gid.clamp(0, tb.h_skew.shape[0] - 1).long()]
+        h_ne = nonempty_h[gid.clamp(0, nonempty_h.shape[0] - 1).long()]
+        hs_viable = gh_cnt + selfsel <= h_skew
+        ha_viable = (gh_cnt > 0) | ((selfsel > 0) & ~h_ne)
+        hanti_viable = gh_cnt == 0
+
+        is_v = (kind == TOPO_SPREAD_V) | (kind == TOPO_AFFINITY_V) | (kind == TOPO_ANTI_V)
+        c_viable = torch.where(
+            kind == TOPO_NONE,
+            torch.ones_like(hanti_viable),
+            torch.where(
+                kind == TOPO_SPREAD_V,
+                spread_viable,
+                torch.where(
+                    kind == TOPO_AFFINITY_V,
+                    aff_viable,
+                    torch.where(
+                        kind == TOPO_ANTI_V,
+                        anti_viable,
+                        torch.where(
+                            kind == TOPO_SPREAD_H,
+                            hs_viable,
+                            torch.where(kind == TOPO_AFFINITY_H, ha_viable, hanti_viable),
+                        ),
+                    ),
+                ),
+            ),
+        )
+        viable = viable & c_viable
+
+        c_bits = torch.where(
+            kind == TOPO_SPREAD_V,
+            spread_bits,
+            torch.where(kind == TOPO_AFFINITY_V, aff_bits, anti_bits),
+        )  # [B, VMAX]
+        # fold the allowed set into a [B, TW] word mask for the group's key
+        kid = tb.v_kid[gv]
+        in_seg = tb.va.word2key == kid  # [TW]
+        vals = torch.where(words >= 0, c_bits.to(torch.int32) << bitsp, _i32(0, dev))
+        delta = torch.zeros((B, TW), dtype=torch.int32, device=dev)
+        delta.index_add_(1, words.clamp(min=0).long(), vals)
+        seg_tight = torch.where(in_seg & is_v, delta, ones_w)
+        tight = tight & seg_tight
+        touched = touched | (is_v & (torch.arange(K, device=dev) == kid))
+
+    return TopoEval(viable=viable, tight=tight, touched=touched)
+
+
+def _apply_tighten(merged: Reqs, te_tight, touched, va: VocabArrays) -> Reqs:
+    """Intersect merged reqs with the topology domain choices (an In set per
+    touched key): concrete result, defined, no bounds change."""
+    touched_w = touched[..., va.word2key]
+    return Reqs(
+        mask=merged.mask & te_tight,
+        exmask=torch.where(touched_w, torch.zeros_like(merged.exmask), merged.exmask),
+        other=merged.other & ~touched,
+        notin=merged.notin & ~touched,
+        defined=merged.defined | touched,
+        gt=merged.gt,
+        lt=merged.lt,
+        minv=merged.minv,
+    )
+
+
+def _topo_nonempty_ok(final: Reqs, touched, va: VocabArrays) -> torch.Tensor:
+    """Every touched key keeps a nonempty allowed set."""
+    seg = seg_any(final.mask != 0, va)
+    return ~torch.any(touched & ~seg, dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# instance-type exact filtering
+
+
+def _type_filter(final: Reqs, alive_bits, total, tb: Tables) -> torch.Tensor:
+    """[I] bool — compat ∧ fits ∧ offering ∧ alive (one final row)."""
+    I = tb.ireq.mask.shape[0]
+    t_ok = intersects_only(tb.ireq, _broadcast_row(final, I), tb.va)
+    fits = torch.all(total <= tb.ialloc, dim=-1)
+    ow = tb.oword
+    off_bit = gather_bits(final.mask, ow, tb.obit)  # [O, 3]
+    off_ok = torch.all(off_bit | (ow < 0), dim=-1) & tb.ovalid
+    off_any = torch.zeros(I, dtype=torch.int32, device=ow.device)
+    inb = (tb.otype >= 0) & (tb.otype < I)
+    off_any.index_add_(0, tb.otype.clamp(0, max(I - 1, 0)).long(), (off_ok & inb).to(torch.int32))
+    return alive_bits & t_ok & fits & (off_any > 0)
+
+
+def _min_values_ok(final: Reqs, final_i, tb: Tables) -> torch.Tensor:
+    if not bool(torch.any(final.minv >= 0)):
+        return torch.ones((), dtype=torch.bool, device=final_i.device)
+    # SatisfiesMinValues unions `requirement.values` per key: concrete rows
+    # contribute their allowed set, complements their excluded set,
+    # undefined keys nothing
+    w2k = tb.va.word2key
+    zero = torch.zeros((), dtype=torch.int32, device=final_i.device)
+    src = torch.where(tb.ireq.other[..., w2k], tb.ireq.exmask, tb.ireq.mask)
+    src = torch.where(tb.ireq.defined[..., w2k], src, zero)
+    union = bitwise_or_reduce(torch.where(final_i[:, None], src, zero), 0)
+    counts = seg_popcount(union, tb.va)
+    return torch.all((final.minv < 0) | (counts >= final.minv))
+
+
+# ---------------------------------------------------------------------------
+# stable-rank updates
+
+
+def _rank_after_increment(st: State, j):
+    cnew = st.count[j] + 1
+    idx = torch.arange(st.rank.shape[0], device=st.rank.device)
+    geq = st.active & (st.count >= cnew) & (idx != j)
+    inf = _i32(INF_I, st.rank.device)
+    boundary = torch.minimum(torch.min(torch.where(geq, st.rank, inf)), st.n_claims)
+    rank = st.rank - ((st.rank > st.rank[j]) & (st.rank < boundary)).to(torch.int32)
+    rank[j] = boundary - 1
+    return rank, cnew
+
+
+def _rank_after_create(st: State, m):
+    geq2 = st.active & (st.count >= 2)
+    inf = _i32(INF_I, st.rank.device)
+    boundary = torch.minimum(torch.min(torch.where(geq2, st.rank, inf)), st.n_claims)
+    rank = st.rank + (st.active & (st.rank >= boundary)).to(torch.int32)
+    if m < rank.shape[0]:
+        rank[m] = boundary
+    return rank
+
+
+# ---------------------------------------------------------------------------
+# record (topology.go Record)
+
+
+def _eval_filters(filt, final: Reqs, tb: Tables, allow_wk) -> torch.Tensor:
+    """[G] bool — node_filter.matches(final reqs) over the alternatives."""
+    G = filt.shape[0]
+    dev = filt.device
+    if tb.filter_reqs.mask.shape[0] == 0:
+        return torch.ones(G, dtype=torch.bool, device=dev)
+    ok = torch.zeros(G, dtype=torch.bool, device=dev)
+    trivial = torch.all(filt < 0, dim=-1)
+    F = tb.filter_reqs.mask.shape[0]
+    for a in range(filt.shape[1]):
+        alt = filt[:, a]
+        rows = _row(tb.filter_reqs, alt.clamp(0, F - 1).long())
+        final_b = _broadcast_row(final, G)
+        got_strict = compat(final_b, rows, tb.va, False)
+        got_allow = compat(final_b, rows, tb.va, True)
+        got = torch.where(allow_wk, got_allow, got_strict)
+        ok = ok | ((alt >= 0) & got)
+    return trivial | ok
+
+
+def _record(st_v_cnt, st_h_cnt, final: Reqs, slot_global: int, allow_wk, pred, x: PodX, tb: Tables):
+    K = tb.va.num_keys
+    segbits = gather_bits(final.mask, tb.v_word, tb.v_bit)  # [Gv, VMAX]
+    exbits = gather_bits(final.exmask, tb.v_word, tb.v_bit)
+    other_k = final.other[tb.v_kid.clamp(0, K - 1).long()]  # [Gv]
+    popc = segbits.to(torch.int32).sum(-1)
+    single = (popc == 1) & ~other_k
+    filt_ok = _eval_filters(tb.v_filt, final, tb, allow_wk)
+    add = torch.where(
+        tb.v_anti[:, None],
+        torch.where(other_k[:, None], exbits, segbits),
+        segbits & single[:, None],
+    )
+    gate_v = (pred & x.sel_v & filt_ok)[:, None]
+    v_cnt = st_v_cnt + (add & gate_v).to(torch.int32)
+
+    filt_ok_h = _eval_filters(tb.h_filt, final, tb, allow_wk)
+    contrib = torch.where(tb.h_inverse, x.own_h, x.sel_h & filt_ok_h)
+    h_cnt = st_h_cnt
+    if slot_global < h_cnt.shape[1]:  # out-of-range slots record nothing
+        h_cnt = h_cnt.clone()
+        h_cnt[:, slot_global] += (pred & contrib).to(torch.int32)
+    return v_cnt, h_cnt
+
+
+# ---------------------------------------------------------------------------
+# the step
+
+
+def _claim_screen(tb: Tables, st: State, x: PodX, nonempty_h):
+    """(final_c, cand_c): every claim's merged+tightened row and whether it
+    passes the screens (requirements, topology, fits bound, type screen,
+    template tolerations, host ports)."""
+    E = st.eavail.shape[0]
+    N = st.active.shape[0]
+    T = tb.tdaemon.shape[0]
+    merged_c = intersect(st.creq, _broadcast_row(x.preq, N), tb.va)
+    compat_c = compat(st.creq, _broadcast_row(x.preq, N), tb.va, True)
+    te_c = _eval_topology(merged_c, st.h_cnt[:, E:], nonempty_h, x, st, tb)
+    final_c = _apply_tighten(merged_c, te_c.tight, te_c.touched, tb.va)
+    screen_fits = torch.all(st.crequests + x.prequests <= st.cmax_alloc, dim=-1)
+    # pod-vs-type pairwise screen: a claim with no surviving type the pod
+    # could use is never a candidate
+    screen_types = torch.any((st.alive & x.typeok) != 0, dim=-1)
+    cand_c = (
+        st.active
+        & x.tol_t[st.tmpl.clamp(0, max(T - 1, 0)).long()]
+        & compat_c
+        & te_c.viable
+        & _topo_nonempty_ok(final_c, te_c.touched, tb.va)
+        & screen_fits
+        & screen_types
+    )
+    if st.hp_used.shape[1]:
+        cand_c = cand_c & ~torch.any((x.hp_conf[None, :] & st.hp_used[E:]) != 0, dim=-1)
+    return final_c, cand_c
+
+
+def _step(tb: Tables, st: State, x: PodX):
+    """One pod: returns (new_state, (kind, out_slot, overflow)); the input
+    state is not modified."""
+    dev = st.rank.device
+    E = st.eavail.shape[0]
+    N = st.active.shape[0]
+    T = tb.tdaemon.shape[0]
+    I = tb.ialloc.shape[0]
+    IW = st.alive.shape[1]
+    HPW = st.hp_used.shape[1]
+    inf = _i32(INF_I, dev)
+    valid = bool(x.valid)
+    n_claims = int(st.n_claims)
+
+    nonempty_h = torch.any(st.h_cnt > 0, dim=-1)  # [Gh]
+
+    # ======== existing nodes (exact, fixed order) ========
+    found_e, slot_e, final_e = False, 0, None
+    if E > 0:
+        merged_e = intersect(st.ereq, _broadcast_row(x.preq, E), tb.va)
+        compat_e = compat(st.ereq, _broadcast_row(x.preq, E), tb.va, False)
+        fits_e = torch.all(st.eavail >= 0, dim=-1) & torch.all(x.prequests <= st.eavail, dim=-1)
+        te_e = _eval_topology(merged_e, st.h_cnt[:, :E], nonempty_h, x, st, tb)
+        final_e = _apply_tighten(merged_e, te_e.tight, te_e.touched, tb.va)
+        cand_e = x.tol_e & compat_e & fits_e & te_e.viable & _topo_nonempty_ok(final_e, te_e.touched, tb.va)
+        if HPW:
+            cand_e = cand_e & ~torch.any((x.hp_conf[None, :] & st.hp_used[:E]) != 0, dim=-1)
+        found_e = bool(torch.any(cand_e)) and valid
+        slot_e = int(torch.argmin(torch.where(cand_e, torch.arange(E, device=dev, dtype=torch.int32), inf)))
+
+    # ======== in-flight claims (screen + exact loop in rank order) ========
+    done = found_e or not valid
+    excluded = torch.zeros(N, dtype=torch.bool, device=dev)
+    slot_c = 0
+    alive_cn = None
+    final_c = None
+    if not done:
+        final_c, cand_c = _claim_screen(tb, st, x, nonempty_h)
+    while not done:
+        live = cand_c & ~excluded
+        if not bool(torch.any(live)):
+            break
+        n = int(torch.argmin(torch.where(live, st.rank, inf)))
+        final_n = _row(final_c, n)
+        total = st.crequests[n] + x.prequests
+        final_i = _type_filter(final_n, unpack(st.alive[n], I), total, tb)
+        ok = bool(torch.any(final_i)) and bool(_min_values_ok(final_n, final_i, tb))
+        excluded[n] = not ok
+        done = ok
+        slot_c = n if ok else 0
+        if ok:
+            alive_cn = final_i
+    found_c = alive_cn is not None and not found_e and valid
+
+    # ======== new claim from a template (exact, weight order) ========
+    need_new = not found_e and not found_c and valid
+    found_t, slot_t, overflow = False, 0, False
+    final_tn, alive_tn = None, None
+    if need_new:
+        merged_t = intersect(tb.treq, _broadcast_row(x.preq, T), tb.va)
+        compat_t = compat(tb.treq, _broadcast_row(x.preq, T), tb.va, True)
+        # a fresh claim's hostname counts are always zero
+        te_t = _eval_topology(
+            merged_t,
+            torch.zeros((st.h_cnt.shape[0], T), dtype=st.h_cnt.dtype, device=dev),
+            nonempty_h,
+            x,
+            st,
+            tb,
+        )
+        final_t = _apply_tighten(merged_t, te_t.tight, te_t.touched, tb.va)
+        lim_ok = torch.all(
+            ~tb.tlimit_def[:, None, :] | (tb.icap[None, :, :] <= st.trem[:, None, :]),
+            dim=-1,
+        )  # [T, I]
+        tmember = unpack(tb.ttypes, I)  # [T, I]
+        talive = tmember & (lim_ok | ~tb.thas_limits[:, None])
+        totals = tb.tdaemon + x.prequests  # [T, R]
+        t_final_i = torch.stack(
+            [_type_filter(_row(final_t, t), talive[t], totals[t], tb) for t in range(T)]
+        )
+        t_minok = torch.stack(
+            [_min_values_ok(_row(final_t, t), t_final_i[t], tb) for t in range(T)]
+        )
+        viable_nogate = (
+            compat_t
+            & te_t.viable
+            & _topo_nonempty_ok(final_t, te_t.touched, tb.va)
+            & x.tol_t
+            & torch.any(t_final_i, dim=-1)
+            & t_minok
+        )
+        if HPW:
+            viable_nogate = viable_nogate & ~torch.any((x.hp_conf[None, :] & tb.thp) != 0, dim=-1)
+        any_viable = bool(torch.any(viable_nogate))
+        if any_viable and n_claims < N:
+            found_t = True
+            slot_t = int(torch.argmax(viable_nogate.to(torch.int32)))
+            final_tn = _row(final_t, slot_t)
+            alive_tn = t_final_i[slot_t]
+        # a viable template exists but every claim slot is taken: the host
+        # must re-solve with more slots
+        overflow = any_viable and n_claims >= N
+
+    if found_e:
+        kind = KIND_EXISTING
+    elif found_c:
+        kind = KIND_CLAIM
+    elif found_t:
+        kind = KIND_NEW
+    else:
+        kind = KIND_FAIL
+
+    # ======== apply updates (on copies; the input state stays intact) ========
+    st2 = _clone_state(st)
+    final_rec = None
+    slot_global = 0
+    if kind == KIND_EXISTING:
+        st2.eavail[slot_e] -= x.prequests
+        final_rec = _row(final_e, slot_e)
+        _set_row(st2.ereq, slot_e, final_rec, torch.ones((), dtype=torch.bool, device=dev))
+        slot_global = slot_e
+    elif kind == KIND_CLAIM:
+        final_rec = _row(final_c, slot_c)
+        rank_inc, cnew = _rank_after_increment(st, slot_c)
+        _set_row(st2.creq, slot_c, final_rec, torch.ones((), dtype=torch.bool, device=dev))
+        st2.crequests[slot_c] += x.prequests
+        st2.alive[slot_c] = pack(alive_cn, IW)
+        st2.cmax_alloc[slot_c] = torch.max(torch.where(alive_cn[:, None], tb.ialloc, -inf), dim=0).values
+        st2.count[slot_c] = cnew
+        st2.rank.copy_(rank_inc)
+        slot_global = E + slot_c
+    elif kind == KIND_NEW:
+        m = n_claims
+        final_rec = final_tn
+        _set_row(st2.creq, m, final_tn, torch.ones((), dtype=torch.bool, device=dev))
+        st2.crequests[m] = tb.tdaemon[slot_t] + x.prequests
+        st2.alive[m] = pack(alive_tn, IW)
+        st2.cmax_alloc[m] = torch.max(torch.where(alive_tn[:, None], tb.ialloc, -inf), dim=0).values
+        st2.count[m] = 1
+        st2.rank.copy_(_rank_after_create(st, m))
+        st2.active[m] = True
+        st2.tmpl[m] = slot_t
+        st2.n_claims.add_(1)
+        # subtractMax on the chosen template's pool limits
+        if bool(tb.thas_limits[slot_t]):
+            max_cap = torch.max(torch.where(alive_tn[:, None], tb.icap, _i32(0, dev)), dim=0).values
+            st2.trem[slot_t] -= torch.where(tb.tlimit_def[slot_t], max_cap, _i32(0, dev))
+        slot_global = E + m
+
+    # reservation bookkeeping: the committed claim's held set is recomputed
+    # from its final requirements + surviving types
+    NRES = st.rescap.shape[0]
+    if NRES and kind in (KIND_CLAIM, KIND_NEW):
+        slot_r = slot_c if kind == KIND_CLAIM else n_claims
+        alive_r = alive_cn if kind == KIND_CLAIM else alive_tn
+        alive_o = alive_r[tb.otype.clamp(0, I - 1).long()]
+        offb = gather_bits(final_rec.mask, tb.oword, tb.obit)
+        off_ok = torch.all(offb | (tb.oword < 0), dim=-1) & tb.ovalid
+        cand_o = alive_o & off_ok & (tb.orid >= 0)
+        cand_r = torch.zeros(NRES, dtype=torch.int32, device=dev)
+        rid = tb.orid.clamp(min=0)
+        inb = rid < NRES
+        cand_r.index_add_(0, rid.clamp(max=NRES - 1).long(), (cand_o & inb).to(torch.int32))
+        NRESW = st.held.shape[1]
+        held_old = unpack(st.held[slot_r], NRES)
+        new_held = (cand_r > 0) & (held_old | (st.rescap > 0))
+        delta = new_held.to(torch.int32) - held_old.to(torch.int32)
+        st2.rescap.sub_(delta)
+        st2.held[slot_r] = pack(new_held, NRESW)
+
+    # topology record
+    pred = kind != KIND_FAIL
+    if pred:
+        allow_wk = torch.tensor(kind != KIND_EXISTING, device=dev)
+        st2_v, st2_h = _record(
+            st.v_cnt, st.h_cnt, final_rec, slot_global, allow_wk,
+            torch.ones((), dtype=torch.bool, device=dev), x, tb,
+        )
+        st2.v_cnt.copy_(st2_v)
+        st2.h_cnt.copy_(st2_h)
+        if HPW:
+            hp_add = x.hp_own
+            if kind == KIND_NEW:
+                hp_add = hp_add | tb.thp[min(max(slot_t, 0), max(T - 1, 0))]
+            st2.hp_used[slot_global] |= hp_add
+
+    if kind == KIND_EXISTING:
+        out_slot = slot_e
+    elif kind == KIND_CLAIM:
+        out_slot = slot_c
+    elif kind == KIND_NEW:
+        out_slot = n_claims
+    else:
+        out_slot = -1
+    return st2, (kind, out_slot, overflow)
+
+
+def _clone_state(st: State) -> State:
+    return State(
+        *(
+            Reqs(*(a.clone() for a in f)) if isinstance(f, Reqs) else f.clone()
+            for f in st
+        )
+    )
+
+
+def solve_scan_plain(tb: Tables, st: State, xs: PodX):
+    """The plain version: run the greedy pack over a pod batch. Returns
+    (state, kinds [P] int32, slots [P] int32, overflowed, steps)."""
+    P = xs.valid.shape[0]
+    kinds, slots = [], []
+    overflow = False
+    for p in range(P):
+        x = PodX(*(Reqs(*(a[p] for a in f)) if isinstance(f, Reqs) else f[p] for f in xs))
+        st, (kind, slot, over) = _step(tb, st, x)
+        kinds.append(kind)
+        slots.append(slot)
+        overflow = overflow or over
+    dev = st.rank.device
+    return (
+        st,
+        torch.tensor(kinds, dtype=torch.int32, device=dev),
+        torch.tensor(slots, dtype=torch.int32, device=dev),
+        torch.tensor(overflow, device=dev),
+        P,
+    )
+
+
+def solve_scan(tb: Tables, st: State, xs: PodX):
+    """Run the greedy pack over a pod batch (relax=False); returns
+    (state, kinds, slots, overflowed, steps). `overflowed` means some pod
+    failed only because claim slots ran out (grow N and re-solve); `steps`
+    counts pod positions walked, pads included.
+
+    CPU tensors take the plain version. CUDA tensors launch the
+    `scan_step` kernel, which updates a copy of `st` in place."""
+    if st.rank.device.type == "cpu":
+        return solve_scan_plain(tb, st, xs)
+    return _launch_scan_step(tb, _clone_state(st), xs)
+
+
+# ---------------------------------------------------------------------------
+# the CUDA kernel's wrapper
+
+# the kernel's shared-memory staging limits (csrc/step_args.h)
+_LIMITS = {"TW": 128, "K": 64, "C": 8, "IW": 128, "R": 32, "Gv": 64, "Gh": 64, "HPW": 32, "T": 64, "NRESW": 32}
+
+
+@functools.lru_cache(maxsize=None)
+def _step_args_type():
+    """ctypes mirror of csrc/step_args.h's StepArgs, built from the field
+    names the library reports, so the layout is written down once."""
+    lib = _build.library("scan_step")
+    lib.scan_step_field_names.restype = ctypes.c_char_p
+    lib.scan_step_args_size.restype = ctypes.c_int
+    lib.scan_step_launch.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+    lib.scan_step_launch.restype = ctypes.c_int
+    ptrs, ints = lib.scan_step_field_names().decode().split("|")
+    fields = [(n, ctypes.c_void_p) for n in ptrs.split(",") if n]
+    fields += [(n, ctypes.c_int) for n in ints.split(",") if n]
+    args_type = type("StepArgs", (ctypes.Structure,), {"_fields_": fields})
+    if ctypes.sizeof(args_type) != lib.scan_step_args_size():
+        raise RuntimeError("scan_step: StepArgs layout disagrees with the library")
+    return lib, args_type
+
+
+def checked_ptr(t: torch.Tensor, dtype: torch.dtype, device: torch.device, name: str) -> int:
+    """A kernel argument's device pointer, after checking what the CUDA
+    code assumes: the launch's device, the dtype and a contiguous layout."""
+    if t.device != device:
+        raise ValueError(f"kernel argument {name} is on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"kernel argument {name} has dtype {t.dtype}, expected {dtype}")
+    if not t.is_contiguous():
+        raise ValueError(f"kernel argument {name} is not contiguous")
+    return t.data_ptr()
+
+
+# dtypes of a Reqs row's fields, in Reqs._fields order
+REQS_DTYPES = (torch.int32, torch.int32, torch.bool, torch.bool, torch.bool, torch.int32, torch.int32, torch.int32)
+
+
+def _launch_scan_step(tb: Tables, st: State, xs: PodX):
+    """Launch scan_step on `st` (updated in place); returns the
+    solve_scan tuple."""
+    lib, args_type = _step_args_type()
+    dev = st.rank.device
+    P = xs.valid.shape[0]
+    N = st.active.shape[0]
+    dims = {
+        "P": P, "N": N, "E": st.eavail.shape[0], "T": tb.tdaemon.shape[0],
+        "I": tb.ialloc.shape[0], "IW": st.alive.shape[1], "TW": tb.va.full_mask.shape[0],
+        "K": tb.va.num_keys, "R": tb.ialloc.shape[1], "O": tb.otype.shape[0],
+        "Gv": tb.v_reg.shape[0], "VMAX": tb.v_reg.shape[1], "Gh": st.h_cnt.shape[0],
+        "GhS": tb.h_skew.shape[0], "S": st.h_cnt.shape[1], "C": xs.topo_kind.shape[1],
+        "F": tb.filter_reqs.mask.shape[0], "FA": tb.v_filt.shape[1],
+        "HPW": st.hp_used.shape[1], "NRES": st.rescap.shape[0], "NRESW": st.held.shape[1],
+    }
+    for k, lim in _LIMITS.items():
+        if dims[k] > lim:
+            raise ValueError(f"scan_step: {k}={dims[k]} exceeds the kernel's limit {lim}")
+    if tb.h_filt.shape[1] != dims["FA"] or dims["IW"] * 32 < dims["I"] or dims["S"] != dims["E"] + N:
+        raise ValueError(f"scan_step: inconsistent shapes {dims}")
+    kinds = torch.empty(P, dtype=torch.int32, device=dev)
+    slots = torch.empty(P, dtype=torch.int32, device=dev)
+    overflow = torch.zeros(1, dtype=torch.int32, device=dev)
+    steps = torch.zeros(1, dtype=torch.int32, device=dev)
+    cand = torch.empty(N, dtype=torch.uint8, device=dev)
+    w2k = tb.va.word2key.to(torch.int32)
+
+    vals = dict(dims)
+    i32, b8 = torch.int32, torch.bool
+
+    def put(name, t, dtype):
+        vals[name] = checked_ptr(t, dtype, dev, name)
+
+    def put_reqs(prefix, r: Reqs):
+        for field, t, dtype in zip(Reqs._fields, r, REQS_DTYPES):
+            put(f"{prefix}_{field}", t, dtype)
+
+    put("word2key", w2k, i32)
+    put("well_known", tb.va.well_known, b8)
+    put("full_mask", tb.va.full_mask, i32)
+    put_reqs("treq", tb.treq)
+    for name, dtype in (("tdaemon", i32), ("ttypes", i32), ("tlimit_def", b8), ("thas_limits", b8)):
+        put(name, getattr(tb, name), dtype)
+    put_reqs("ireq", tb.ireq)
+    for name, dtype in (
+        ("ialloc", i32), ("icap", i32), ("otype", i32), ("oword", i32), ("obit", i32),
+        ("ovalid", b8), ("orid", i32), ("v_kid", i32), ("v_word", i32), ("v_bit", i32),
+        ("v_reg", b8), ("v_skew", i32), ("v_mindom", i32), ("v_filt", i32), ("v_anti", b8),
+        ("h_skew", i32), ("h_filt", i32), ("h_inverse", b8), ("thp", i32),
+    ):
+        put(name, getattr(tb, name), dtype)
+    put_reqs("freq", tb.filter_reqs)
+    for name, dtype in (("active", b8), ("count", i32), ("rank", i32), ("tmpl", i32)):
+        put(name, getattr(st, name), dtype)
+    put_reqs("creq", st.creq)
+    for name, dtype in (("crequests", i32), ("alive", i32), ("cmax_alloc", i32), ("n_claims", i32)):
+        put(name, getattr(st, name), dtype)
+    put_reqs("ereq", st.ereq)
+    for name, dtype in (
+        ("eavail", i32), ("trem", i32), ("v_cnt", i32), ("h_cnt", i32),
+        ("rescap", i32), ("held", i32), ("hp_used", i32),
+    ):
+        put(name, getattr(st, name), dtype)
+    put_reqs("preq", xs.preq)
+    for name, dtype in (
+        ("prequests", i32), ("typeok", i32), ("tol_t", b8), ("tol_e", b8), ("topo_kind", i32),
+        ("topo_gid", i32), ("topo_sel", b8), ("sel_v", b8), ("sel_h", b8), ("inv_h", b8),
+        ("own_h", b8), ("valid", b8), ("hp_own", i32), ("hp_conf", i32),
+    ):
+        put(name, getattr(xs, name), dtype)
+    put("kinds", kinds, i32)
+    put("slots", slots, i32)
+    put("overflow", overflow, i32)
+    put("steps", steps, i32)
+    put("cand", cand, torch.uint8)
+
+    missing = {f for f, _ in args_type._fields_} ^ set(vals)
+    if missing:
+        raise RuntimeError(f"scan_step: argument fields out of step with the library: {sorted(missing)}")
+    args = args_type(**vals)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    code = lib.scan_step_launch(ctypes.byref(args), ctypes.c_void_p(stream))
+    _build.check_launch("scan_step", code)
+    LAUNCHES["scan_step"] += 1
+    return st, kinds, slots, overflow[0] != 0, P
