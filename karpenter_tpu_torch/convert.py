@@ -49,3 +49,17 @@ def state(st, device="cpu") -> State:
 
 def pod_x(xs, device="cpu") -> PodX:
     return _convert(xs, PodX, torch.device(device))
+
+
+def run_x(rx, device="cpu"):
+    """The reference's RunX (numpy leaves) -> tpu_runs.RunX."""
+    from karpenter_tpu_torch.solver.tpu_runs import RunX
+
+    dev = torch.device(device)
+    return RunX(
+        x=pod_x(rx.x, device),
+        is_head=_leaf(rx.is_head, dev),
+        bulk=_leaf(rx.bulk, dev),
+        aff=_leaf(rx.aff, dev),
+        run_rem=_leaf(rx.run_rem, dev),
+    )

@@ -1,9 +1,12 @@
-// The argument block of the scan_step kernel, declared once.
+// The argument block of the step kernels (scan_step, run_step), declared
+// once.
 //
-// The Python wrapper (karpenter_tpu_torch/solver/tpu_kernel.py) reads the field names
-// back through scan_step_field_names() and builds its ctypes structure from
-// them, so this list is the only place the layout is written down. Pointer
-// fields come first (all void*, typed by the kernel), then int fields.
+// The Python wrapper (karpenter_tpu_torch/solver/tpu_kernel.py) reads the
+// field names back through <kernel>_field_names() and builds its ctypes
+// structure from them, so this list is the only place the layout is written
+// down. Pointer fields come first (all void*, typed by the kernel), then int
+// fields. A kernel ignores the fields it does not use; the wrapper passes 0
+// there.
 #pragma once
 
 #define KTPU_REQS_FIELDS(X, p) \
@@ -24,12 +27,14 @@
   /* the pod batch [P, ...] */                                                               \
   KTPU_REQS_FIELDS(X, preq) X(prequests) X(typeok) X(tol_t) X(tol_e) X(topo_kind)            \
   X(topo_gid) X(topo_sel) X(sel_v) X(sel_h) X(inv_h) X(own_h) X(valid) X(hp_own) X(hp_conf)  \
-  /* outputs and scratch */                                                                  \
-  X(kinds) X(slots) X(overflow) X(steps) X(cand)
+  /* outputs and scratch; counters = overflow, steps, bulk_steps, next_seq, ptr */          \
+  X(kinds) X(slots) X(counters) X(cand)                                                      \
+  /* the run kernel: claim event sequence, run driver arrays, run cache scratch */           \
+  X(seq) X(is_head) X(bulk) X(aff) X(run_rem) X(scratch)
 
 #define KTPU_STEP_INT_FIELDS(X)                                                              \
   X(P) X(N) X(E) X(T) X(I) X(IW) X(TW) X(K) X(R) X(O) X(Gv) X(VMAX) X(Gh) X(GhS) X(S) X(C)   \
-  X(F) X(FA) X(HPW) X(NRES) X(NRESW)
+  X(F) X(FA) X(HPW) X(NRES) X(NRESW) X(n_valid)
 
 struct StepArgs {
 #define KTPU_DECL_PTR(name) void* name;
@@ -51,3 +56,5 @@ struct StepArgs {
 #define KTPU_MAX_HPW 32
 #define KTPU_MAX_T 64
 #define KTPU_MAX_NRESW 32
+// the run kernel's bulk window (tpu_runs.py W)
+#define KTPU_RUN_W 64

@@ -1,6 +1,6 @@
-"""TorchScheduler: the provisioning solve on torch tensors (scan path).
+"""TorchScheduler: the provisioning solve on torch tensors.
 
-A port of the reference's `solver/tpu.py` `TpuScheduler` on the scan path:
+A port of the reference's `solver/tpu.py` `TpuScheduler` (relax=False):
 the same constructor and `solve(pods) -> Results` surface, wrapping the
 port's copy of `oracle.Scheduler` the same way. A solve runs
 
@@ -8,16 +8,24 @@ port's copy of `oracle.Scheduler` the same way. A solve runs
 2. the FFD order (`_order_pods`),
 3. table upload with the pod x type screen (`_tables`, `_pod_typeok`
    through the `typeok_screen` kernel, `_upload_pod_tables`),
-4. requeue rounds: `_pod_xs` gathers a round's rows, then
-   `tpu_kernel.solve_scan` (the `scan_step` kernel on the card); a claim
-   slot overflow doubles N and re-solves,
-5. `_decode` back to Results, writing claims, existing-node usage, pool
-   limits and topology counts onto the shared oracle.
+4. requeue rounds, on one of two paths chosen as the reference chooses:
+   - the runs path, whenever a pod class passes the bulk gates
+     (`_bulk_gates`, `_bulk_class_flags`): `_pod_xs_with_idx` gathers a
+     round's rows, `run_arrays` (kernel K4) derives the run driver arrays
+     and `tpu_runs.solve_runs` (kernel K3, `run_step`) walks the round; a
+     claim-slot overflow stops the walk on the overflowing pod, the state
+     grows from N to 2N slots (`_grow`) and the round goes on from there;
+   - the scan path otherwise (or with `debug_force_scan`): `_pod_xs`,
+     then `tpu_kernel.solve_scan` (kernel K2, `scan_step`); an overflow
+     doubles N and re-solves from scratch,
+5. `_decode` back to Results, fetching the live claim rows (deduplicated by
+   `dedup_rows`, kernel K5, from `_DEDUP_DECODE_MIN` slots up) and writing
+   claims, existing-node usage, pool limits and topology counts onto the
+   shared oracle.
 
 Decisions are bit-identical to the oracle's for supported problems.
 Problems with relaxation tiers raise UnsupportedBySolver (callers fall back
-to the oracle on that exception); the relax tier loop and the run kernel
-are not ported yet.
+to the oracle on that exception); the relax tier loop is not ported yet.
 """
 
 from __future__ import annotations
@@ -42,6 +50,7 @@ from karpenter_tpu_torch.scheduling import Requirement, Requirements
 from karpenter_tpu_torch.solver import buckets
 from karpenter_tpu_torch.solver import nodes as nodes_mod
 from karpenter_tpu_torch.solver import tpu_kernel as K
+from karpenter_tpu_torch.solver import tpu_runs as KR
 from karpenter_tpu_torch.solver.nodes import (
     SchedulingNodeClaim,
     StateNodeView,
@@ -50,6 +59,10 @@ from karpenter_tpu_torch.solver.nodes import (
 from karpenter_tpu_torch.solver.oracle import Results, Scheduler, SchedulerOptions
 from karpenter_tpu_torch.solver.topology import Topology
 from karpenter_tpu_torch.solver.tpu_problem import (
+    TOPO_AFFINITY_H,
+    TOPO_AFFINITY_V,
+    TOPO_ANTI_V,
+    TOPO_SPREAD_V,
     EncodedProblem,
     UnsupportedBySolver,
     _pow2,
@@ -57,8 +70,8 @@ from karpenter_tpu_torch.solver.tpu_problem import (
 )
 from karpenter_tpu_torch.utils import resources as res
 
-# launches of the CUDA type-screen kernel
-LAUNCHES = {"typeok_screen": 0}
+# launches of the CUDA kernels wrapped in this module
+LAUNCHES = {"typeok_screen": 0, "run_arrays": 0, "dedup_rows": 0}
 
 
 # ---------------------------------------------------------------------------
@@ -129,6 +142,295 @@ def typeok_screen(ireq: Reqs, va: VocabArrays, preq_rows: Reqs, iw: int) -> torc
 
 
 # ---------------------------------------------------------------------------
+# bulk gates (host side): which pod classes may take the run kernel's bulk
+# windows. When a gate fails, every pod takes the exact step inside the
+# same kernel, so the gates cost speed, never correctness.
+
+
+def _popcount_rows(seg: np.ndarray) -> np.ndarray:
+    return np.unpackbits(seg.astype("<u4").view(np.uint8), axis=-1).sum(axis=-1)
+
+
+def _bulk_gates(p: EncodedProblem) -> bool:
+    """Problem-level gates for the bulk windows (the reference's
+    `_bulk_gates` with strict_types=False, the run kernel's rule): no
+    minValues, no pool limits, no template host ports, no reservation
+    offerings, each concrete type row single-valued per key or covering the
+    union of the type rows (the kernel verifies surviving types exactly at
+    every commit, so the screens need only be sound relative to the type
+    universe), and offerings whose zone sets agree across capacity types."""
+    if (p.treq.minv != -1).any() or (p.preq_c.minv != -1).any():
+        return False
+    if p.num_existing and (p.ereq.minv != -1).any():
+        return False
+    if p.thas_limits.any():
+        return False
+    if p.thp is not None and p.thp.any():
+        return False
+    vocab = p.vocab
+    for kid in range(vocab.num_keys):
+        off, words = vocab.word_offset[kid], vocab.words_per_key[kid]
+        seg = p.ireq.mask[:, off : off + words]
+        concrete = p.ireq.defined[:, kid] & ~p.ireq.other[:, kid]
+        union = np.bitwise_or.reduce(np.where(concrete[:, None], seg, 0), axis=0)
+        full = int(_popcount_rows(union[None])[0])
+        pop = _popcount_rows(seg)
+        if (concrete & (pop > 1) & (pop < full)).any():
+            return False
+    # offerings decompose per key: every capacity type a type offers covers
+    # the same zone set (padded offering rows past num_offerings_real skip)
+    per_type: dict[int, dict[int, set]] = {}
+    for o in range(p.num_offerings_real):
+        i = int(p.otype[o])
+        if p.oword[o, 2] != -1:
+            return False  # reservation-id offerings
+        zw, cw = int(p.oword[o, 0]), int(p.oword[o, 1])
+        z = -1 if zw == -1 else zw * 32 + int(p.obit[o, 0])
+        c = -1 if cw == -1 else cw * 32 + int(p.obit[o, 1])
+        per_type.setdefault(i, {}).setdefault(c, set()).add(z)
+    for zones_by_ct in per_type.values():
+        wildcard = zones_by_ct.pop(-1, None)
+        if wildcard is not None and -1 in wildcard:
+            continue  # a fully unconstrained offering covers everything
+        sets = [frozenset(v) for v in zones_by_ct.values()]
+        if sets and len(set(sets)) > 1 and not any(-1 in s for s in sets):
+            return False
+    return True
+
+
+def _bulk_class_flags(p: EncodedProblem, gates_ok: bool) -> np.ndarray:
+    """[NC] bool — the class admits bulk windows: the problem gates pass,
+    it has no self-selecting zone-family spread/anti constraint, a single
+    relax tier and no host ports of its own."""
+    NC = len(p.class_reps)
+    if not gates_ok:
+        return np.zeros(NC, bool)
+    dyn_v = np.isin(p.ptopo_kind_c, (TOPO_SPREAD_V, TOPO_ANTI_V)) & p.ptopo_sel_c
+    ntiers_c = p.ntiers_r[p.rcls_of]
+    has_ports = (
+        p.php_own_c.any(axis=1) if p.php_own_c is not None and p.php_own_c.shape[1] else np.zeros(NC, bool)
+    )
+    return ~dyn_v.any(axis=1) & (ntiers_c == 1) & ~has_ports
+
+
+# ---------------------------------------------------------------------------
+# K4 run_arrays
+#
+# Replaces karpenter_tpu/solver/tpu.py:155 `_run_arrays`: the run driver
+# arrays of a round from its pod index array and the per-class flags. Bound
+# on an H100: bytes (a few [P] int arrays, tens of KB at the headline), so
+# launch latency decides; one CTA does the head flags, a reverse min-scan
+# for the next head (chunk per thread, then a scan over the chunks) and
+# run_rem in one launch (csrc/run_arrays.cu).
+
+_BIG = (1 << 31) - 1
+
+
+def run_arrays_plain(cls_d, bulk_c, aff_c, idx, n: int):
+    """(is_head, bulk, aff, run_rem) [P]. Padding positions (>= n) are
+    single-pod runs with bulk off."""
+    P = idx.shape[0]
+    pos = torch.arange(P, dtype=torch.int32, device=idx.device)
+    valid = pos < n
+    ci = cls_d[idx.long()].long()
+    is_head = (pos == 0) | (ci != torch.roll(ci, 1)) | ~valid
+    arr = torch.where(is_head, pos, torch.tensor(_BIG, dtype=torch.int32, device=idx.device))
+    m = torch.flip(torch.cummin(torch.flip(arr, (0,)), 0).values, (0,))  # m[i] = min(arr[i:])
+    # next head strictly after i; a tail run with no head after it ends at P
+    nh = torch.cat([m[1:], torch.tensor([P], dtype=torch.int32, device=idx.device)])
+    run_rem = torch.clamp(nh, max=P) - pos
+    return is_head, bulk_c[ci] & valid, aff_c[ci] & valid, run_rem
+
+
+class _RunArraysArgs(ctypes.Structure):
+    _fields_ = [(n, ctypes.c_void_p) for n in ("cls", "bulk_c", "aff_c", "idx", "is_head", "bulk", "aff", "run_rem")] + [
+        (n, ctypes.c_int) for n in ("P", "n", "NCLS", "NC")
+    ]
+
+
+@functools.lru_cache(maxsize=None)
+def _small_lib(name: str, args_type):
+    lib = _build.library(name)
+    getattr(lib, f"{name}_args_size").restype = ctypes.c_int
+    launch = getattr(lib, f"{name}_launch")
+    launch.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+    launch.restype = ctypes.c_int
+    if getattr(lib, f"{name}_args_size")() != ctypes.sizeof(args_type):
+        raise RuntimeError(f"{name}: argument layout disagrees with the library")
+    return lib
+
+
+def run_arrays(cls_d, bulk_c, aff_c, idx, n: int):
+    """run_arrays_plain's contract. CPU tensors take the plain version;
+    CUDA tensors launch the kernel."""
+    dev = idx.device
+    if dev.type == "cpu":
+        return run_arrays_plain(cls_d, bulk_c, aff_c, idx, n)
+    P = idx.shape[0]
+    is_head = torch.empty(P, dtype=torch.bool, device=dev)
+    bulk = torch.empty(P, dtype=torch.bool, device=dev)
+    aff = torch.empty(P, dtype=torch.bool, device=dev)
+    run_rem = torch.empty(P, dtype=torch.int32, device=dev)
+    ptrs = {}
+    for name, t, dt in (
+        ("cls", cls_d, torch.int32), ("bulk_c", bulk_c, torch.bool), ("aff_c", aff_c, torch.bool),
+        ("idx", idx, torch.int32), ("is_head", is_head, torch.bool), ("bulk", bulk, torch.bool),
+        ("aff", aff, torch.bool), ("run_rem", run_rem, torch.int32),
+    ):
+        ptrs[name] = K.checked_ptr(t, dt, dev, name)
+    if not 0 <= n <= P or bulk_c.shape[0] != aff_c.shape[0]:
+        raise ValueError(f"run_arrays: n={n}, P={P}, flags {bulk_c.shape[0]}/{aff_c.shape[0]}")
+    args = _RunArraysArgs(P=P, n=n, NCLS=cls_d.shape[0], NC=bulk_c.shape[0], **ptrs)
+    lib = _small_lib("run_arrays", _RunArraysArgs)
+    code = lib.run_arrays_launch(ctypes.byref(args), ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
+    _build.check_launch("run_arrays", code)
+    LAUNCHES["run_arrays"] += 1
+    return is_head, bulk, aff, run_rem
+
+
+# ---------------------------------------------------------------------------
+# K5 dedup_rows
+#
+# Replaces karpenter_tpu/solver/tpu.py:264 `_dedup_decode_state`: claims
+# overwhelmingly share identical (requirement row, surviving types) pairs,
+# so the decode fetches each distinct row once. Rows are sorted by two
+# independent 32-bit row hashes (then by row index: JAX's stable lexsort),
+# compared in full with their predecessor, and compacted; hash collisions
+# only leave equal rows apart (a duplicate "unique"), never merge distinct
+# rows. Bound on an H100: bytes (the [n2, C] rows read once, the compact
+# copy and inverse written once: about 3 MB at the headline's n2=2048,
+# C=184), in practice the sort's dependent passes. One warp hashes and
+# compares each row; the (h1, h2, index) keys sort by a bitonic network in
+# shared memory up to 8192 rows and in global memory, one launch per pass,
+# above (csrc/dedup_rows.cu). It never calls torch.sort or torch.unique.
+
+_MASK32 = 0xFFFFFFFF
+# the dedup fetch costs an extra round trip; below this bucket the plain
+# slice is cheaper (tests lower it to drive the dedup path on small problems)
+_DEDUP_DECODE_MIN = 2048
+
+
+def _mulmod32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """(a * b) mod 2^32 for int64 tensors holding values in [0, 2^32),
+    without leaving int64: b is split into 16-bit halves."""
+    lo, hi = b & 0xFFFF, b >> 16
+    return (a * lo + (((a * hi) & 0xFFFF) << 16)) & _MASK32
+
+
+def row_hashes(rows: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The reference's two wrapping u32 row hashes of [n, C] int32 rows,
+    as int64 tensors in [0, 2^32)."""
+    u = rows.to(torch.int64) & _MASK32
+    j = torch.arange(rows.shape[1], dtype=torch.int64, device=rows.device)
+    m1 = ((2 * j + 1) * 2654435761) & _MASK32
+    m2 = ((2 * j + 1) * 2246822519) & _MASK32
+    h1 = _mulmod32(u, m1[None]).sum(1) & _MASK32
+    h2 = _mulmod32((u + j[None]) & _MASK32, m2[None]).sum(1) & _MASK32
+    return h1, h2
+
+
+def dedup_rows_plain(rows: torch.Tensor):
+    """(n_uniq 0-dim int32, inv [n] int32, compact [n, C] int32): the
+    unique rows in (h1, h2, index) order at the front of `compact` (zeros
+    after), and each row's index among them."""
+    n = rows.shape[0]
+    h1, h2 = row_hashes(rows)
+    order = torch.argsort(h2, stable=True)
+    order = order[torch.argsort(h1[order], stable=True)]  # lexsort((h2, h1))
+    sm = rows[order]
+    is_new = torch.ones(n, dtype=torch.bool, device=rows.device)
+    is_new[1:] = torch.any(sm[1:] != sm[:-1], dim=1)
+    dest = torch.cumsum(is_new, 0) - 1
+    compact = torch.zeros_like(rows)
+    compact[dest] = sm  # equal rows share a dest
+    inv = torch.zeros(n, dtype=torch.int32, device=rows.device)
+    inv[order] = dest.to(torch.int32)
+    return (dest[-1] + 1).to(torch.int32), inv, compact
+
+
+class _DedupArgs(ctypes.Structure):
+    _fields_ = [(n, ctypes.c_void_p) for n in ("rows", "compact", "inv", "n_uniq", "keys", "order", "flags")] + [
+        (n, ctypes.c_int) for n in ("n", "C", "L")
+    ]
+
+
+def dedup_rows(rows: torch.Tensor):
+    """dedup_rows_plain's contract. CPU tensors take the plain version;
+    CUDA tensors launch the kernel."""
+    dev = rows.device
+    if dev.type == "cpu":
+        return dedup_rows_plain(rows)
+    n, C = rows.shape
+    if n < 1:
+        raise ValueError("dedup_rows: no rows")
+    L = _pow2(n, floor=1)
+    compact = torch.zeros_like(rows)
+    inv = torch.empty(n, dtype=torch.int32, device=dev)
+    n_uniq = torch.empty((), dtype=torch.int32, device=dev)
+    keys = torch.empty(L, dtype=torch.int64, device=dev)
+    order = torch.empty(L, dtype=torch.int32, device=dev)
+    flags = torch.empty(n, dtype=torch.int32, device=dev)
+    ptrs = {
+        name: K.checked_ptr(t, dt, dev, name)
+        for name, t, dt in (
+            ("rows", rows, torch.int32), ("compact", compact, torch.int32), ("inv", inv, torch.int32),
+            ("n_uniq", n_uniq, torch.int32), ("keys", keys, torch.int64), ("order", order, torch.int32),
+            ("flags", flags, torch.int32),
+        )
+    }
+    args = _DedupArgs(n=n, C=C, L=L, **ptrs)
+    lib = _small_lib("dedup_rows", _DedupArgs)
+    code = lib.dedup_rows_launch(ctypes.byref(args), ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
+    _build.check_launch("dedup_rows", code)
+    LAUNCHES["dedup_rows"] += 1
+    return n_uniq, inv, compact
+
+
+def decode_rows(st: K.State, n2: int) -> torch.Tensor:
+    """[n2, C] int32: each live claim slot's requirement row and surviving
+    types packed side by side (the reference's dedup layout, C = 2 TW +
+    6 K + IW)."""
+    r = st.creq
+    cols = [r.mask, r.exmask, r.other, r.notin, r.defined, r.gt, r.lt, r.minv, st.alive]
+    return torch.cat([c[:n2].to(torch.int32) for c in cols], dim=1)
+
+
+def dedup_decode_state(st: K.State, n2: int):
+    """(n_uniq, inv, compact) of the first n2 claim rows; compact stays on
+    the device until the caller knows n_uniq (`_slice_rows`)."""
+    return dedup_rows(decode_rows(st, n2))
+
+
+# ---------------------------------------------------------------------------
+# the per-solve odometer
+
+
+def _new_odo_totals() -> dict:
+    """Per-solve kernel-odometer accumulator (TorchScheduler.last_odometer):
+    dispatch counters sum over every kernel launch of the solve, including
+    a scan-path attempt that overflowed and was re-solved;
+    claims_opened/claim_slots/claim_occupancy land in _decode."""
+    return {
+        "steps": 0,
+        "bulk_steps": 0,
+        "tier_steps": 0,
+        "tier_hist": [0] * K.ODO_TIER_BINS,
+        "dispatches": 0,
+        "overflow_signals": 0,
+        "regrows": 0,
+    }
+
+
+def _fold_odo(totals: dict, odo: K.Odometer) -> None:
+    totals["steps"] += int(odo.steps)
+    totals["bulk_steps"] += int(odo.bulk_steps)
+    totals["tier_steps"] += int(odo.tier_steps)
+    for t, v in enumerate(odo.tier_hist.tolist()):
+        totals["tier_hist"][t] += v
+    totals["dispatches"] += 1
+
+
+# ---------------------------------------------------------------------------
 
 _DecodeView = collections.namedtuple(
     "_DecodeView",
@@ -144,6 +446,12 @@ def _np_words(t: torch.Tensor) -> np.ndarray:
 class TorchScheduler:
     """Same surface as oracle.Scheduler, solving with torch on `device`
     (None = the CUDA device; pass "cpu" for the plain versions)."""
+
+    # Testing knob: take the exact per-pod scan path even when a class
+    # passes the bulk gates. The scan path is always valid (the runs path
+    # only cuts iterations), so forcing it re-checks the same decisions
+    # through the other kernel. The reference has the same knob.
+    debug_force_scan = False
 
     def __init__(
         self,
@@ -162,9 +470,9 @@ class TorchScheduler:
             node_pools, instance_types_by_pool, topology, state_nodes, daemonset_pods, options
         )
         self.opts = self.oracle.opts
-        # per-solve device counters: kernel steps walked (pads included),
-        # solve_scan dispatches, claim-slot overflow re-solves
+        # the last solve's kernel odometer (see _new_odo_totals) and path
         self.last_odometer = None
+        self.last_used_runs = False
 
     # -- solve ----------------------------------------------------------
 
@@ -181,15 +489,26 @@ class TorchScheduler:
         order = self._order_pods(problem)
         tb = self._tables(problem)  # also sets self._typeok
         self._upload_pod_tables(problem)
+        self._bulk_flags_c = _bulk_class_flags(problem, _bulk_gates(problem))
+        use_runs = bool(self._bulk_flags_c.any()) and not self.debug_force_scan
+        self.last_used_runs = use_runs
+        if use_runs:
+            self._set_runflags_dev()
 
-        # the scan path re-solves from scratch on overflow, so its slot
-        # pool is not undersized
-        div = min(max(1, int(self.opts.claim_slot_div)), 4)
+        # Claim slots start small: the runs path grows the carried state on
+        # overflow and goes on from the overflowing pod (decisions do not
+        # depend on the slot count), so it risks only a growth step. The
+        # scan path re-solves from scratch, so its pool is not undersized.
+        div = max(1, int(self.opts.claim_slot_div))
+        if not use_runs:
+            div = min(div, 4)
         N = min(_pow2(max(64, (len(pods) + div - 1) // div)), _pow2(len(pods)))
-        odo = {"steps": 0, "dispatches": 0, "overflow_signals": 0}
+        odo = _new_odo_totals()
         self.last_odometer = odo
         while True:
             st = self._init_state(problem, N)
+            seq = torch.zeros(N, dtype=torch.int32, device=self.device)
+            next_seq = torch.zeros((), dtype=torch.int32, device=self.device)
             kinds = np.full(len(pods), K.KIND_FAIL, dtype=np.int32)
             slots = np.full(len(pods), -1, dtype=np.int32)
             pending = list(order)
@@ -199,27 +518,51 @@ class TorchScheduler:
                 if deadline is not None and time_mod.monotonic() > deadline:
                     timed_out = True
                     break
-                # one requeue round over `pending`
-                batch = pending
-                xs = self._pod_xs(problem, batch)
-                st, got_kinds, got_slots, got_over, steps = K.solve_scan(tb, st, xs)
-                odo["steps"] += steps
-                odo["dispatches"] += 1
-                if bool(got_over):
-                    overflowed = True
-                    odo["overflow_signals"] += 1
+                # one requeue round over `pending`; the runs path takes one
+                # more dispatch per claim-slot growth inside the round
+                round_failed: list[int] = []
+                offset = 0
+                while True:
+                    batch = pending[offset:]
+                    if use_runs:
+                        xs, idx_d = self._pod_xs_with_idx(problem, batch)
+                        rx = self._run_x(xs, idx_d, len(batch))
+                        st, seq, next_seq, got_kinds, got_slots, got_over, got_odo, got_ptr = KR.solve_runs(
+                            tb, st, rx, seq, next_seq, len(batch)
+                        )
+                    else:
+                        xs = self._pod_xs(problem, batch)
+                        st, got_kinds, got_slots, got_over, got_odo = K.solve_scan(tb, st, xs)
+                        got_ptr = None
+                    _fold_odo(odo, got_odo)
+                    got_kinds = got_kinds.cpu().numpy()
+                    got_slots = got_slots.cpu().numpy()
+                    if bool(got_over):
+                        odo["overflow_signals"] += 1
+                    if bool(got_over) and got_ptr is None:
+                        overflowed = True  # scan path: re-solve from scratch
+                        break
+                    # runs path: commit the pods before the overflowing one,
+                    # grow the state, go on from that pod
+                    n_done = int(got_ptr) if bool(got_over) else len(batch)
+                    done = batch[:n_done]
+                    kinds[done] = got_kinds[:n_done]
+                    slots[done] = got_slots[:n_done]
+                    round_failed += [i for i, k in zip(done, got_kinds[:n_done]) if k == K.KIND_FAIL]
+                    if not bool(got_over):
+                        break
+                    st, seq = self._grow(problem, st, seq, N)
+                    odo["regrows"] += 1
+                    N *= 2
+                    offset += n_done
+                if overflowed:
                     break
-                got_kinds = got_kinds.cpu().numpy()[: len(batch)]
-                got_slots = got_slots.cpu().numpy()[: len(batch)]
-                kinds[batch] = got_kinds
-                slots[batch] = got_slots
-                round_failed = [i for i, k in zip(batch, got_kinds) if k == K.KIND_FAIL]
                 if len(round_failed) == len(pending):
                     break  # no progress: stall
                 pending = round_failed
             if not overflowed:
                 break
-            N *= 2  # slots exhausted: re-solve with room
+            N *= 2  # scan-path slots exhausted: re-solve with room
         return self._decode(problem, st, kinds, slots, timed_out)
 
     def _order_pods(self, p: EncodedProblem) -> list:
@@ -389,7 +732,7 @@ class TorchScheduler:
             tsel_r=t(p.ptopo_sel_c[cr]),
             rcls_of=t(pad_c(p.rcls_of).astype(np.int64)),
             prequests_c=t(pad_c(p.prequests_c)),
-            cls=t(np.asarray(p.pod_class, dtype=np.int64)),
+            cls=t(np.asarray(p.pod_class, dtype=np.int32)),
             srow=t(np.asarray(p.srow, dtype=np.int64)),
             sel_rows_v=t(pad_u(pad_g(p.sel_rows_v, Gv))),
             sel_rows_h=t(pad_u(pad_g(p.sel_rows_h, Gh))),
@@ -398,21 +741,27 @@ class TorchScheduler:
             hp_own_r=t(p.php_own_c[cr]),
             hp_conf_r=t(p.php_conf_c[cr]),
         )
+        # classes owning a pod-affinity constraint: their run head commits
+        # through the exact step before the run cache builds
+        self._aff_c = np.isin(p.ptopo_kind_c, (TOPO_AFFINITY_V, TOPO_AFFINITY_H)).any(axis=1)
 
-    def _pod_xs(self, p: EncodedProblem, indices: list[int]) -> K.PodX:
-        """Gather one round's PodX rows (pow2-padded; pads carry pod 0's
-        rows with valid=False)."""
+    def _pod_xs_with_idx(self, p: EncodedProblem, indices: list[int]):
+        """(PodX, idx_d): one round's PodX rows (pow2-padded; pads carry
+        pod 0's rows with valid=False), gathered on the device from the
+        round's one upload, the int32 index array idx_d, which the run
+        driver arrays (`_run_x`) derive from too."""
         d = self._dev_tables
         n = len(indices)
         P_pad = _pow2(n)
-        idx = np.zeros(P_pad, dtype=np.int64)
+        idx = np.zeros(P_pad, dtype=np.int32)
         idx[:n] = indices
-        idx = torch.from_numpy(idx).to(self.device)
-        ci = d["cls"][idx]
+        idx_d = torch.from_numpy(idx).to(self.device)
+        ii = idx_d.long()
+        ci = d["cls"][ii].long()
         ri = d["rcls_of"][ci]
-        si = d["srow"][idx]
+        si = d["srow"][ii]
         zeros = torch.zeros(P_pad, dtype=torch.int32, device=self.device)
-        return K.PodX(
+        xs = K.PodX(
             preq=Reqs(*(a[ri] for a in d["preq_r"])),
             prequests=d["prequests_c"][ci],
             typeok=d["typeok_r"][ri],
@@ -431,6 +780,53 @@ class TorchScheduler:
             hp_own=d["hp_own_r"][ri],
             hp_conf=d["hp_conf_r"][ri],
         )
+        return xs, idx_d
+
+    def _pod_xs(self, p: EncodedProblem, indices: list[int]) -> K.PodX:
+        return self._pod_xs_with_idx(p, indices)[0]
+
+    def _set_runflags_dev(self) -> None:
+        """The per-class bulk/affinity flags on the device, padded in step
+        with the class tables."""
+        nc = self._dev_tables["prequests_c"].shape[0]
+        self._runflags_dev = (
+            self._t(buckets.pad_rows(self._bulk_flags_c, nc)),
+            self._t(buckets.pad_rows(self._aff_c, nc)),
+        )
+
+    def _run_x(self, xs: K.PodX, idx_d: torch.Tensor, n: int) -> KR.RunX:
+        """The run driver arrays of a round, on the device from the round's
+        index array (`run_arrays`, kernel K4 on the card)."""
+        bulk_d, aff_d = self._runflags_dev
+        is_head, bulk, aff, run_rem = run_arrays(self._dev_tables["cls"], bulk_d, aff_d, idx_d, n)
+        return KR.RunX(x=xs, is_head=is_head, bulk=bulk, aff=aff, run_rem=run_rem)
+
+    def _grow(self, p: EncodedProblem, st: K.State, seq: torch.Tensor, N: int):
+        """Pad the carried state from N to 2N claim slots (the runs path's
+        overflow continuation): the new rows are _init_state's inert
+        slots, appended after the old ones."""
+        dev = self.device
+        i32 = torch.int32
+
+        def cat(a, b, dim=0):
+            return torch.cat([a, b], dim=dim)
+
+        pad_req = self._reqs(empty_reqs(p.vocab, (N,)))
+        zeros = lambda *shape, dtype=i32: torch.zeros(shape, dtype=dtype, device=dev)
+        st = st._replace(
+            active=cat(st.active, zeros(N, dtype=torch.bool)),
+            count=cat(st.count, zeros(N)),
+            rank=cat(st.rank, zeros(N)),
+            tmpl=cat(st.tmpl, zeros(N)),
+            creq=Reqs(*(cat(a, b) for a, b in zip(st.creq, pad_req))),
+            crequests=cat(st.crequests, zeros(N, st.crequests.shape[1])),
+            alive=cat(st.alive, zeros(N, st.alive.shape[1])),
+            cmax_alloc=cat(st.cmax_alloc, zeros(N, st.cmax_alloc.shape[1])),
+            h_cnt=cat(st.h_cnt, zeros(st.h_cnt.shape[0], N), dim=1),
+            held=cat(st.held, zeros(N, st.held.shape[1])),
+            hp_used=cat(st.hp_used, zeros(N, st.hp_used.shape[1])),
+        )
+        return st, cat(seq, zeros(N))
 
     # -- decoding --------------------------------------------------------
 
@@ -439,6 +835,10 @@ class TorchScheduler:
         scheduler = self.oracle
         n_claims = int(st.n_claims)
         N = st.active.shape[0]
+        if self.last_odometer is not None:
+            self.last_odometer.update(
+                claims_opened=n_claims, claim_slots=N, claim_occupancy=round(n_claims / N, 4) if N else 0.0
+            )
         # fetch only the live claim rows (pow2-bucketed)
         n2 = min(_pow2(max(n_claims, 1), floor=64), N)
         E = st.eavail.shape[0]
@@ -452,8 +852,31 @@ class TorchScheduler:
                 )
             )
 
-        creq = host_reqs(st.creq, slice(0, n2))
-        alive = _np_words(st.alive[:n2])
+        if n2 >= _DEDUP_DECODE_MIN:
+            # big solve: fetch each distinct (requirement row, surviving
+            # types) pair once, then rematerialize through the inverse index
+            n_uniq, inv, compact = dedup_decode_state(st, n2)
+            u2 = min(_pow2(max(int(n_uniq), 1), floor=64), n2)
+            uniq = _np_words(compact[:u2])
+            TW, Kk = vocab.total_words, vocab.num_keys
+            cuts = np.cumsum([0, TW, TW, Kk, Kk, Kk, Kk, Kk, Kk])
+            cols = [uniq[:, a:b] for a, b in zip(cuts[:-1], cuts[1:])]
+            # columns come back as uint32: word fields stay so, bounds are
+            # int32 bits, flags are 0/1
+            as_field = {"gt": np.int32, "lt": np.int32, "minv": np.int32}
+            inv = inv.cpu().numpy()
+            creq = Reqs(
+                *(
+                    np.ascontiguousarray(
+                        (c if f in word_fields else c.view(as_field[f]) if f in as_field else c.astype(bool))[inv]
+                    )
+                    for f, c in zip(Reqs._fields, cols)
+                )
+            )
+            alive = np.ascontiguousarray(uniq[:, cuts[-1] :][inv])
+        else:
+            creq = host_reqs(st.creq, slice(0, n2))
+            alive = _np_words(st.alive[:n2])
         tmpl = st.tmpl[:n2].cpu().numpy()
         crequests = st.crequests[:n2].cpu().numpy()
         eavail = st.eavail.cpu().numpy()

@@ -72,6 +72,10 @@ KIND_FAIL = 3
 # launches of the CUDA step kernel (one per solve_scan call on the card)
 LAUNCHES = {"scan_step": 0}
 
+# relax-tier odometer bins (the reference's layout; the relax tier loop is
+# not ported yet, so the tier counters stay 0)
+ODO_TIER_BINS = 8
+
 
 class Tables(NamedTuple):
     """Static (per-solve) tensors; the reference's layout and field names."""
@@ -169,6 +173,34 @@ class PodX(NamedTuple):
     ntiers: torch.Tensor  # 0-dim int32
     hp_own: torch.Tensor  # [HPW] words
     hp_conf: torch.Tensor  # [HPW] words
+
+
+class Odometer(NamedTuple):
+    """Device-truth counters a dispatch returns beside its results, as
+    0-dim int32 tensors (tier_hist [ODO_TIER_BINS]). Write-only: no
+    decision reads them.
+
+    - steps: loop iterations executed (pod positions on the scan path, pads
+      included; pointer-loop trips on the runs path);
+    - bulk_steps: runs-path bulk-window trips (a subset of steps);
+    - tier_steps, tier_hist: relax tier-loop trips (0 until the relax tier
+      loop is ported).
+    """
+
+    steps: torch.Tensor
+    bulk_steps: torch.Tensor
+    tier_steps: torch.Tensor
+    tier_hist: torch.Tensor
+
+
+def odometer(steps, bulk_steps, dev) -> Odometer:
+    """An Odometer from step counts (ints or 0-dim tensors) on `dev`."""
+    return Odometer(
+        steps=torch.as_tensor(steps, dtype=torch.int32, device=dev),
+        bulk_steps=torch.as_tensor(bulk_steps, dtype=torch.int32, device=dev),
+        tier_steps=torch.zeros((), dtype=torch.int32, device=dev),
+        tier_hist=torch.zeros(ODO_TIER_BINS, dtype=torch.int32, device=dev),
+    )
 
 
 def _row(r: Reqs, i) -> Reqs:
@@ -695,7 +727,7 @@ def _clone_state(st: State) -> State:
 
 def solve_scan_plain(tb: Tables, st: State, xs: PodX):
     """The plain version: run the greedy pack over a pod batch. Returns
-    (state, kinds [P] int32, slots [P] int32, overflowed, steps)."""
+    (state, kinds [P] int32, slots [P] int32, overflowed, odometer)."""
     P = xs.valid.shape[0]
     kinds, slots = [], []
     overflow = False
@@ -711,15 +743,15 @@ def solve_scan_plain(tb: Tables, st: State, xs: PodX):
         torch.tensor(kinds, dtype=torch.int32, device=dev),
         torch.tensor(slots, dtype=torch.int32, device=dev),
         torch.tensor(overflow, device=dev),
-        P,
+        odometer(P, 0, dev),
     )
 
 
 def solve_scan(tb: Tables, st: State, xs: PodX):
     """Run the greedy pack over a pod batch (relax=False); returns
-    (state, kinds, slots, overflowed, steps). `overflowed` means some pod
-    failed only because claim slots ran out (grow N and re-solve); `steps`
-    counts pod positions walked, pads included.
+    (state, kinds, slots, overflowed, odometer). `overflowed` means some pod
+    failed only because claim slots ran out (grow N and re-solve); the
+    odometer's `steps` counts pod positions walked, pads included.
 
     CPU tensors take the plain version. CUDA tensors launch the
     `scan_step` kernel, which updates a copy of `st` in place."""
@@ -729,27 +761,30 @@ def solve_scan(tb: Tables, st: State, xs: PodX):
 
 
 # ---------------------------------------------------------------------------
-# the CUDA kernel's wrapper
+# the CUDA kernels' wrappers (scan_step here, run_step in tpu_runs.py: both
+# take the argument block of csrc/step_args.h)
 
-# the kernel's shared-memory staging limits (csrc/step_args.h)
+# the kernels' shared-memory staging limits (csrc/step_args.h)
 _LIMITS = {"TW": 128, "K": 64, "C": 8, "IW": 128, "R": 32, "Gv": 64, "Gh": 64, "HPW": 32, "T": 64, "NRESW": 32}
 
 
 @functools.lru_cache(maxsize=None)
-def _step_args_type():
-    """ctypes mirror of csrc/step_args.h's StepArgs, built from the field
-    names the library reports, so the layout is written down once."""
-    lib = _build.library("scan_step")
-    lib.scan_step_field_names.restype = ctypes.c_char_p
-    lib.scan_step_args_size.restype = ctypes.c_int
-    lib.scan_step_launch.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
-    lib.scan_step_launch.restype = ctypes.c_int
-    ptrs, ints = lib.scan_step_field_names().decode().split("|")
+def step_library(name: str):
+    """(library, ctypes mirror of StepArgs) for a kernel built on
+    csrc/step_args.h. The structure is built from the field names the
+    library reports, so the layout is written down once."""
+    lib = _build.library(name)
+    getattr(lib, f"{name}_field_names").restype = ctypes.c_char_p
+    getattr(lib, f"{name}_args_size").restype = ctypes.c_int
+    launch = getattr(lib, f"{name}_launch")
+    launch.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+    launch.restype = ctypes.c_int
+    ptrs, ints = getattr(lib, f"{name}_field_names")().decode().split("|")
     fields = [(n, ctypes.c_void_p) for n in ptrs.split(",") if n]
     fields += [(n, ctypes.c_int) for n in ints.split(",") if n]
     args_type = type("StepArgs", (ctypes.Structure,), {"_fields_": fields})
-    if ctypes.sizeof(args_type) != lib.scan_step_args_size():
-        raise RuntimeError("scan_step: StepArgs layout disagrees with the library")
+    if ctypes.sizeof(args_type) != getattr(lib, f"{name}_args_size")():
+        raise RuntimeError(f"{name}: StepArgs layout disagrees with the library")
     return lib, args_type
 
 
@@ -769,15 +804,12 @@ def checked_ptr(t: torch.Tensor, dtype: torch.dtype, device: torch.device, name:
 REQS_DTYPES = (torch.int32, torch.int32, torch.bool, torch.bool, torch.bool, torch.int32, torch.int32, torch.int32)
 
 
-def _launch_scan_step(tb: Tables, st: State, xs: PodX):
-    """Launch scan_step on `st` (updated in place); returns the
-    solve_scan tuple."""
-    lib, args_type = _step_args_type()
-    dev = st.rank.device
-    P = xs.valid.shape[0]
+def step_arg_values(tb: Tables, st: State, xs: PodX, dev) -> dict:
+    """The StepArgs fields both step kernels share: the dims (checked
+    against the kernels' limits) and the table, state and pod pointers."""
     N = st.active.shape[0]
     dims = {
-        "P": P, "N": N, "E": st.eavail.shape[0], "T": tb.tdaemon.shape[0],
+        "P": xs.valid.shape[0], "N": N, "E": st.eavail.shape[0], "T": tb.tdaemon.shape[0],
         "I": tb.ialloc.shape[0], "IW": st.alive.shape[1], "TW": tb.va.full_mask.shape[0],
         "K": tb.va.num_keys, "R": tb.ialloc.shape[1], "O": tb.otype.shape[0],
         "Gv": tb.v_reg.shape[0], "VMAX": tb.v_reg.shape[1], "Gh": st.h_cnt.shape[0],
@@ -787,16 +819,9 @@ def _launch_scan_step(tb: Tables, st: State, xs: PodX):
     }
     for k, lim in _LIMITS.items():
         if dims[k] > lim:
-            raise ValueError(f"scan_step: {k}={dims[k]} exceeds the kernel's limit {lim}")
+            raise ValueError(f"step kernel: {k}={dims[k]} exceeds the kernel's limit {lim}")
     if tb.h_filt.shape[1] != dims["FA"] or dims["IW"] * 32 < dims["I"] or dims["S"] != dims["E"] + N:
-        raise ValueError(f"scan_step: inconsistent shapes {dims}")
-    kinds = torch.empty(P, dtype=torch.int32, device=dev)
-    slots = torch.empty(P, dtype=torch.int32, device=dev)
-    overflow = torch.zeros(1, dtype=torch.int32, device=dev)
-    steps = torch.zeros(1, dtype=torch.int32, device=dev)
-    cand = torch.empty(N, dtype=torch.uint8, device=dev)
-    w2k = tb.va.word2key.to(torch.int32)
-
+        raise ValueError(f"step kernel: inconsistent shapes {dims}")
     vals = dict(dims)
     i32, b8 = torch.int32, torch.bool
 
@@ -807,6 +832,10 @@ def _launch_scan_step(tb: Tables, st: State, xs: PodX):
         for field, t, dtype in zip(Reqs._fields, r, REQS_DTYPES):
             put(f"{prefix}_{field}", t, dtype)
 
+    # word2key is int64 in VocabArrays; the kernels read int32 (kept alive
+    # by the caller's `vals` through the tensor below)
+    w2k = tb.va.word2key.to(torch.int32)
+    vals["_keep"] = w2k
     put("word2key", w2k, i32)
     put("well_known", tb.va.well_known, b8)
     put("full_mask", tb.va.full_mask, i32)
@@ -840,18 +869,45 @@ def _launch_scan_step(tb: Tables, st: State, xs: PodX):
         ("own_h", b8), ("valid", b8), ("hp_own", i32), ("hp_conf", i32),
     ):
         put(name, getattr(xs, name), dtype)
-    put("kinds", kinds, i32)
-    put("slots", slots, i32)
-    put("overflow", overflow, i32)
-    put("steps", steps, i32)
-    put("cand", cand, torch.uint8)
+    return vals
 
-    missing = {f for f, _ in args_type._fields_} ^ set(vals)
-    if missing:
-        raise RuntimeError(f"scan_step: argument fields out of step with the library: {sorted(missing)}")
-    args = args_type(**vals)
+
+def step_args(name: str, args_type, vals: dict):
+    """The argument block from `vals` (keys starting with "_" only keep
+    tensors alive); fields a kernel does not read are 0."""
+    given = {k: v for k, v in vals.items() if not k.startswith("_")}
+    fields = [f for f, _ in args_type._fields_]
+    unknown = set(given) - set(fields)
+    if unknown:
+        raise RuntimeError(f"{name}: argument fields out of step with the library: {sorted(unknown)}")
+    return args_type(**{f: given.get(f, 0) for f in fields})
+
+
+def launch_step(lib, name: str, args_type, vals: dict, dev) -> None:
+    """Launch a step kernel on the current stream; raises on a refused
+    launch."""
+    args = step_args(name, args_type, vals)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    code = lib.scan_step_launch(ctypes.byref(args), ctypes.c_void_p(stream))
-    _build.check_launch("scan_step", code)
+    code = getattr(lib, f"{name}_launch")(ctypes.byref(args), ctypes.c_void_p(stream))
+    _build.check_launch(name, code)
+
+
+def _launch_scan_step(tb: Tables, st: State, xs: PodX):
+    """Launch scan_step on `st` (updated in place); returns the
+    solve_scan tuple."""
+    lib, args_type = step_library("scan_step")
+    dev = st.rank.device
+    P = xs.valid.shape[0]
+    vals = step_arg_values(tb, st, xs, dev)
+    kinds = torch.empty(P, dtype=torch.int32, device=dev)
+    slots = torch.empty(P, dtype=torch.int32, device=dev)
+    # counters: overflow, steps (the layout run_step shares)
+    counters = torch.zeros(5, dtype=torch.int32, device=dev)
+    cand = torch.empty(st.active.shape[0], dtype=torch.uint8, device=dev)
+    vals["kinds"] = checked_ptr(kinds, torch.int32, dev, "kinds")
+    vals["slots"] = checked_ptr(slots, torch.int32, dev, "slots")
+    vals["counters"] = checked_ptr(counters, torch.int32, dev, "counters")
+    vals["cand"] = checked_ptr(cand, torch.uint8, dev, "cand")
+    launch_step(lib, "scan_step", args_type, vals, dev)
     LAUNCHES["scan_step"] += 1
-    return st, kinds, slots, overflow[0] != 0, P
+    return st, kinds, slots, counters[0] != 0, odometer(counters[1], 0, dev)

@@ -2,10 +2,11 @@
 scan path and the oracle.
 
 Every case is a wire payload that both packages decode on their own (the
-port through `karpenter_tpu_torch.wire`). The port's Results must equal
-`fuzz.solve_tpu(case, force_scan=True)`'s and `fuzz.solve_oracle`'s under
-`fuzz.results_snapshot`, and its odometer (steps, dispatches, overflow
-re-solves) must equal the reference scheduler's.
+port through `karpenter_tpu_torch.wire`). Both schedulers take the scan
+path (`debug_force_scan`; tests/test_torch_runs.py covers the runs path).
+The port's Results must equal `fuzz.solve_tpu(case, force_scan=True)`'s and
+`fuzz.solve_oracle`'s under `fuzz.results_snapshot`, and its odometer must
+equal the reference scheduler's.
 """
 
 import os
@@ -54,6 +55,7 @@ def solve_torch(case: fuzz.FuzzCase, claim_slot_div=None):
         ignore_preferences=options.ignore_preferences,
     )
     sched = TorchScheduler(pools, ibp, topo, views, daemons, options, device="cpu")
+    sched.debug_force_scan = True
     return sched.solve(pods), pods, sched
 
 
@@ -64,7 +66,7 @@ def _three_way(case: fuzz.FuzzCase, claim_slot_div=None):
     want_snap = fuzz.results_snapshot(want, pods_o)
     assert fuzz.results_snapshot(ref, pods_r) == want_snap
     assert fuzz.results_snapshot(got, pods_t) == want_snap
-    for key in ("steps", "dispatches", "overflow_signals"):
+    for key in ("steps", "bulk_steps", "dispatches", "overflow_signals", "regrows", "claims_opened", "claim_slots"):
         assert sched.last_odometer[key] == ref_sched.last_odometer[key], key
     return sched
 
@@ -99,6 +101,8 @@ def test_tight_slots_resolve_on_overflow():
     case = fuzz.FuzzCase(seed=0, families=["anti_affinity"], problem=encode_problem_dict(pools, {"default": its}, pods))
     sched = _three_way(case, claim_slot_div=10_000)
     assert sched.last_odometer["overflow_signals"] >= 1
+    assert sched.last_odometer["regrows"] == 0  # the scan path re-solves
+    assert sched.last_odometer["claim_slots"] == 128
 
 
 def test_relaxation_tiers_raise():

@@ -67,13 +67,14 @@ def _fuzz_inputs(seed: int):
 def _check(tb, st, xs):
     jst, jkinds, jslots, jover, jodo = jax.device_get(JK.solve_scan(tb, st, xs, relax=False))
     tb_n, st_n, xs_n = jax.device_get((tb, st, xs))
-    pst, pkinds, pslots, pover, psteps = TK.solve_scan(
+    pst, pkinds, pslots, pover, podo = TK.solve_scan(
         convert.tables(tb_n), convert.state(st_n), convert.pod_x(xs_n)
     )
     assert np.array_equal(np.asarray(jkinds), pkinds.numpy())
     assert np.array_equal(np.asarray(jslots), pslots.numpy())
     assert bool(jover) == bool(pover)
-    assert int(jodo.steps) == psteps
+    assert int(jodo.steps) == int(podo.steps)
+    assert int(jodo.bulk_steps) == int(podo.bulk_steps) == 0
     want = convert.state(jst)
     for name, a, b in zip(TK.State._fields, want, pst):
         if isinstance(a, tuple):
