@@ -8,22 +8,29 @@ Run from the repository root on a machine with one NVIDIA card:
 It builds the five CUDA kernels from csrc/ and holds each against its plain
 PyTorch version on the card, bit for bit:
 
-- K1 typeok_screen on the headline's tables;
+- K1 typeok_screen on the headline's class rows and the c6 mix's tier rows;
 - K2 scan_step on three small problems and a 2048-pod prefix of the
-  headline round (the whole round is timed too);
+  headline round (the whole round is timed too), and with the relax tier
+  loop on three small tiered problems (one overflows mid-ladder) and the
+  1000-pod preference round;
 - K3 run_step on three small problems (one overflows its 64 claim slots)
   and on the headline's two dispatches (up to the claim-slot overflow,
-  then the rest after the state grows);
+  then the rest after the state grows), and with the relax tier loop on
+  two small tiered problems and the c6 mix's two dispatches;
 - K4 run_arrays on the headline round;
 - K5 dedup_rows on the headline's final claim rows and on 16384 synthetic
   rows with many duplicates.
 
-Then it drives the provisioning solve end to end at the headline size
+Then it drives the provisioning solve end to end, each path with the launch
+counts set to 0 just before and read just after: the headline
 (make_diverse_pods(10000) against 500 KWOK instance types on one default
-NodePool) through the runs path, with the launch counts set to 0 just
-before and read just after; drives the scan path (`debug_force_scan`) the
-same way at 1000 pods and checks its decisions equal the runs path's;
-checks decisions against the port's oracle on four problems; and prints:
+NodePool) through the runs path; the scan path (`debug_force_scan`) at 1000
+pods, whose decisions must equal the runs path's; the c6 realistic mix
+(bench.py `pods_realistic(10000)`: 98% diverse, a 2% tail of preference
+pods) through the runs path with the tier loop, whose odometer must equal
+the JAX package's; and the 1000-pod preference round through the scan path
+with the tier loop. It checks decisions against the port's oracle on
+eight problems, and prints:
 
 - the card's name and power limit (nvidia-smi),
 - one JSON line {"kernels": [...]} with each kernel's launches on its path,
@@ -48,6 +55,18 @@ HEADLINE_PODS = 10000
 HEADLINE_TYPES = 500
 PARITY_PODS = 1000
 K2_PREFIX = 2048  # headline pods K2 is held against its plain version on
+C6_PODS = 10000
+C6_PARITY_PODS = 2000  # c6 pods solved by the oracle too
+PREF_PODS = 1000  # the preference round (every pod tiered)
+# The JAX package's kernel odometer for the c6 solve (bench.py
+# build_universe(500) + make_problem(10000, its, pods_realistic), the same
+# construction as c6_world): recorded with `JAX_PLATFORMS=cpu python3
+# tools/reference_odometer.py` on a CPU. Structure counts, not speeds.
+C6_JAX_ODOMETER = {
+    "steps": 1709, "bulk_steps": 1019, "tier_steps": 1290, "tier_hist": [690, 200, 200, 200, 0, 0, 0, 0],
+    "dispatches": 2, "overflow_signals": 1, "regrows": 1, "claims_opened": 1962, "claim_slots": 2048,
+}
+DEVICE = "cuda"  # where every phase runs (the card; no phase falls back)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 CORE_OPS_PER_S = 67e12  # H100 SXM non-tensor 32-bit rate (fp32 figure)
 
@@ -89,9 +108,98 @@ def headline_world(n_pods: int, its) -> World:
     return World(pools, ibp, pods, None, None, Topology(pools, ibp, pods))
 
 
-def mixed_world() -> World:
+def c6_world(n_pods: int, its) -> World:
+    """bench.py's c6 realistic mix: the headline's diverse mix for 98% of
+    the pods, then a tail of preference pods (each climbs a 4-tier
+    ladder), against the headline's instance types."""
+    from karpenter_tpu_torch.solver.topology import Topology
+    from karpenter_tpu_torch.testing import fixtures
+
+    fixtures.reset_rng(42)
+    pools = [fixtures.node_pool(name="default")]
+    pods = fixtures.make_diverse_pods(int(n_pods * 0.98))
+    pods += fixtures.make_preference_pods(n_pods - len(pods))
+    ibp = {p.name: its for p in pools}
+    return World(pools, ibp, pods, None, None, Topology(pools, ibp, pods))
+
+
+def preference_world(n_pods: int, its) -> World:
+    """Preference pods only: every pod is tiered (the scan path). On small
+    types (2 and 8 cpus) they need many claims, so two claim slots
+    overflow mid-ladder."""
+    from karpenter_tpu_torch.solver.topology import Topology
+    from karpenter_tpu_torch.testing import fixtures
+
+    fixtures.reset_rng(42)
+    pools = [fixtures.node_pool(name="default")]
+    pods = fixtures.make_preference_pods(n_pods)
+    ibp = {p.name: its for p in pools}
+    return World(pools, ibp, pods, None, None, Topology(pools, ibp, pods))
+
+
+def min_values_world() -> World:
+    """A tier that fails after its claim screen and verify loop ran: the
+    pool wants 3 instance types per claim and tier 0 of each "narrow" pod
+    prefers exactly two, so it passes a claim's screens, fails the exact
+    verify and every template on minValues; tier 1 joins the claim."""
+    from karpenter_tpu_torch.api import labels as wk
+    from karpenter_tpu_torch.api.objects import NodeAffinity, NodeSelectorRequirement, NodeSelectorTerm, Operator
+    from karpenter_tpu_torch.api.objects import PreferredSchedulingTerm
+    from karpenter_tpu_torch.solver.topology import Topology
+    from karpenter_tpu_torch.testing import fixtures
+
+    fixtures.reset_rng(21)
+    its = _small_types()
+    pools = [
+        fixtures.node_pool(
+            name="default",
+            requirements=[NodeSelectorRequirement(wk.INSTANCE_TYPE_LABEL_KEY, Operator.EXISTS, min_values=3)],
+        )
+    ]
+    pods = [fixtures.pod(name=f"base-{i}", requests={"cpu": "300m"}) for i in range(4)]
+    two = [its[0].name, its[4].name]
+    for i in range(6):
+        p = fixtures.pod(name=f"narrow-{i}", requests={"cpu": "100m"})
+        term = NodeSelectorTerm(match_expressions=[NodeSelectorRequirement(wk.INSTANCE_TYPE_LABEL_KEY, Operator.IN, two)])
+        p.node_affinity = NodeAffinity(preferred=[PreferredSchedulingTerm(weight=5, preference=term)])
+        pods.append(p)
+    ibp = {p.name: its for p in pools}
+    return World(pools, ibp, pods, None, None, Topology(pools, ibp, pods))
+
+
+def lonely_world() -> World:
+    """80 pods that each need a claim of their own (required hostname
+    anti-affinity) and fail their tier 0 (an unsatisfiable zone
+    preference), beside a bulkable class: with 64 claim slots the runs path
+    stops on a tiered pod that overflowed at tier 1."""
+    from karpenter_tpu_torch.api import labels as wk
+    from karpenter_tpu_torch.api.objects import (
+        LabelSelector, NodeAffinity, NodeSelectorRequirement, NodeSelectorTerm, Operator, PodAffinityTerm,
+        PreferredSchedulingTerm,
+    )
+    from karpenter_tpu_torch.solver.topology import Topology
+    from karpenter_tpu_torch.testing import fixtures
+
+    fixtures.reset_rng(8)
+    pods = []
+    for i in range(80):
+        anti = PodAffinityTerm(topology_key=wk.HOSTNAME_LABEL_KEY, label_selector=LabelSelector(match_labels={"app": "lonely"}))
+        p = fixtures.pod(name=f"lonely-{i}", labels={"app": "lonely"}, requests={"cpu": "1"}, pod_anti_requirements=[anti])
+        term = NodeSelectorTerm(
+            match_expressions=[NodeSelectorRequirement(wk.TOPOLOGY_ZONE_LABEL_KEY, Operator.IN, ["no-such-zone"])]
+        )
+        p.node_affinity = NodeAffinity(preferred=[PreferredSchedulingTerm(weight=1, preference=term)])
+        pods.append(p)
+    pods += [fixtures.pod(name=f"small-{i}", requests={"cpu": "100m"}) for i in range(40)]
+    pools = [fixtures.node_pool(name="default")]
+    ibp = {p.name: _small_types() for p in pools}
+    return World(pools, ibp, pods, None, None, Topology(pools, ibp, pods))
+
+
+def mixed_world(n_pref: int = 0) -> World:
     """Existing nodes (one holding a host port), a tainted pool, a pool
-    with a cpu limit, tolerating pods and host-port pods."""
+    with a cpu limit, tolerating pods and host-port pods (and `n_pref`
+    preference pods after them)."""
     from karpenter_tpu_torch.api import labels as wk
     from karpenter_tpu_torch.api.objects import Taint, TaintEffect, Toleration
     from karpenter_tpu_torch.cloudprovider.kwok import KWOK_ZONES, construct_instance_types
@@ -139,6 +247,7 @@ def mixed_world() -> World:
         p = fixtures.pod(name=f"smoke-port-{i}", requests={"cpu": "900m", "memory": "512Mi"}, tolerations=tol)
         p.host_ports = [("0.0.0.0", "TCP", 443 if i % 3 == 0 else 8080)]
         pods.append(p)
+    pods += fixtures.make_preference_pods(n_pref)
     return World(pools, ibp, pods, views, None, Topology(pools, ibp, pods, state_node_views=views))
 
 
@@ -183,10 +292,11 @@ def reserved_world() -> World:
     return World(pools, ibp, pods, None, options, Topology(pools, ibp, pods))
 
 
-def mixed_bulk_world() -> World:
+def mixed_bulk_world(n_pref: int = 0) -> World:
     """Existing nodes (one holding a host port) and a tainted pool beside
     the headline mix, with no pool limit: the runs path with its
-    existing-node windows, and host-port pods on the exact step."""
+    existing-node windows, and host-port pods (and `n_pref` preference
+    pods) on the exact step."""
     from karpenter_tpu_torch.api import labels as wk
     from karpenter_tpu_torch.api.objects import Taint, TaintEffect, Toleration
     from karpenter_tpu_torch.cloudprovider.kwok import KWOK_ZONES, construct_instance_types
@@ -229,6 +339,7 @@ def mixed_bulk_world() -> World:
         p = fixtures.pod(name=f"smoke-bulk-port-{i}", requests={"cpu": "500m", "memory": "256Mi"}, tolerations=tol)
         p.host_ports = [("0.0.0.0", "TCP", 443 if i % 3 == 0 else 8080)]
         pods.append(p)
+    pods += fixtures.make_preference_pods(n_pref)
     return World(pools, ibp, pods, views, None, Topology(pools, ibp, pods, state_node_views=views))
 
 
@@ -239,10 +350,10 @@ def scheduler_for(world: World, dev):
     return sched, world.pods
 
 
-def step_inputs(world: World, dev, prefix=None, in_order=False):
+def step_inputs(world: World, dev, prefix=None, in_order=False, N=None):
     """(tb, st, xs) of a world's first requeue round, built by the port:
     the pods in FFD order (or as given, like `__graft_entry__._small_problem`),
-    with the scan path's claim-slot count."""
+    with the scan path's claim-slot count (or N slots)."""
     from karpenter_tpu_torch.solver.tpu_problem import _pow2, encode_problem
 
     sched, pods = scheduler_for(world, dev)
@@ -252,10 +363,29 @@ def step_inputs(world: World, dev, prefix=None, in_order=False):
         order = list(range(len(pods)))
     tb = sched._tables(problem)
     sched._upload_pod_tables(problem)
-    N = min(_pow2(max(64, (len(pods) + 3) // 4)), _pow2(len(pods)))
+    if N is None:
+        N = min(_pow2(max(64, (len(pods) + 3) // 4)), _pow2(len(pods)))
     st = sched._init_state(problem, N)
     xs = sched._pod_xs(problem, order[:prefix] if prefix else order)
     return tb, st, xs
+
+
+def odometer_mismatches(got, want) -> list[str]:
+    """Odometer fields where two dispatches differ."""
+    import torch
+
+    return [f for f in got._fields if not torch.equal(getattr(got, f).cpu(), getattr(want, f).cpu())]
+
+
+def scan_mismatches(got, want) -> list[str]:
+    """Field names where two solve_scan results differ."""
+    import torch
+
+    bad = state_mismatches(got[0], want[0])
+    for i, name in ((1, "kinds"), (2, "slots"), (3, "overflow")):
+        if not torch.equal(got[i], want[i]):
+            bad.append(name)
+    return bad + odometer_mismatches(got[4], want[4])
 
 
 def state_mismatches(a, b) -> list[str]:
@@ -340,6 +470,7 @@ class RunsRound(NamedTuple):
     st: object
     seq: object
     rx: object
+    relax: bool
 
 
 def runs_round(world: World, dev, claim_slot_div: Optional[int] = None) -> RunsRound:
@@ -365,7 +496,8 @@ def runs_round(world: World, dev, claim_slot_div: Optional[int] = None) -> RunsR
     xs, idx_d = sched._pod_xs_with_idx(problem, order)
     rx = sched._run_x(xs, idx_d, len(order))
     seq = torch.zeros(N, dtype=torch.int32, device=dev)
-    return RunsRound(sched, problem, order, tb, sched._init_state(problem, N), seq, rx)
+    relax = bool((problem.ntiers_r > 1).any())
+    return RunsRound(sched, problem, order, tb, sched._init_state(problem, N), seq, rx, relax)
 
 
 def runs_mismatches(got, want) -> list[str]:
@@ -376,10 +508,7 @@ def runs_mismatches(got, want) -> list[str]:
     for i, name in ((1, "seq"), (2, "next_seq"), (3, "kinds"), (4, "slots"), (5, "overflow"), (7, "ptr")):
         if not torch.equal(got[i], want[i]):
             bad.append(name)
-    for f in ("steps", "bulk_steps"):
-        if int(getattr(got[6], f)) != int(getattr(want[6], f)):
-            bad.append(f)
-    return bad
+    return bad + odometer_mismatches(got[6], want[6])
 
 
 def dedup_mismatches(got, want) -> list[str]:
@@ -391,8 +520,9 @@ def dedup_mismatches(got, want) -> list[str]:
 def phase_breakdown(world, dev) -> dict:
     """Host-clock seconds of each phase of one runs-path solve, re-run
     phase by phase with a device sync after each. The dispatch loop is the
-    scheduler's (overflow -> grow -> go on from the overflowing pod); it
-    needs a solve that finishes in one requeue round, as the headline does."""
+    scheduler's (overflow -> grow -> go on from the overflowing pod, the
+    tier loop on when the problem has tiers); it needs a solve that
+    finishes in one requeue round, as the headline and c6 do."""
     import numpy as np
     import torch
 
@@ -414,6 +544,7 @@ def phase_breakdown(world, dev) -> dict:
         t0 = now
 
     problem = encode_problem(sched.oracle, pods)
+    relax = bool((problem.ntiers_r > 1).any())
     mark("encode")
     order = sched._order_pods(problem)
     mark("order")
@@ -435,7 +566,7 @@ def phase_breakdown(world, dev) -> dict:
         xs, idx_d = sched._pod_xs_with_idx(problem, batch)
         rx = sched._run_x(xs, idx_d, len(batch))
         mark("pod_xs_run_arrays")
-        st, seq, nseq, got_k, got_s, over, _, ptr = KR.solve_runs(tb, st, rx, seq, nseq, len(batch))
+        st, seq, nseq, got_k, got_s, over, _, ptr = KR.solve_runs(tb, st, rx, seq, nseq, len(batch), relax)
         n_done = int(ptr) if bool(over) else len(batch)
         kinds[batch[:n_done]] = got_k[:n_done].cpu().numpy()
         slots[batch[:n_done]] = got_s[:n_done].cpu().numpy()
@@ -478,7 +609,7 @@ def main() -> int:
     except ImportError as e:
         print(f"chip_smoke: the karpenter_tpu_torch package is not beside this script ({e})", file=sys.stderr)
         return 2
-    dev = torch.device("cuda")
+    dev = torch.device(DEVICE)
     if any(m == "jax" or m.startswith(("jax.", "karpenter_tpu.")) for m in sys.modules):
         print("chip_smoke: the port pulled in jax or the reference package", file=sys.stderr)
         return 1
@@ -705,6 +836,32 @@ def main() -> int:
     if k5_bad:
         return 1
 
+    # the data movement the reference also left to plain array ops (torch
+    # ops here, each its own library call), at the headline's shapes: a
+    # round's row gathers, the claim-slot regrow, the decode's row-slice
+    # fetch (taken below 2048 slots) and the fetch of the dedup's unique rows
+    E_h = st_final.eavail.shape[0]
+    u2 = min(_pow2(max(int(k5_got[0]), 1), floor=64), n2)
+
+    def slice_fetch():
+        return [a[:n2].cpu() for a in (*st_final.creq, st_final.alive, st_final.tmpl, st_final.crequests)] + [
+            st_final.h_cnt[:, : E_h + n2].cpu()
+        ]
+
+    xs_g, _ = rr.sched._pod_xs_with_idx(rr.problem, rr.order)
+    grown, _ = rr.sched._grow(rr.problem, got1[0], got1[1], N1)
+    fetched = nbytes(tuple(slice_fetch()))
+    moves = {
+        "gather_xs": (cuda_ms(lambda: rr.sched._pod_xs_with_idx(rr.problem, rr.order), 20), 2 * nbytes(xs_g)),
+        "grow_state": (cuda_ms(lambda: rr.sched._grow(rr.problem, got1[0], got1[1], N1), 20), nbytes(got1[0]) + nbytes(grown)),
+        "slice_decode_state": (cuda_ms(slice_fetch, 20), 2 * fetched),
+        "slice_rows": (cuda_ms(lambda: k5_got[2][:u2].cpu(), 20), 2 * u2 * C_d * 4),
+    }
+    log(
+        "data movement at the headline (torch ops; ms, bytes, bound ms): "
+        + json.dumps({k: [round(ms, 4), b, round(bound(b, 0)[0], 6)] for k, (ms, b) in moves.items()})
+    )
+
     # ---- 8. the main path at full width: the headline through the runs path ----
     def fresh():
         return scheduler_for(headline_world(HEADLINE_PODS, its), dev)
@@ -737,6 +894,8 @@ def main() -> int:
     main_kernels = ("typeok_screen", "run_step", "run_arrays", "dedup_rows")
     if not sched.last_used_runs or min(launches[k] for k in main_kernels) < 1 or odo["regrows"] < 1:
         return 1
+    if sched.last_relax or launches["run_step_relax"] or odo["tier_steps"]:
+        return 1  # the headline has no tiers: the kernels run without the tier loop
     if placed + len(res.pod_errors) != len(pods) or len(res.new_node_claims) == 0:
         return 1
     times = [dt]
@@ -785,7 +944,252 @@ def main() -> int:
         if not same:
             return 1
 
-    # ---- 10. the kernels line ----
+    # ---- 10. the relax tier loop: K1 on tier rows, K2 and K3 with relax ----
+    # K1 over the c6 mix's tier rows (each relaxable class x tier, padded)
+    sched6, pods6 = scheduler_for(c6_world(C6_PODS, its), dev)
+    problem6 = encode_problem(sched6.oracle, pods6)
+    tb6 = sched6._tables(problem6)
+    trows = sched6._tier_rows(problem6)
+    got = T.typeok_screen(tb6.ireq, tb6.va, trows, IW)
+    want = T.typeok_plain(tb6.ireq, tb6.va, trows, IW)
+    torch.cuda.synchronize()
+    k1t_mism = int((got != want).sum())
+    k1t_ms = cuda_ms(lambda: T.typeok_screen(tb6.ireq, tb6.va, trows, IW), 200)
+    k1t_plain_ms = cuda_ms(lambda: T.typeok_plain(tb6.ireq, tb6.va, trows, IW), 20)
+    Bt = trows.mask.shape[0]
+    k1t_bound, k1t_by = bound(nbytes(tb6.ireq, trows, tb6.va.word2key) + Bt * IW * 4, Bt * I * (TWn + 2 * Kn))
+    log(
+        f"K1 typeok_screen c6 tier rows: [{Bt}, {IW}] words ({len(problem6.rt_tier_reqs)} relaxable classes x "
+        f"{problem6.num_tiers} tiers): kernel {k1t_ms:.4f} ms, plain {k1t_plain_ms:.4f} ms, {k1t_mism} mismatched words"
+    )
+    if k1t_mism:
+        return 1
+
+    # K2 with relax on small tiered problems: an overflow mid-ladder (2
+    # slots), a tier that fails after the claim screen and verify loop
+    # (minValues), and existing nodes + host ports + limits beside tiers
+    k2r_mism = 0
+    for label, world, N_s in (
+        ("pref-24 (2 slots)", preference_world(24, _small_types((2, 8))), 2),
+        ("min-values", min_values_world(), None),
+        ("mixed+pref", mixed_world(12), None),
+    ):
+        tb_s, st_s, xs_s = step_inputs(world, dev, N=N_s)
+        got = K.solve_scan(tb_s, st_s, xs_s, relax=True)
+        bad = scan_mismatches(got, K.solve_scan_plain(tb_s, st_s, xs_s, relax=True))
+        torch.cuda.synchronize()
+        kinds = got[1].cpu().tolist()
+        log(
+            f"K2 scan_step+relax {label}: P={xs_s.valid.shape[0]} E={st_s.eavail.shape[0]} N={st_s.active.shape[0]} "
+            f"over={bool(got[3])} tier_steps={int(got[4].tier_steps)} tier_hist={got[4].tier_hist.tolist()} "
+            f"kinds(existing/claim/new/fail)={[kinds.count(k) for k in range(4)]} mismatches={bad or 'none'}"
+        )
+        k2r_mism += len(bad)
+    if k2r_mism:
+        return 1
+
+    # K2 with relax over the preference round at full width, against its
+    # plain version; the tier loop's own cost is the round against the same
+    # round with every pod held to one trip on its own rows
+    tb_p, st_p, xs_p = step_inputs(preference_world(PREF_PODS, its), dev)
+    xs_one = xs_p._replace(ntiers=torch.ones_like(xs_p.ntiers))
+    k2r_ms = cuda_ms(lambda: K.solve_scan(tb_p, st_p, xs_p, relax=True), 2)
+    k2one_ms = cuda_ms(lambda: K.solve_scan(tb_p, st_p, xs_one, relax=True), 2)
+    got_p = K.solve_scan(tb_p, st_p, xs_p, relax=True)
+    t0 = time.monotonic()
+    want_p = K.solve_scan_plain(tb_p, st_p, xs_p, relax=True)
+    torch.cuda.synchronize()
+    k2r_plain_ms = (time.monotonic() - t0) * 1e3
+    t0 = time.monotonic()
+    K.solve_scan_plain(tb_p, st_p, xs_one, relax=True)
+    torch.cuda.synchronize()
+    k2one_plain_ms = (time.monotonic() - t0) * 1e3
+    bad = scan_mismatches(got_p, want_p)
+    P_p, N_p = xs_p.valid.shape[0], st_p.active.shape[0]
+    n_valid_p = int(xs_p.valid.sum())
+    pref_trips = int(got_p[4].tier_steps)
+    pref_hist = got_p[4].tier_hist.tolist()
+    log(
+        f"K2 scan_step+relax preference round (P={P_p}, {n_valid_p} pods, N={N_p}): kernel {k2r_ms:.3f} ms "
+        f"(one trip a pod: {k2one_ms:.3f} ms), plain {k2r_plain_ms:.1f} ms (one trip a pod: {k2one_plain_ms:.1f} ms), "
+        f"over={bool(got_p[3])} tier_steps={pref_trips} tier_hist={pref_hist} mismatches={bad or 'none'}"
+    )
+    if bad:
+        return 1
+    # K2's bound as before (inputs, state and outputs once; the (pod, open
+    # claim) pairs its screens visit), with the tier tables read once too;
+    # the tier loop's bound: what the trips past a pod's first must do at
+    # least, read their tier rows and screen every template and existing
+    # node against them
+    is_new = (got_p[1] == K.KIND_NEW).to(torch.int64)
+    pairs_p = int((torch.cumsum(is_new, 0) - is_new)[xs_p.valid].sum())
+    TWp, Kp, Tp, Ep = tb_p.va.full_mask.shape[0], tb_p.va.num_keys, tb_p.tdaemon.shape[0], st_p.eavail.shape[0]
+    k2r_bound, k2r_by = bound(nbytes(tb_p, st_p, xs_p) + nbytes(st_p) + 2 * 4 * P_p, pairs_p * (2 * TWp + 3 * Kp))
+    extra_trips = pref_trips - P_p  # every position takes at least one trip
+    tier_row_bytes = 4 * (2 * TWp + 3 * Kp) + 3 * Kp + 4 * IW + Tp + Ep + 9 * xs_p.topo_kind.shape[1]
+    relax_bound, relax_by = bound(extra_trips * tier_row_bytes, extra_trips * (Tp + Ep) * (2 * TWp + 3 * Kp))
+
+    # K3 with relax on small tiered problems: an overflow stop on a tiered
+    # pod (64 slots), and existing-node windows beside tiered pods
+    k3r_mism = 0
+    for label, world, div in (("lonely (64 slots)", lonely_world(), 10_000), ("mixed-bulk+pref", mixed_bulk_world(12), None)):
+        rr_s = runs_round(world, dev, div)
+        n_s = len(rr_s.order)
+        nseq0 = torch.zeros((), dtype=torch.int32, device=dev)
+        args_s = (rr_s.tb, rr_s.st, rr_s.rx, rr_s.seq, nseq0, n_s, True)
+        got = KR.solve_runs(*args_s)
+        bad = runs_mismatches(got, KR.solve_runs_plain(*args_s))
+        torch.cuda.synchronize()
+        ptr_s = int(got[7])
+        log(
+            f"K3 run_step+relax {label}: P={rr_s.rx.is_head.shape[0]} n={n_s} N={rr_s.st.active.shape[0]} "
+            f"steps={int(got[6].steps)} bulk_steps={int(got[6].bulk_steps)} tier_steps={int(got[6].tier_steps)} "
+            f"over={bool(got[5])} ptr={ptr_s} (ntiers there: {int(rr_s.rx.x.ntiers[min(ptr_s, n_s - 1)])}) "
+            f"mismatches={bad or 'none'}"
+        )
+        k3r_mism += len(bad)
+    if k3r_mism:
+        return 1
+
+    # K3 with relax over the c6 mix's two dispatches, against its plain version
+    rr6 = runs_round(c6_world(C6_PODS, its), dev)
+    if not rr6.relax:
+        return 1
+    n6 = len(rr6.order)
+    nseq0 = torch.zeros((), dtype=torch.int32, device=dev)
+    first6 = (rr6.tb, rr6.st, rr6.rx, rr6.seq, nseq0, n6, True)
+    got61 = KR.solve_runs(*first6)
+    t0 = time.monotonic()
+    want61 = KR.solve_runs_plain(*first6)
+    torch.cuda.synchronize()
+    k3r_plain_ms = (time.monotonic() - t0) * 1e3
+    bad = runs_mismatches(got61, want61)
+    ptr61 = int(got61[7])
+    N61 = rr6.st.active.shape[0]
+    st62, seq62 = rr6.sched._grow(rr6.problem, got61[0], got61[1], N61)
+    batch6 = rr6.order[ptr61:]
+    xs62, idx62 = rr6.sched._pod_xs_with_idx(rr6.problem, batch6)
+    rx62 = rr6.sched._run_x(xs62, idx62, len(batch6))
+    cont6 = (rr6.tb, st62, rx62, seq62, got61[2], len(batch6), True)
+    got62 = KR.solve_runs(*cont6)
+    t0 = time.monotonic()
+    want62 = KR.solve_runs_plain(*cont6)
+    torch.cuda.synchronize()
+    k3r_plain_ms += (time.monotonic() - t0) * 1e3
+    bad += runs_mismatches(got62, want62)
+    k3r_ms = cuda_ms(lambda: KR.solve_runs(*first6), 3) + cuda_ms(lambda: KR.solve_runs(*cont6), 3)
+    c6_trips = int(got61[6].tier_steps) + int(got62[6].tier_steps)
+    log(
+        f"K3 run_step+relax c6: dispatch 1 N={N61} stops at ptr={ptr61} (steps={int(got61[6].steps)}, "
+        f"bulk_steps={int(got61[6].bulk_steps)}, tier_steps={int(got61[6].tier_steps)}); dispatch 2 N={2 * N61} over "
+        f"{len(batch6)} pods (steps={int(got62[6].steps)}, bulk_steps={int(got62[6].bulk_steps)}, "
+        f"tier_steps={int(got62[6].tier_steps)}, over={bool(got62[5])}); kernel {k3r_ms:.3f} ms, "
+        f"plain {k3r_plain_ms:.1f} ms, mismatches={bad or 'none'}"
+    )
+    if bad or not bool(got61[5]):
+        return 1
+    R6 = rr6.tb.ialloc.shape[1]
+    k3r_bound, k3r_by = bound(
+        nbytes(rr6.tb, rr6.st, rr6.rx) + nbytes(st62) + nbytes(rx62) + 2 * 4 * (n6 + len(batch6)),
+        int(got61[6].steps) * N61 * (R6 + IW) + int(got62[6].steps) * 2 * N61 * (R6 + IW),
+    )
+
+    # ---- 11. the c6 mix end to end: the runs path with the tier loop ----
+    def fresh6():
+        return scheduler_for(c6_world(C6_PODS, its), dev)
+
+    sched, pods = fresh6()
+    t0 = time.monotonic()
+    sched.solve(pods)
+    torch.cuda.synchronize()
+    log(f"warm-up c6 solve: {time.monotonic() - t0:.2f}s")
+    sched, pods = fresh6()
+    for counts in counted:
+        for k in counts:
+            counts[k] = 0
+    t0 = time.monotonic()
+    res = sched.solve(pods)
+    torch.cuda.synchronize()
+    dt = time.monotonic() - t0
+    launches6 = {k: v for counts in counted for k, v in counts.items()}
+    odo6 = sched.last_odometer
+    placed = sum(len(c.pods) for c in res.new_node_claims)
+    log(
+        f"c6 solve on {torch.cuda.get_device_name(0)}: {len(pods)} pods x {len(its)} types in {dt:.3f}s = "
+        f"{len(pods) / dt:.1f} pods/s; runs path={sched.last_used_runs} relax={sched.last_relax} "
+        f"claims={len(res.new_node_claims)} placed={placed} errors={len(res.pod_errors)} "
+        f"odometer={json.dumps({k: odo6[k] for k in C6_JAX_ODOMETER})} launches={launches6}"
+    )
+    odo_diff = {k: (odo6[k], v) for k, v in C6_JAX_ODOMETER.items() if odo6[k] != v}
+    log(f"c6 odometer vs the JAX package's: {'equal' if not odo_diff else f'DIFFERENT {odo_diff}'}")
+    if odo_diff or not (sched.last_used_runs and sched.last_relax):
+        return 1
+    if launches6["typeok_screen"] < 2 or min(launches6[k] for k in ("run_step_relax", "run_arrays", "dedup_rows")) < 1:
+        return 1
+    if launches6["run_step"] or placed + len(res.pod_errors) != len(pods):
+        return 1
+    times6 = [dt]
+    for _ in range(2):
+        sched, pods = fresh6()
+        t0 = time.monotonic()
+        sched.solve(pods)
+        torch.cuda.synchronize()
+        times6.append(time.monotonic() - t0)
+    med6 = sorted(times6)[1]
+    log(f"c6 solve seconds (n=3): {[round(x, 4) for x in times6]}; median {med6:.4f}s = {len(pods) / med6:.1f} pods/s")
+    phases6 = phase_breakdown(c6_world(C6_PODS, its), dev)
+    log("c6 phases (s): " + json.dumps({k: round(v, 4) for k, v in phases6.items()}))
+
+    # the preference round end to end: the scan path with the tier loop
+    pref_sched, pref_pods = scheduler_for(preference_world(PREF_PODS, its), dev)
+    pref_sched.debug_force_scan = True
+    for counts in counted:
+        for k in counts:
+            counts[k] = 0
+    t0 = time.monotonic()
+    res = pref_sched.solve(pref_pods)
+    torch.cuda.synchronize()
+    dt = time.monotonic() - t0
+    pref_launches = {k: v for counts in counted for k, v in counts.items()}
+    podo = pref_sched.last_odometer
+    log(
+        f"preference round solve (forced scan): {len(pref_pods)} pods in {dt:.3f}s; relax={pref_sched.last_relax} "
+        f"claims={len(res.new_node_claims)} errors={len(res.pod_errors)} steps={podo['steps']} "
+        f"tier_steps={podo['tier_steps']} tier_hist={podo['tier_hist']} dispatches={podo['dispatches']} "
+        f"launches={pref_launches}"
+    )
+    if pref_sched.last_used_runs or not pref_sched.last_relax or pref_launches["scan_step_relax"] < 1:
+        return 1
+    if pref_launches["scan_step"] or res.pod_errors:
+        return 1
+
+    # c6: runs against forced scan, and decisions against the oracle
+    runs_sched, runs_pods = scheduler_for(c6_world(PARITY_PODS, its), dev)
+    runs_snap = results_snapshot(runs_sched.solve(runs_pods), runs_pods)
+    scan_sched, scan_pods = scheduler_for(c6_world(PARITY_PODS, its), dev)
+    scan_sched.debug_force_scan = True
+    same = runs_snap == results_snapshot(scan_sched.solve(scan_pods), scan_pods)
+    log(f"runs vs forced scan, c6-{PARITY_PODS}: {'equal' if same else 'DIFFERENT'} (runs path={runs_sched.last_used_runs})")
+    if not same or not runs_sched.last_used_runs or not runs_sched.last_relax:
+        return 1
+    for label, make in (
+        (f"c6-{C6_PARITY_PODS}", lambda: c6_world(C6_PARITY_PODS, its)),
+        ("pref-24", lambda: preference_world(24, _small_types((2, 8)))),
+        ("min-values", min_values_world),
+        ("mixed+pref", lambda: mixed_world(12)),
+        ("lonely", lonely_world),
+        ("mixed-bulk+pref", lambda: mixed_bulk_world(12)),
+    ):
+        t0 = time.monotonic()
+        same, n_claims, used_runs = oracle_parity(make(), dev)
+        log(
+            f"oracle parity, {label}: {'equal' if same else 'DIFFERENT'} ({n_claims} claims, runs path={used_runs}, "
+            f"{time.monotonic() - t0:.1f}s)"
+        )
+        if not same:
+            return 1
+
+    # ---- 12. the kernels line ----
     def row(name, source, replaces, nlaunch, mism, ms, plain_ms, bound_ms, bound_by, library_ms=None):
         return {
             "name": name, "route": "cuda", "source": f"karpenter_tpu_torch/csrc/{source}",
@@ -804,6 +1208,24 @@ def main() -> int:
             k4_ms, k4_plain_ms, k4_bound, k4_by),
         row("dedup_rows", "dedup_rows.cu", "karpenter_tpu/solver/tpu.py:264", launches["dedup_rows"], len(k5_bad),
             k5_ms, k5_plain_ms, k5_bound, k5_by, k5_lib_ms),
+        # K1 on the tier rows: its launches are the c6 solve's (class rows
+        # and tier rows)
+        row("typeok_screen (tier rows)", "typeok.cu", "karpenter_tpu/solver/tpu.py:982", launches6["typeok_screen"],
+            k1t_mism, k1t_ms, k1t_plain_ms, k1t_bound, k1t_by),
+        row("scan_step+relax", "scan_step.cu", "karpenter_tpu/solver/tpu_kernel.py:932",
+            pref_launches["scan_step_relax"], k2r_mism, k2r_ms, k2r_plain_ms, k2r_bound, k2r_by),
+        row("run_step+relax", "run_step.cu", "karpenter_tpu/solver/tpu_runs.py:358", launches6["run_step_relax"],
+            k3r_mism, k3r_ms, k3r_plain_ms, k3r_bound, k3r_by),
+        # the tier loop inside K2 and K3: it runs in every relax launch of
+        # the two main paths above; its time is the preference round's trips
+        # past each pod's first (the round against one trip a pod)
+        dict(
+            row("relax_step", "step.cuh", "karpenter_tpu/solver/tpu_kernel.py:898",
+                launches6["run_step_relax"] + pref_launches["scan_step_relax"], k2r_mism + k3r_mism,
+                k2r_ms - k2one_ms, k2r_plain_ms - k2one_plain_ms, relax_bound, relax_by),
+            tier_steps={"preference_round": pref_trips, "c6": c6_trips},
+            tier_hist={"preference_round": pref_hist, "c6": odo6["tier_hist"]},
+        ),
     ]
     log(f"chip_smoke: {time.monotonic() - t_start:.1f}s in all")
     print(json.dumps({"kernels": kernels}))
@@ -813,10 +1235,10 @@ def main() -> int:
     return 0
 
 
-def _small_types():
+def _small_types(sizes=(2, 8, 32)):
     from karpenter_tpu_torch.cloudprovider.kwok import construct_instance_types
 
-    return construct_instance_types(sizes=[2, 8, 32])
+    return construct_instance_types(sizes=list(sizes))
 
 
 if __name__ == "__main__":

@@ -4,7 +4,7 @@
 //
 // Replaces karpenter_tpu/solver/tpu_runs.py:319 `solve_runs` (with :185
 // `_build_cache`, :288 `_record_window`, :161/:172 the final rows, :121
-// `_seq_key` and :136 `_pod_units`), relax=False.
+// `_seq_key` and :136 `_pod_units`), relax on and off.
 //
 // Design. One CTA of NT threads walks `ptr` from 0 to n_valid, never
 // returning to the host, and stops at a claim-slot overflow with `ptr` on
@@ -19,8 +19,12 @@
 //     topology records follow once every row is built, so all rows see the
 //     state before the window;
 //   - otherwise writes the claims' seq key into `rank`, takes the exact
-//     step, and (for a bulkable run with pods left) builds the cache.
-// Counters (overflow, steps, bulk_steps, next_seq, ptr) go to `counters`.
+//     step (with relax, the tier loop relax_step, every tier reusing that
+//     key), and (for a bulkable run with pods left) builds the cache.
+//     Tiered classes are never bulk, so no window and no cache build sees
+//     a tier's rows; a cache build restages the pod's own rows.
+// Counters (overflow, steps, bulk_steps, next_seq, ptr, tier_steps,
+// tier_hist) go to `counters`.
 //
 // Bound on an H100: bytes (a cache build reads every claim row, a window
 // its targets' rows: a few MB that stay in L2); in practice the walk is a
@@ -589,8 +593,13 @@ __global__ void __launch_bounds__(NT, 1) run_step_kernel() {
       for (int n = tid; n < N; n += NT) I32(rank)[n] = seq_key(I32(count)[n], I32(seq)[n], U8(active)[n]);
       __syncthreads();
       const int m = sh.n_claims;
-      int kind;
-      const int slot = exact_step(ptr, kind, oflow);
+      int kind, slot;
+      if (A.relax) {
+        const int trips = relax_step(ptr, kind, oflow, slot);
+        if (tid == 0) tier_tick(trips);
+      } else {
+        slot = exact_step(kind, oflow);
+      }
       if (tid == 0) {
         I32(kinds)[ptr] = kind;
         I32(slots)[ptr] = slot;

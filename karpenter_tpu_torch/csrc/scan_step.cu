@@ -1,12 +1,15 @@
 // K2 scan_step: the exact per-pod FFD step (step.cuh), walked over a whole
 // pod batch in one launch.
 //
-// Replaces karpenter_tpu/solver/tpu_kernel.py:931 `solve_scan` with
-// relax=False (the step itself, :560 `_step`, is step.cuh).
+// Replaces karpenter_tpu/solver/tpu_kernel.py:931 `solve_scan`, relax on
+// and off (the step itself, :560 `_step`, and the tier loop, :898
+// `_step_relax`, are step.cuh).
 //
 // Design. One CTA of NT threads walks the pods in order; per pod it stages
-// the pod (stage_pod) and runs the shared step (exact_step), which updates
-// the state in device memory in place.
+// the pod (stage_pod) and runs the shared step (exact_step, or with relax
+// the tier loop relax_step around it), which updates the state in device
+// memory in place. With relax == 0 the walk is the plain exact step and the
+// tier counters stay 0.
 //
 // Bound on an H100: bytes. Per pod the claim screen reads the live claim
 // rows (N x (2 TW words + 5 K)), so at the headline shape a pod moves some
@@ -20,8 +23,13 @@ __global__ void __launch_bounds__(NT, 1) scan_step_kernel() {
   int over_any = 0;
   for (int p = 0; p < A.P; ++p) {
     stage_pod(p);
-    int kind, over;
-    const int slot = exact_step(p, kind, over);
+    int kind, over, slot;
+    if (A.relax) {
+      const int trips = relax_step(p, kind, over, slot);
+      if (threadIdx.x == 0) tier_tick(trips);
+    } else {
+      slot = exact_step(kind, over);
+    }
     if (threadIdx.x == 0) {
       I32(kinds)[p] = kind;
       I32(slots)[p] = slot;

@@ -3,8 +3,9 @@
 //
 // Replaces karpenter_tpu/solver/tpu_kernel.py:560 `_step` (with
 // `_eval_topology`, `_apply_tighten`, `_topo_nonempty_ok`, `_type_filter`,
-// `_min_values_ok`, the rank updates, `_eval_filters` and `_record`),
-// relax=False.
+// `_min_values_ok`, the rank updates, `_eval_filters` and `_record`), and
+// the relax tier loop: :872 `_x_at_tier`, :898 `_step_relax` and :107
+// `odo_tier_tick` (`relax_step` and `tier_tick` below).
 //
 // Design. One CTA of NT threads takes one pod at a time (a dependent
 // chain: the next pod sees this pod's commit). `stage_pod` puts the pod row
@@ -21,6 +22,13 @@
 //   4. the template branch when nothing was found, templates in order;
 //   5. the commit: claim rows, alive words, cmax_alloc, ranks, pool limits,
 //      reservations, topology counts (`record_row`) and host ports.
+// A pod with a preference ladder goes through `relax_step`: each tier
+// restages the tier's rows (`stage_rows`) and runs the same exact step,
+// until a tier places the pod or overflows the claim slots. A failed tier
+// commits nothing (every global write of exact_step sits behind
+// kind != KIND_FAIL; the claim screen's `cand` scratch is rewritten in full
+// by each tier), so every tier sees the state before the pod, as the
+// reference's loop calling `_step` on the outer state does.
 // All state lives in device memory and is updated in place. Every decision
 // is int32 or bit arithmetic; no float touches a decision. Ties break to
 // the lowest index, as jnp.argmin/argmax do. Scatters the reference leaves
@@ -86,6 +94,8 @@ struct Shared {
   uint8_t sel_v[KTPU_MAX_G], sel_h[KTPU_MAX_G], inv_h[KTPU_MAX_G], own_h[KTPU_MAX_G], ne_h[KTPU_MAX_G];
   int ckind[KTPU_MAX_C], cgid[KTPU_MAX_C], csel[KTPU_MAX_C], cgv[KTPU_MAX_C], ckid[KTPU_MAX_C];
   int cskew[KTPU_MAX_C], cmin[KTPU_MAX_C], cboot[KTPU_MAX_C];
+  const uint8_t* ptol_t;  // [T] the staged rows' template tolerations
+  const uint8_t* ptol_e;  // [E] and existing-node tolerations
   int valid, n_claims;
   // the working row: one candidate's final (merged + tightened) row
   int fmask[KTPU_MAX_TW], fex[KTPU_MAX_TW];
@@ -478,9 +488,9 @@ __device__ void surviving_max(const int* tab, int init) {
 // ---------------------------------------------------------------------------
 // candidate screens
 
-__device__ bool screen_existing(int p, int e) {
+__device__ bool screen_existing(int e) {
   const int R = A.R;
-  if (!U8(tol_e)[(long long)p * A.E + e]) return false;
+  if (!sh.ptol_e[e]) return false;
   for (int r = 0; r < R; ++r) {
     const int av = I32(eavail)[(long long)e * R + r];
     if (av < 0 || sh.preq[r] > av) return false;
@@ -530,50 +540,70 @@ __device__ void stage_vocab() {
   __syncthreads();
 }
 
-// Stage pod p's row and its per-constraint scalars (which read the current
-// v_cnt, h_cnt and n_claims) in shared memory; all threads call.
-__device__ void stage_pod(int p) {
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int TW = A.TW, K = A.K, R = A.R, IW = A.IW;
-  const Row pr = ROW(preq, p);
+// The rows of a pod that depend on its relaxation tier (the fields
+// tpu_kernel.py _x_at_tier substitutes): the requirement row, the type
+// screen, the tolerations and the owned topology constraints.
+struct PodRows {
+  Row req;
+  const int* typeok;
+  const uint8_t* tol_t;
+  const uint8_t* tol_e;
+  const int* kind;
+  const int* gid;
+  const uint8_t* sel;
+};
+
+// batch row p: the pod as submitted
+__device__ PodRows pod_rows(int p) {
+  return PodRows{ROW(preq, p),
+                 I32(typeok) + (long long)p * A.IW,
+                 U8(tol_t) + (long long)p * A.T,
+                 U8(tol_e) + (long long)p * A.E,
+                 I32(topo_kind) + (long long)p * A.C,
+                 I32(topo_gid) + (long long)p * A.C,
+                 U8(topo_sel) + (long long)p * A.C};
+}
+
+// tier t of relaxable class row r (both clamped, as JAX clamps a gather;
+// the host only hands real rows and t < ntiers <= L)
+__device__ PodRows tier_rows(int r, int t) {
+  const long long i = (long long)clampi(r, 0, A.NRX - 1) * A.L + clampi(t, 0, A.L - 1);
+  return PodRows{ROW(rt_preq, i),
+                 I32(rt_typeok) + i * A.IW,
+                 U8(rt_tol_t) + i * A.T,
+                 U8(rt_tol_e) + i * A.E,
+                 I32(rt_kind) + i * A.C,
+                 I32(rt_gid) + i * A.C,
+                 U8(rt_sel) + i * A.C};
+}
+
+// Stage the tier-dependent rows and the per-constraint scalars derived from
+// them (which read the current v_cnt); all threads call, after a barrier
+// that ends every read of the rows staged before.
+__device__ void stage_rows(const PodRows& pr) {
+  const int tid = threadIdx.x;
+  const int TW = A.TW, K = A.K, IW = A.IW;
   for (int w = tid; w < TW; w += NT) {
-    sh.pmask[w] = pr.mask[w];
-    sh.pex[w] = pr.exmask[w];
+    sh.pmask[w] = pr.req.mask[w];
+    sh.pex[w] = pr.req.exmask[w];
   }
   for (int k = tid; k < K; k += NT) {
-    sh.pgt[k] = pr.gt[k];
-    sh.plt[k] = pr.lt[k];
-    sh.pminv[k] = pr.minv[k];
+    sh.pgt[k] = pr.req.gt[k];
+    sh.plt[k] = pr.req.lt[k];
+    sh.pminv[k] = pr.req.minv[k];
   }
-  for (int r = tid; r < R; r += NT) sh.preq[r] = I32(prequests)[(long long)p * R + r];
-  for (int w = tid; w < IW; w += NT) sh.typeok[w] = I32(typeok)[(long long)p * IW + w];
-  for (int g = tid; g < A.Gv; g += NT) sh.sel_v[g] = U8(sel_v)[(long long)p * A.Gv + g];
-  for (int g = tid; g < A.Gh; g += NT) {
-    sh.sel_h[g] = U8(sel_h)[(long long)p * A.Gh + g];
-    sh.inv_h[g] = U8(inv_h)[(long long)p * A.Gh + g];
-    sh.own_h[g] = U8(own_h)[(long long)p * A.Gh + g];
-  }
-  for (int w = tid; w < A.HPW; w += NT) {
-    sh.hp_own[w] = I32(hp_own)[(long long)p * A.HPW + w];
-    sh.hp_conf[w] = I32(hp_conf)[(long long)p * A.HPW + w];
-  }
+  for (int w = tid; w < IW; w += NT) sh.typeok[w] = pr.typeok[w];
   for (int c = tid; c < A.C; c += NT) {
-    sh.ckind[c] = I32(topo_kind)[(long long)p * A.C + c];
-    sh.cgid[c] = I32(topo_gid)[(long long)p * A.C + c];
-    sh.csel[c] = U8(topo_sel)[(long long)p * A.C + c] ? 1 : 0;
-  }
-  for (int g = warp; g < A.Gh; g += NWARP) {
-    bool any = false;
-    for (int s = lane; s < A.S && !any; s += 32) any = I32(h_cnt)[(long long)g * A.S + s] > 0;
-    any = __any_sync(0xffffffffu, any);
-    if (lane == 0) sh.ne_h[g] = any;
+    sh.ckind[c] = pr.kind[c];
+    sh.cgid[c] = pr.gid[c];
+    sh.csel[c] = pr.sel[c] ? 1 : 0;
   }
   if (tid == 0) {
-    sh.valid = U8(valid)[p];
-    sh.n_claims = *I32(n_claims);
+    sh.ptol_t = pr.tol_t;
+    sh.ptol_e = pr.tol_e;
   }
   __syncthreads();
-  if (tid == 0) sh.pk = row_keys(pr, sh.w2k, TW, K);
+  if (tid == 0) sh.pk = row_keys(pr.req, sh.w2k, TW, K);
   for (int c = tid; c < A.C; c += NT) {
     const int gv = clampi(sh.cgid[c], 0, A.Gv - 1);
     const long long base = (long long)gv * A.VMAX;
@@ -601,6 +631,36 @@ __device__ void stage_pod(int p) {
     sh.cboot[c] = sh.csel[c] > 0 && (!nonempty_total || !any_compat);
   }
   __syncthreads();
+}
+
+// Stage pod p: the rows that stay the pod's own at every tier (requests,
+// selection, inverse and host-port rows), the nonempty hostname groups (from
+// the current h_cnt), and its tier-0 rows as submitted; all threads call.
+__device__ void stage_pod(int p) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int R = A.R;
+  for (int r = tid; r < R; r += NT) sh.preq[r] = I32(prequests)[(long long)p * R + r];
+  for (int g = tid; g < A.Gv; g += NT) sh.sel_v[g] = U8(sel_v)[(long long)p * A.Gv + g];
+  for (int g = tid; g < A.Gh; g += NT) {
+    sh.sel_h[g] = U8(sel_h)[(long long)p * A.Gh + g];
+    sh.inv_h[g] = U8(inv_h)[(long long)p * A.Gh + g];
+    sh.own_h[g] = U8(own_h)[(long long)p * A.Gh + g];
+  }
+  for (int w = tid; w < A.HPW; w += NT) {
+    sh.hp_own[w] = I32(hp_own)[(long long)p * A.HPW + w];
+    sh.hp_conf[w] = I32(hp_conf)[(long long)p * A.HPW + w];
+  }
+  for (int g = warp; g < A.Gh; g += NWARP) {
+    bool any = false;
+    for (int s = lane; s < A.S && !any; s += 32) any = I32(h_cnt)[(long long)g * A.S + s] > 0;
+    any = __any_sync(0xffffffffu, any);
+    if (lane == 0) sh.ne_h[g] = any;
+  }
+  if (tid == 0) {
+    sh.valid = U8(valid)[p];
+    sh.n_claims = *I32(n_claims);
+  }
+  stage_rows(pod_rows(p));
 }
 
 // The topology record (tpu_kernel.py _record) of the working row committed
@@ -639,11 +699,11 @@ __device__ void record_row(int slot_global, bool allow_wk, const uint8_t* sel_v,
   }
 }
 
-// Pod p's exact decision and commit, after stage_pod(p); all threads call
-// and all get the result. Returns the output slot (-1 when the pod fails)
-// and sets `kind` and `over` (a template fits but every claim slot is
-// taken: nothing is committed).
-__device__ int exact_step(int p, int& kind, int& over) {
+// The staged pod's exact decision and commit, after stage_pod (and, for a
+// tier, stage_rows); all threads call and all get the result. Returns the
+// output slot (-1 when the pod fails) and sets `kind` and `over` (a
+// template fits but every claim slot is taken: nothing is committed).
+__device__ int exact_step(int& kind, int& over) {
   const int tid = threadIdx.x;
   const int K = A.K, R = A.R, E = A.E, N = A.N, T = A.T, IW = A.IW;
   const bool valid = sh.valid;
@@ -657,7 +717,7 @@ __device__ int exact_step(int p, int& kind, int& over) {
     if (E > 0) {
       int best = INT_MAX;
       for (int e = tid; e < E; e += NT)
-        if (best == INT_MAX && screen_existing(p, e)) best = e;
+        if (best == INT_MAX && screen_existing(e)) best = e;
       block_argmin(best, best);
       if (sh.best_key != INT_MAX) {
         kind = KIND_EXISTING;
@@ -667,7 +727,7 @@ __device__ int exact_step(int p, int& kind, int& over) {
     }
     // ---- 2. claim screen ----
     if (kind == KIND_FAIL) {
-      const uint8_t* tol_t = U8(tol_t) + (long long)p * T;
+      const uint8_t* tol_t = sh.ptol_t;
       for (int n = tid; n < N; n += NT) {
         bool ok = U8(active)[n] && tol_t[clampi(I32(tmpl)[n], 0, T > 0 ? T - 1 : 0)];
         for (int r = 0; r < R && ok; ++r)
@@ -730,8 +790,7 @@ __device__ int exact_step(int p, int& kind, int& over) {
         build_row(ROW(treq, t), -1, true);
         bool quick = false;
         if (tid == 0) {
-          quick = sh.row_compat && sh.row_viable && (sh.ftouched & ~sh.fsegm) == 0 &&
-                  U8(tol_t)[(long long)p * T + t];
+          quick = sh.row_compat && sh.row_viable && (sh.ftouched & ~sh.fsegm) == 0 && sh.ptol_t[t];
           for (int w = 0; w < A.HPW && quick; ++w)
             if (sh.hp_conf[w] & I32(thp)[t * A.HPW + w]) quick = false;
         }
@@ -866,4 +925,44 @@ __device__ int exact_step(int p, int& kind, int& over) {
     }
   }
   return kind == KIND_EXISTING ? slot_e : kind == KIND_CLAIM ? slot_c : kind == KIND_NEW ? m : -1;
+}
+
+// Fold one pod's tier-loop trips into the counter block (tpu_kernel.py
+// odo_tier_tick): bins 0..KTPU_TIER_BINS-2 count the pods whose trips exceed
+// the bin index, the last bin takes max(trips - its index, 0). Thread 0
+// calls.
+__device__ void tier_tick(int trips) {
+  int* cnt = I32(counters);
+  const int last = KTPU_TIER_BINS - 1;
+  cnt[KTPU_CNT_TIER_STEPS] += trips;
+  for (int b = 0; b < last; ++b) cnt[KTPU_CNT_TIER_STEPS + 1 + b] += trips > b;
+  cnt[KTPU_CNT_TIER_STEPS + 1 + last] += max(trips - last, 0);
+}
+
+// Batch row p through its preference ladder (tpu_kernel.py _step_relax),
+// after stage_pod(p): tier t stages the tier-t rows of the pod's relaxable
+// class and takes the exact step, until a tier places the pod
+// (kind != KIND_FAIL), overflows the claim slots, or the ladder ends; an
+// invalid position takes one trip. A single-tier pod keeps the rows
+// stage_pod staged and takes exactly one trip; its rrow is a placeholder
+// and is never read. Returns the trips; sets kind, over and slot as
+// exact_step does. All threads call.
+__device__ int relax_step(int p, int& kind, int& over, int& slot) {
+  const int nt = I32(ntiers)[p];
+  const bool tiered = nt > 1;
+  const int r = tiered ? I32(rrow)[p] : 0;
+  int trips = 0;
+  kind = KIND_FAIL;
+  over = 0;
+  slot = -1;
+  while (trips < nt) {
+    if (tiered) {
+      __syncthreads();  // the previous tier's reads of the staged rows are done
+      stage_rows(tier_rows(r, trips));
+    }
+    slot = exact_step(kind, over);
+    ++trips;
+    if (kind != KIND_FAIL || over || !sh.valid) break;
+  }
+  return trips;
 }

@@ -1,13 +1,15 @@
 """TorchScheduler: the provisioning solve on torch tensors.
 
-A port of the reference's `solver/tpu.py` `TpuScheduler` (relax=False):
-the same constructor and `solve(pods) -> Results` surface, wrapping the
-port's copy of `oracle.Scheduler` the same way. A solve runs
+A port of the reference's `solver/tpu.py` `TpuScheduler`: the same
+constructor and `solve(pods) -> Results` surface, wrapping the port's copy
+of `oracle.Scheduler` the same way. A solve runs
 
 1. host encode (`tpu_problem.encode_problem`),
 2. the FFD order (`_order_pods`),
 3. table upload with the pod x type screen (`_tables`, `_pod_typeok`
-   through the `typeok_screen` kernel, `_upload_pod_tables`),
+   through the `typeok_screen` kernel, `_upload_pod_tables`), and for a
+   problem with preference ladders the tier tables and their type screen
+   (`_tier_typeok`, the same kernel),
 4. requeue rounds, on one of two paths chosen as the reference chooses:
    - the runs path, whenever a pod class passes the bulk gates
      (`_bulk_gates`, `_bulk_class_flags`): `_pod_xs_with_idx` gathers a
@@ -23,9 +25,11 @@ port's copy of `oracle.Scheduler` the same way. A solve runs
    claims, existing-node usage, pool limits and topology counts onto the
    shared oracle.
 
-Decisions are bit-identical to the oracle's for supported problems.
-Problems with relaxation tiers raise UnsupportedBySolver (callers fall back
-to the oracle on that exception); the relax tier loop is not ported yet.
+Decisions are bit-identical to the oracle's for supported problems. A
+problem with a relaxable requirement class (preferred node or pod
+(anti-)affinity, ScheduleAnyway spreads, required node-affinity OR-terms)
+runs both kernels with the relax tier loop on (`last_relax`): such a pod
+tries its tiers in order inside its own step, as the reference does.
 """
 
 from __future__ import annotations
@@ -64,7 +68,6 @@ from karpenter_tpu_torch.solver.tpu_problem import (
     TOPO_ANTI_V,
     TOPO_SPREAD_V,
     EncodedProblem,
-    UnsupportedBySolver,
     _pow2,
     encode_problem,
 )
@@ -470,19 +473,20 @@ class TorchScheduler:
             node_pools, instance_types_by_pool, topology, state_nodes, daemonset_pods, options
         )
         self.opts = self.oracle.opts
-        # the last solve's kernel odometer (see _new_odo_totals) and path
+        # the last solve's kernel odometer (see _new_odo_totals), path and
+        # whether the tier loop ran
         self.last_odometer = None
         self.last_used_runs = False
+        self.last_relax = False
 
     # -- solve ----------------------------------------------------------
 
     def solve(self, pods: list[Pod]) -> Results:
-        """May raise UnsupportedBySolver; callers fall back to the oracle."""
+        """May raise tpu_problem.UnsupportedBySolver (an encode gate);
+        callers fall back to the oracle."""
         if not pods:
             return Results(new_node_claims=[], existing_nodes=self.oracle.existing_nodes, pod_errors={})
         problem = encode_problem(self.oracle, pods)
-        if (problem.ntiers_r > 1).any():
-            raise UnsupportedBySolver("relaxation tiers: not yet ported")
         deadline = (
             time_mod.monotonic() + self.opts.timeout_seconds if self.opts.timeout_seconds else None
         )
@@ -490,6 +494,10 @@ class TorchScheduler:
         tb = self._tables(problem)  # also sets self._typeok
         self._upload_pod_tables(problem)
         self._bulk_flags_c = _bulk_class_flags(problem, _bulk_gates(problem))
+        # with no relaxable requirement class the kernels run without the
+        # tier loop, exactly as for a preference-free problem
+        relax = bool((problem.ntiers_r > 1).any())
+        self.last_relax = relax
         use_runs = bool(self._bulk_flags_c.any()) and not self.debug_force_scan
         self.last_used_runs = use_runs
         if use_runs:
@@ -528,11 +536,11 @@ class TorchScheduler:
                         xs, idx_d = self._pod_xs_with_idx(problem, batch)
                         rx = self._run_x(xs, idx_d, len(batch))
                         st, seq, next_seq, got_kinds, got_slots, got_over, got_odo, got_ptr = KR.solve_runs(
-                            tb, st, rx, seq, next_seq, len(batch)
+                            tb, st, rx, seq, next_seq, len(batch), relax
                         )
                     else:
                         xs = self._pod_xs(problem, batch)
-                        st, got_kinds, got_slots, got_over, got_odo = K.solve_scan(tb, st, xs)
+                        st, got_kinds, got_slots, got_over, got_odo = K.solve_scan(tb, st, xs, relax)
                         got_ptr = None
                     _fold_odo(odo, got_odo)
                     got_kinds = got_kinds.cpu().numpy()
@@ -608,6 +616,26 @@ class TorchScheduler:
         rows = Reqs(*(to_tensor(a[cr], self.device) for a in p.preq_c))
         return typeok_screen(tb.ireq, tb.va, rows, IW)
 
+    def _tier_rows(self, p: EncodedProblem) -> Optional[Reqs]:
+        """The NRx*L tier rows of the relaxable requirement classes, padded
+        to a power of two by repeating rows (None with nothing to relax)."""
+        if not p.rt_tier_reqs:
+            return None
+        NRx, L = len(p.rt_tier_reqs), p.num_tiers
+        idx = np.arange(_pow2(NRx * L)) % (NRx * L)
+        return Reqs(*(to_tensor(a.reshape((NRx * L,) + a.shape[2:])[idx], self.device) for a in p.rt_preq))
+
+    def _tier_typeok(self, p: EncodedProblem, tb: K.Tables) -> torch.Tensor:
+        """[NRx, L, IW] words — per relaxable requirement class and tier,
+        the pairwise pod x type screen (the tier rows of `_pod_typeok`), in
+        one `typeok_screen` launch over `_tier_rows`."""
+        IW = max(1, (p.num_types + 31) // 32)
+        rows = self._tier_rows(p)
+        if rows is None:
+            return torch.zeros((1, 1, IW), dtype=torch.int32, device=self.device)
+        NRx, L = len(p.rt_tier_reqs), p.num_tiers
+        return typeok_screen(tb.ireq, tb.va, rows, IW)[: NRx * L].reshape(NRx, L, IW)
+
     # -- tensor construction --------------------------------------------
 
     def _t(self, a) -> torch.Tensor:
@@ -623,6 +651,13 @@ class TorchScheduler:
             if a.shape[0] == 0:
                 return t(np.full((1,) + a.shape[1:], fill, dtype=a.dtype))
             return t(a)
+
+        def pad_rt(a):
+            """Bucket the relaxable-class axis of the tier tables (rows past
+            the real count are never gathered: rrow holds real ids only)."""
+            if not buckets.enabled():
+                return a
+            return buckets.pad_rows(a, buckets.bucket(a.shape[0], floor=1))
 
         Gv, Gh = len(p.vgroups), len(p.hgroups)
         v_anti = np.array([g.group.type.value == 2 for g in p.vgroups], dtype=bool).reshape(Gv)
@@ -655,17 +690,23 @@ class TorchScheduler:
             h_inverse=pad_group_v(h_inverse, fill=False),
             filter_reqs=self._reqs(p.filter_reqs),
             thp=t(p.thp if p.thp is not None else np.zeros((p.num_templates, 0), np.uint32)),
-            # relax tables: not ported yet (solve() refuses tiered problems)
-            rt_preq=self._reqs(p.rt_preq),
+            rt_preq=Reqs(*(t(pad_rt(a)) for a in p.rt_preq)),
             rt_typeok=torch.zeros((1, 1, max(1, (p.num_types + 31) // 32)), dtype=torch.int32, device=self.device),
-            rt_tol_t=t(p.rt_tol_t),
-            rt_tol_e=t(p.rt_tol_e),
-            rt_kind=t(p.rt_kind),
-            rt_gid=t(p.rt_gid),
-            rt_sel=t(p.rt_sel),
+            rt_tol_t=t(pad_rt(p.rt_tol_t)),
+            rt_tol_e=t(pad_rt(p.rt_tol_e)),
+            rt_kind=t(pad_rt(p.rt_kind)),
+            rt_gid=t(pad_rt(p.rt_gid)),
+            rt_sel=t(pad_rt(p.rt_sel)),
         )
+        # the type screens need tb.ireq/va: filled after the tables
         self._typeok = self._pod_typeok(p, tb)
-        return tb
+        rt_typeok = self._tier_typeok(p, tb)
+        if buckets.enabled():
+            nrx_pad = buckets.bucket(rt_typeok.shape[0], floor=1)
+            if nrx_pad > rt_typeok.shape[0]:
+                pad = torch.zeros((nrx_pad - rt_typeok.shape[0],) + rt_typeok.shape[1:], dtype=torch.int32, device=self.device)
+                rt_typeok = torch.cat([rt_typeok, pad])
+        return tb._replace(rt_typeok=rt_typeok)
 
     def _init_state(self, p: EncodedProblem, N: int) -> K.State:
         dev = self.device
@@ -722,6 +763,7 @@ class TorchScheduler:
             U_pad = p.sel_rows_v.shape[0]
         pad_c = lambda a: buckets.pad_rows(a, NC_pad)
         pad_u = lambda a: buckets.pad_rows(a, U_pad)
+        NR_pad = max(len(cr), 1)
         self._dev_tables = dict(
             preq_r=Reqs(*(t(a[cr]) for a in p.preq_c)),
             typeok_r=self._typeok,
@@ -740,6 +782,8 @@ class TorchScheduler:
             own_c=t(pad_c(pad_g(p.pown_h_c, Gh))),
             hp_own_r=t(p.php_own_c[cr]),
             hp_conf_r=t(p.php_conf_c[cr]),
+            ntiers_r=t(buckets.pad_rows(p.ntiers_r, NR_pad, fill=1)),
+            rrow_r=t(buckets.pad_rows(p.rrow_of_rcls, NR_pad)),
         )
         # classes owning a pod-affinity constraint: their run head commits
         # through the exact step before the run cache builds
@@ -760,7 +804,6 @@ class TorchScheduler:
         ci = d["cls"][ii].long()
         ri = d["rcls_of"][ci]
         si = d["srow"][ii]
-        zeros = torch.zeros(P_pad, dtype=torch.int32, device=self.device)
         xs = K.PodX(
             preq=Reqs(*(a[ri] for a in d["preq_r"])),
             prequests=d["prequests_c"][ci],
@@ -775,8 +818,8 @@ class TorchScheduler:
             inv_h=d["inv_c"][ci],
             own_h=d["own_c"][ci],
             valid=torch.arange(P_pad, device=self.device) < n,
-            rrow=zeros,
-            ntiers=zeros + 1,
+            rrow=d["rrow_r"][ri],
+            ntiers=d["ntiers_r"][ri],
             hp_own=d["hp_own_r"][ri],
             hp_conf=d["hp_conf_r"][ri],
         )

@@ -1,26 +1,30 @@
 """The greedy-packing step: one pod's exact FFD decision and commit.
 
-A port of the reference's `solver/tpu_kernel.py` (relax=False). It
-reproduces the oracle's decision sequence exactly: existing nodes in fixed
-order, then in-flight claims in stable-sorted (pod-count, attainment-order)
-rank with an exact per-claim type verify in rank order, then a new claim
-from the first feasible template in weight order.
+A port of the reference's `solver/tpu_kernel.py`. It reproduces the
+oracle's decision sequence exactly: existing nodes in fixed order, then
+in-flight claims in stable-sorted (pod-count, attainment-order) rank with an
+exact per-claim type verify in rank order, then a new claim from the first
+feasible template in weight order. With `relax`, a pod with a preference
+ladder tries its tiers in order inside its own step (`_step_relax`), each
+tier against the state before the pod.
 
 Two versions of the same function live here:
 
-- the plain version (`_step`, `solve_scan_plain`): torch tensor code that
-  mirrors the reference line for line, vectorized over candidates. The CPU
-  tests hold it against the JAX package; on the card it is the yardstick
-  the kernel is compared with.
+- the plain version (`_step`, `_step_relax`, `solve_scan_plain`): torch
+  tensor code that mirrors the reference line for line, vectorized over
+  candidates. The CPU tests hold it against the JAX package; on the card
+  it is the yardstick the kernel is compared with.
 - the CUDA kernel `scan_step` (csrc/scan_step.cu), launched by
   `solve_scan` for CUDA tensors. One persistent single-CTA launch walks the
   whole pod batch in order; per pod, `__syncthreads()` separates the
   existing-node screen, the claim screen, the exact verify loop, the
   template branch and the commit. State is updated in place in device
-  memory (a few MB at the headline size, resident in L2).
+  memory (a few MB at the headline size, resident in L2). With `relax`,
+  the step runs inside the tier loop (`relax_step` in csrc/step.cuh).
 
-  Replaces: karpenter_tpu/solver/tpu_kernel.py:560 `_step` and :931
-  `solve_scan` (relax=False).
+  Replaces: karpenter_tpu/solver/tpu_kernel.py:560 `_step`, :931
+  `solve_scan`, and the tier loop :872 `_x_at_tier`, :898 `_step_relax`,
+  :107 `odo_tier_tick`.
   Bound on an H100: by bytes, the state and tables it must read per pod
   (claim rows dominate: N x (2 TW + 3 K) words); in practice the pod
   sequence is a dependent chain of small reductions, so launch-free
@@ -54,6 +58,7 @@ from karpenter_tpu_torch.ops.kernels import (
     seg_popcount,
 )
 from karpenter_tpu_torch.solver.tpu_problem import (
+    MAX_RELAX_TIERS,
     TOPO_AFFINITY_H,
     TOPO_AFFINITY_V,
     TOPO_ANTI_V,
@@ -69,11 +74,12 @@ KIND_CLAIM = 1
 KIND_NEW = 2
 KIND_FAIL = 3
 
-# launches of the CUDA step kernel (one per solve_scan call on the card)
-LAUNCHES = {"scan_step": 0}
+# launches of the CUDA step kernel (one per solve_scan call on the card),
+# counted apart for launches with the relax tier loop on
+LAUNCHES = {"scan_step": 0, "scan_step_relax": 0}
 
-# relax-tier odometer bins (the reference's layout; the relax tier loop is
-# not ported yet, so the tier counters stay 0)
+# relax-tier odometer bins: a pod's trips at tier t land in bin
+# min(t, ODO_TIER_BINS - 1) (the reference's layout)
 ODO_TIER_BINS = 8
 
 
@@ -114,8 +120,8 @@ class Tables(NamedTuple):
     filter_reqs: Reqs
     # template daemonset host-port seeds [T, HPW] words (zero-width if none)
     thp: torch.Tensor
-    # relaxation-tier tables [NR, L, ...]: carried for layout parity with
-    # the reference; the relax step is not ported yet
+    # relaxation-tier tables [NRx, L, ...] per relaxable requirement class
+    # and tier (rows past the real NRx are bucket padding, never gathered)
     rt_preq: Reqs
     rt_typeok: torch.Tensor
     rt_tol_t: torch.Tensor
@@ -183,8 +189,8 @@ class Odometer(NamedTuple):
     - steps: loop iterations executed (pod positions on the scan path, pads
       included; pointer-loop trips on the runs path);
     - bulk_steps: runs-path bulk-window trips (a subset of steps);
-    - tier_steps, tier_hist: relax tier-loop trips (0 until the relax tier
-      loop is ported).
+    - tier_steps, tier_hist: relax tier-loop trips (each trip one full
+      step; 0 with relax off); see `odo_tier_tick`.
     """
 
     steps: torch.Tensor
@@ -193,14 +199,28 @@ class Odometer(NamedTuple):
     tier_hist: torch.Tensor
 
 
-def odometer(steps, bulk_steps, dev) -> Odometer:
-    """An Odometer from step counts (ints or 0-dim tensors) on `dev`."""
+def odometer(steps, bulk_steps, dev, tier_steps=0, tier_hist=None) -> Odometer:
+    """An Odometer from step counts (ints or tensors) on `dev`."""
+    if tier_hist is None:
+        tier_hist = [0] * ODO_TIER_BINS
     return Odometer(
         steps=torch.as_tensor(steps, dtype=torch.int32, device=dev),
         bulk_steps=torch.as_tensor(bulk_steps, dtype=torch.int32, device=dev),
-        tier_steps=torch.zeros((), dtype=torch.int32, device=dev),
-        tier_hist=torch.zeros(ODO_TIER_BINS, dtype=torch.int32, device=dev),
+        tier_steps=torch.as_tensor(tier_steps, dtype=torch.int32, device=dev),
+        tier_hist=torch.as_tensor(tier_hist, dtype=torch.int32, device=dev),
     )
+
+
+def tier_tick(tier_steps: int, tier_hist: list, trips: int) -> int:
+    """Credit one pod's `trips` tier-loop trips (the reference's
+    `odo_tier_tick`): bins 0..ODO_TIER_BINS-2 count the pods whose trips
+    exceed the bin index, the last bin takes max(trips - its index, 0).
+    Updates `tier_hist` in place; returns the new tier_steps."""
+    last = ODO_TIER_BINS - 1
+    for b in range(last):
+        tier_hist[b] += int(trips > b)
+    tier_hist[last] += max(trips - last, 0)
+    return tier_steps + trips
 
 
 def _row(r: Reqs, i) -> Reqs:
@@ -725,15 +745,57 @@ def _clone_state(st: State) -> State:
     )
 
 
-def solve_scan_plain(tb: Tables, st: State, xs: PodX):
-    """The plain version: run the greedy pack over a pod batch. Returns
-    (state, kinds [P] int32, slots [P] int32, overflowed, odometer)."""
+def _x_at_tier(tb: Tables, x: PodX, t: int) -> PodX:
+    """The pod's PodX with its tier-t rows where it has tiers (requests,
+    selection, inverse and host-port rows do not depend on the tier).
+    A single-tier pod keeps its own rows: its rrow is a placeholder and is
+    never read."""
+    if int(x.ntiers) <= 1:
+        return x
+    ri = int(x.rrow)
+    return x._replace(
+        preq=Reqs(*(a[ri, t] for a in tb.rt_preq)),
+        typeok=tb.rt_typeok[ri, t],
+        tol_t=tb.rt_tol_t[ri, t],
+        tol_e=tb.rt_tol_e[ri, t],
+        topo_kind=tb.rt_kind[ri, t],
+        topo_gid=tb.rt_gid[ri, t],
+        topo_sel=tb.rt_sel[ri, t],
+    )
+
+
+def _step_relax(tb: Tables, st: State, x: PodX):
+    """scheduler.go:434 trySchedule: a pod tries its relaxation tiers in
+    order inside its own step, every tier against the state before the pod,
+    until one places it, one overflows the claim slots, or the ladder ends.
+    A single-tier pod (and an invalid position) takes exactly one trip.
+    Returns (state, (kind, slot, overflow), trips)."""
+    trips = 0
+    st2, out = st, (KIND_FAIL, -1, False)
+    while trips < int(x.ntiers):
+        st2, out = _step(tb, st, _x_at_tier(tb, x, trips))
+        trips += 1
+        kind, _, over = out
+        if kind != KIND_FAIL or over or not bool(x.valid):
+            break
+    return st2, out, trips
+
+
+def solve_scan_plain(tb: Tables, st: State, xs: PodX, relax: bool = False):
+    """The plain version: run the greedy pack over a pod batch, each pod
+    through the tier loop when `relax` is set. Returns (state, kinds [P]
+    int32, slots [P] int32, overflowed, odometer)."""
     P = xs.valid.shape[0]
     kinds, slots = [], []
     overflow = False
+    tier_steps, tier_hist = 0, [0] * ODO_TIER_BINS
     for p in range(P):
         x = PodX(*(Reqs(*(a[p] for a in f)) if isinstance(f, Reqs) else f[p] for f in xs))
-        st, (kind, slot, over) = _step(tb, st, x)
+        if relax:
+            st, (kind, slot, over), trips = _step_relax(tb, st, x)
+            tier_steps = tier_tick(tier_steps, tier_hist, trips)
+        else:
+            st, (kind, slot, over) = _step(tb, st, x)
         kinds.append(kind)
         slots.append(slot)
         overflow = overflow or over
@@ -743,21 +805,22 @@ def solve_scan_plain(tb: Tables, st: State, xs: PodX):
         torch.tensor(kinds, dtype=torch.int32, device=dev),
         torch.tensor(slots, dtype=torch.int32, device=dev),
         torch.tensor(overflow, device=dev),
-        odometer(P, 0, dev),
+        odometer(P, 0, dev, tier_steps, tier_hist),
     )
 
 
-def solve_scan(tb: Tables, st: State, xs: PodX):
-    """Run the greedy pack over a pod batch (relax=False); returns
-    (state, kinds, slots, overflowed, odometer). `overflowed` means some pod
-    failed only because claim slots ran out (grow N and re-solve); the
-    odometer's `steps` counts pod positions walked, pads included.
+def solve_scan(tb: Tables, st: State, xs: PodX, relax: bool = False):
+    """Run the greedy pack over a pod batch; returns (state, kinds, slots,
+    overflowed, odometer). `overflowed` means some pod failed only because
+    claim slots ran out (grow N and re-solve); the odometer's `steps` counts
+    pod positions walked, pads included, and with `relax` its tier counters
+    count the tier-loop trips.
 
     CPU tensors take the plain version. CUDA tensors launch the
     `scan_step` kernel, which updates a copy of `st` in place."""
     if st.rank.device.type == "cpu":
-        return solve_scan_plain(tb, st, xs)
-    return _launch_scan_step(tb, _clone_state(st), xs)
+        return solve_scan_plain(tb, st, xs, relax)
+    return _launch_scan_step(tb, _clone_state(st), xs, relax)
 
 
 # ---------------------------------------------------------------------------
@@ -766,6 +829,9 @@ def solve_scan(tb: Tables, st: State, xs: PodX):
 
 # the kernels' shared-memory staging limits (csrc/step_args.h)
 _LIMITS = {"TW": 128, "K": 64, "C": 8, "IW": 128, "R": 32, "Gv": 64, "Gh": 64, "HPW": 32, "T": 64, "NRESW": 32}
+# the counter block both step kernels write: overflow, steps, bulk_steps,
+# next_seq, ptr, tier_steps, then the ODO_TIER_BINS tier_hist bins
+N_COUNTERS = 6 + ODO_TIER_BINS
 
 
 @functools.lru_cache(maxsize=None)
@@ -872,6 +938,39 @@ def step_arg_values(tb: Tables, st: State, xs: PodX, dev) -> dict:
     return vals
 
 
+def tier_arg_values(tb: Tables, xs: PodX, vals: dict, dev) -> None:
+    """Add the relax tier loop's fields to `vals`: the tier tables, the
+    batch's rrow/ntiers, L, NRX and relax=1 (checked against the kernels'
+    limits and the batch's shapes)."""
+    NRX, L = tb.rt_kind.shape[:2]
+    want = {
+        "rt_typeok": (NRX, L, vals["IW"]), "rt_tol_t": (NRX, L, vals["T"]), "rt_tol_e": (NRX, L, vals["E"]),
+        "rt_kind": (NRX, L, vals["C"]), "rt_gid": (NRX, L, vals["C"]), "rt_sel": (NRX, L, vals["C"]),
+    }
+    for name, shape in want.items():
+        if tuple(getattr(tb, name).shape) != shape:
+            raise ValueError(f"step kernel: {name} has shape {tuple(getattr(tb, name).shape)}, expected {shape}")
+    if tuple(tb.rt_preq.mask.shape) != (NRX, L, vals["TW"]):
+        raise ValueError(f"step kernel: rt_preq has shape {tuple(tb.rt_preq.mask.shape)}")
+    if L > MAX_RELAX_TIERS:
+        raise ValueError(f"step kernel: L={L} tiers exceed the kernel's limit {MAX_RELAX_TIERS}")
+    i32, b8 = torch.int32, torch.bool
+    for field, t, dtype in zip(Reqs._fields, tb.rt_preq, REQS_DTYPES):
+        vals[f"rt_preq_{field}"] = checked_ptr(t, dtype, dev, f"rt_preq_{field}")
+    for name, dtype in (
+        ("rt_typeok", i32), ("rt_tol_t", b8), ("rt_tol_e", b8), ("rt_kind", i32), ("rt_gid", i32), ("rt_sel", b8),
+    ):
+        vals[name] = checked_ptr(getattr(tb, name), dtype, dev, name)
+    vals["rrow"] = checked_ptr(xs.rrow, i32, dev, "rrow")
+    vals["ntiers"] = checked_ptr(xs.ntiers, i32, dev, "ntiers")
+    vals.update(L=L, NRX=NRX, relax=1)
+
+
+def counters_odometer(counters: torch.Tensor, dev) -> Odometer:
+    """The Odometer of a step kernel's counter block (N_COUNTERS)."""
+    return odometer(counters[1], counters[2], dev, counters[5], counters[6:])
+
+
 def step_args(name: str, args_type, vals: dict):
     """The argument block from `vals` (keys starting with "_" only keep
     tensors alive); fields a kernel does not read are 0."""
@@ -892,22 +991,23 @@ def launch_step(lib, name: str, args_type, vals: dict, dev) -> None:
     _build.check_launch(name, code)
 
 
-def _launch_scan_step(tb: Tables, st: State, xs: PodX):
+def _launch_scan_step(tb: Tables, st: State, xs: PodX, relax: bool):
     """Launch scan_step on `st` (updated in place); returns the
     solve_scan tuple."""
     lib, args_type = step_library("scan_step")
     dev = st.rank.device
     P = xs.valid.shape[0]
     vals = step_arg_values(tb, st, xs, dev)
+    if relax:
+        tier_arg_values(tb, xs, vals, dev)
     kinds = torch.empty(P, dtype=torch.int32, device=dev)
     slots = torch.empty(P, dtype=torch.int32, device=dev)
-    # counters: overflow, steps (the layout run_step shares)
-    counters = torch.zeros(5, dtype=torch.int32, device=dev)
+    counters = torch.zeros(N_COUNTERS, dtype=torch.int32, device=dev)
     cand = torch.empty(st.active.shape[0], dtype=torch.uint8, device=dev)
     vals["kinds"] = checked_ptr(kinds, torch.int32, dev, "kinds")
     vals["slots"] = checked_ptr(slots, torch.int32, dev, "slots")
     vals["counters"] = checked_ptr(counters, torch.int32, dev, "counters")
     vals["cand"] = checked_ptr(cand, torch.uint8, dev, "cand")
     launch_step(lib, "scan_step", args_type, vals, dev)
-    LAUNCHES["scan_step"] += 1
-    return st, kinds, slots, counters[0] != 0, odometer(counters[1], 0, dev)
+    LAUNCHES["scan_step_relax" if relax else "scan_step"] += 1
+    return st, kinds, slots, counters[0] != 0, counters_odometer(counters, dev)

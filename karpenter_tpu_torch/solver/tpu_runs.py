@@ -1,13 +1,14 @@
 """The run kernel: bulk-commits whole runs of identical pods per step.
 
-A port of the reference's `solver/tpu_runs.py` with relax=False. The FFD
+A port of the reference's `solver/tpu_runs.py`. The FFD
 order makes pods of one scheduling class contiguous, so the solve order is
 a sequence of runs whose per-pod decisions are the same function of the
 solver state. `solve_runs` walks the pods with a pointer:
 
 - the first pod of a run (and every pod of a non-bulkable class) takes the
-  exact per-pod step (`tpu_kernel._step`), with the claims' event-sequence
-  key standing in for the rank vector;
+  exact per-pod step (`tpu_kernel._step`, or with `relax` the tier loop
+  `tpu_kernel._step_relax`), with the claims' event-sequence key standing in
+  for the rank vector; pods with a preference ladder are never bulk;
 - a bulkable run builds a small run cache once (per-target viability and
   exact pod-unit capacities), then commits the rest of the run in windows
   of up to W pods: existing nodes first-fill by cumulative capacity,
@@ -29,7 +30,7 @@ Two versions of the same function:
 
   Replaces: karpenter_tpu/solver/tpu_runs.py:319 `solve_runs` (with
   :185 `_build_cache`, :288 `_record_window`, :161/:172 the final rows,
-  :121 `_seq_key`, :136 `_pod_units`), relax=False.
+  :121 `_seq_key`, :136 `_pod_units`), relax on and off.
   Bound on an H100: bytes (the claim rows a window and a cache build read,
   a few MB that stay in L2); in practice the iterations form a dependent
   chain of block reductions, so its time is barrier latency. The design
@@ -67,7 +68,9 @@ from karpenter_tpu_torch.solver.tpu_kernel import (
     _i32,
     _row,
     _step,
+    _step_relax,
     _topo_nonempty_ok,
+    tier_tick,
 )
 from karpenter_tpu_torch.solver.tpu_problem import TOPO_ANTI_H, TOPO_SPREAD_H
 
@@ -85,7 +88,7 @@ _CASE_NEW = 3
 _CASE_FAIL = 4
 
 # launches of the CUDA run kernel (one per solve_runs call on the card)
-LAUNCHES = {"run_step": 0}
+LAUNCHES = {"run_step": 0, "run_step_relax": 0}
 
 
 class RunX(NamedTuple):
@@ -333,8 +336,8 @@ class _Walk:
     """The plain version's loop carry: the state (a private copy, updated
     in place), the run cache, the event sequence and the outputs."""
 
-    def __init__(self, tb: Tables, st: State, rx: RunX, seq, next_seq):
-        self.tb, self.rx = tb, rx
+    def __init__(self, tb: Tables, st: State, rx: RunX, seq, next_seq, relax: bool):
+        self.tb, self.rx, self.relax = tb, rx, relax
         self.st = K._clone_state(st)
         self.seq = seq.clone()
         self.nseq = int(next_seq)
@@ -349,6 +352,8 @@ class _Walk:
         self.rc = _empty_cache(tb, st)
         self.steps = 0
         self.bulk_steps = 0
+        self.tier_steps = 0
+        self.tier_hist = [0] * K.ODO_TIER_BINS
         self.jW = torch.arange(W, dtype=torch.int32, device=self.dev)
         # host copies of the driver flags (control flow reads them per pod)
         self.is_head = rx.is_head.tolist()
@@ -372,7 +377,12 @@ class _Walk:
         # only uses rank for min-selection, so the key substitutes directly
         st_in = st._replace(rank=_seq_key(st.count, self.seq, st.active))
         n_claims = int(st.n_claims)
-        st2, (kind, slot, oflow) = _step(self.tb, st_in, x)
+        if self.relax:
+            # every tier reuses the seq key written once above
+            st2, (kind, slot, oflow), trips = _step_relax(self.tb, st_in, x)
+            self.tier_steps = tier_tick(self.tier_steps, self.tier_hist, trips)
+        else:
+            st2, (kind, slot, oflow) = _step(self.tb, st_in, x)
         upd = kind in (KIND_CLAIM, KIND_NEW)
         sslot = slot if kind == KIND_CLAIM else n_claims
         if upd and sslot < self.N:
@@ -611,14 +621,15 @@ class _Walk:
         return f, wk, torch.where(pred, m + cl_of, _i32(-1, dev)), False
 
 
-def solve_runs_plain(tb: Tables, st: State, rx: RunX, seq, next_seq, n_valid: int):
+def solve_runs_plain(tb: Tables, st: State, rx: RunX, seq, next_seq, n_valid: int, relax: bool = False):
     """The plain version. Returns (state, seq, next_seq, kinds[P],
     slots[P], overflowed, odometer, ptr); pods at index >= n_valid are
     shape padding and are never visited. An overflow stops the walk with
     ptr on the overflowing pod: everything before it is decided and does
     not depend on the slot count, so the host grows the state and goes on
-    from ptr."""
-    w = _Walk(tb, st, rx, seq, next_seq)
+    from ptr (a tiered pod then starts again at tier 0). With `relax` the
+    exact step is the tier loop."""
+    w = _Walk(tb, st, rx, seq, next_seq, relax)
     ptr, over = 0, False
     while ptr < n_valid and not over:
         # non-affinity bulk heads build the cache up front and commit their
@@ -640,18 +651,18 @@ def solve_runs_plain(tb: Tables, st: State, rx: RunX, seq, next_seq, n_valid: in
         w.kinds[: w.P],
         w.slots[: w.P],
         torch.tensor(over, device=dev),
-        K.odometer(w.steps, w.bulk_steps, dev),
+        K.odometer(w.steps, w.bulk_steps, dev, w.tier_steps, w.tier_hist),
         _i32(ptr, dev),
     )
 
 
-def solve_runs(tb: Tables, st: State, rx: RunX, seq, next_seq, n_valid: int):
+def solve_runs(tb: Tables, st: State, rx: RunX, seq, next_seq, n_valid: int, relax: bool = False):
     """solve_runs_plain's contract. CPU tensors take the plain version;
     CUDA tensors launch the `run_step` kernel on copies of `st` and
     `seq`."""
     if st.rank.device.type == "cpu":
-        return solve_runs_plain(tb, st, rx, seq, next_seq, n_valid)
-    return _launch_run_step(tb, K._clone_state(st), rx, seq.clone(), next_seq, n_valid)
+        return solve_runs_plain(tb, st, rx, seq, next_seq, n_valid, relax)
+    return _launch_run_step(tb, K._clone_state(st), rx, seq.clone(), next_seq, n_valid, relax)
 
 
 # ---------------------------------------------------------------------------
@@ -666,17 +677,18 @@ def _run_step_library():
     return lib, args_type
 
 
-def _launch_run_step(tb: Tables, st: State, rx: RunX, seq, next_seq, n_valid: int):
+def _launch_run_step(tb: Tables, st: State, rx: RunX, seq, next_seq, n_valid: int, relax: bool):
     lib, args_type = _run_step_library()
     dev = st.rank.device
     P = rx.is_head.shape[0]
     if not 0 <= n_valid <= P:
         raise ValueError(f"run_step: n_valid={n_valid} outside [0, {P}]")
     vals = K.step_arg_values(tb, st, rx.x, dev)
+    if relax:
+        K.tier_arg_values(tb, rx.x, vals, dev)
     kinds = torch.full((P,), KIND_FAIL, dtype=torch.int32, device=dev)
     slots = torch.full((P,), -1, dtype=torch.int32, device=dev)
-    # counters: overflow, steps, bulk_steps, next_seq, ptr
-    counters = torch.zeros(5, dtype=torch.int32, device=dev)
+    counters = torch.zeros(K.N_COUNTERS, dtype=torch.int32, device=dev)
     counters[3] = int(next_seq)
     cand = torch.empty(st.active.shape[0], dtype=torch.uint8, device=dev)
     vals.update(n_valid=n_valid, P=P)
@@ -692,6 +704,5 @@ def _launch_run_step(tb: Tables, st: State, rx: RunX, seq, next_seq, n_valid: in
     scratch = torch.empty(int(lib.run_step_scratch_bytes(ctypes.byref(probe))), dtype=torch.uint8, device=dev)
     vals["scratch"] = scratch.data_ptr()
     K.launch_step(lib, "run_step", args_type, vals, dev)
-    LAUNCHES["run_step"] += 1
-    over, steps, bulk_steps, nseq, ptr = counters.unbind()
-    return st, seq, nseq, kinds, slots, over != 0, K.odometer(steps, bulk_steps, dev), ptr
+    LAUNCHES["run_step_relax" if relax else "run_step"] += 1
+    return st, seq, counters[3], kinds, slots, counters[0] != 0, K.counters_odometer(counters, dev), counters[4]

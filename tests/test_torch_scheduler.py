@@ -105,14 +105,6 @@ def test_tight_slots_resolve_on_overflow():
     assert sched.last_odometer["claim_slots"] == 128
 
 
-def test_relaxation_tiers_raise():
-    """Preference ladders are not ported yet: the scheduler refuses them
-    with the exception callers fall back to the oracle on."""
-    case = fuzz.generate_case(7000)  # schedule-anyway spread -> relax tiers
-    with pytest.raises(UnsupportedBySolver, match="relaxation tiers"):
-        solve_torch(case)
-
-
 @pytest.mark.parametrize("seed", [7005, 7030])
 def test_wire_decode_matches_reference(seed):
     """The port decodes a payload into the same world the reference does."""
