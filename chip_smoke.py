@@ -66,7 +66,6 @@ C6_JAX_ODOMETER = {
     "steps": 1709, "bulk_steps": 1019, "tier_steps": 1290, "tier_hist": [690, 200, 200, 200, 0, 0, 0, 0],
     "dispatches": 2, "overflow_signals": 1, "regrows": 1, "claims_opened": 1962, "claim_slots": 2048,
 }
-DEVICE = "cuda"  # where every phase runs (the card; no phase falls back)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 CORE_OPS_PER_S = 67e12  # H100 SXM non-tensor 32-bit rate (fp32 figure)
 
@@ -609,7 +608,7 @@ def main() -> int:
     except ImportError as e:
         print(f"chip_smoke: the karpenter_tpu_torch package is not beside this script ({e})", file=sys.stderr)
         return 2
-    dev = torch.device(DEVICE)
+    dev = torch.device("cuda")
     if any(m == "jax" or m.startswith(("jax.", "karpenter_tpu.")) for m in sys.modules):
         print("chip_smoke: the port pulled in jax or the reference package", file=sys.stderr)
         return 1
@@ -1019,15 +1018,18 @@ def main() -> int:
     # K2's bound as before (inputs, state and outputs once; the (pod, open
     # claim) pairs its screens visit), with the tier tables read once too;
     # the tier loop's bound: what the trips past a pod's first must do at
-    # least, read their tier rows and screen every template and existing
-    # node against them
+    # least, read the tier rows of the classes the round uses once (and the
+    # batch's rrow/ntiers), and screen every template and existing node
+    # against the tier rows on each trip
     is_new = (got_p[1] == K.KIND_NEW).to(torch.int64)
     pairs_p = int((torch.cumsum(is_new, 0) - is_new)[xs_p.valid].sum())
     TWp, Kp, Tp, Ep = tb_p.va.full_mask.shape[0], tb_p.va.num_keys, tb_p.tdaemon.shape[0], st_p.eavail.shape[0]
     k2r_bound, k2r_by = bound(nbytes(tb_p, st_p, xs_p) + nbytes(st_p) + 2 * 4 * P_p, pairs_p * (2 * TWp + 3 * Kp))
     extra_trips = pref_trips - P_p  # every position takes at least one trip
-    tier_row_bytes = 4 * (2 * TWp + 3 * Kp) + 3 * Kp + 4 * IW + Tp + Ep + 9 * xs_p.topo_kind.shape[1]
-    relax_bound, relax_by = bound(extra_trips * tier_row_bytes, extra_trips * (Tp + Ep) * (2 * TWp + 3 * Kp))
+    rt_used = torch.unique(xs_p.rrow[xs_p.valid & (xs_p.ntiers > 1)])
+    tier_rows = tuple(a[rt_used] for a in (*tb_p.rt_preq, tb_p.rt_typeok, tb_p.rt_tol_t, tb_p.rt_tol_e, tb_p.rt_kind,
+                                           tb_p.rt_gid, tb_p.rt_sel))
+    relax_bound, relax_by = bound(nbytes(tier_rows, xs_p.rrow, xs_p.ntiers), extra_trips * (Tp + Ep) * (2 * TWp + 3 * Kp))
 
     # K3 with relax on small tiered problems: an overflow stop on a tiered
     # pod (64 slots), and existing-node windows beside tiered pods

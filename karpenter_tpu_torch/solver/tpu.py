@@ -604,7 +604,7 @@ class TorchScheduler:
             return cr
         return cr[np.arange(buckets.bucket(len(cr))) % len(cr)]
 
-    def _pod_typeok(self, p: EncodedProblem, tb: K.Tables) -> torch.Tensor:
+    def _pod_typeok(self, p: EncodedProblem, ireq: Reqs, va: VocabArrays) -> torch.Tensor:
         """[NR_pad, IW] words — per requirement class, the instance types
         whose requirements intersect the class's (the pairwise screen; the
         step stays exact for three-way intersections, offerings and
@@ -614,7 +614,7 @@ class TorchScheduler:
         if len(cr) == 0:
             return torch.zeros((0, IW), dtype=torch.int32, device=self.device)
         rows = Reqs(*(to_tensor(a[cr], self.device) for a in p.preq_c))
-        return typeok_screen(tb.ireq, tb.va, rows, IW)
+        return typeok_screen(ireq, va, rows, IW)
 
     def _tier_rows(self, p: EncodedProblem) -> Optional[Reqs]:
         """The NRx*L tier rows of the relaxable requirement classes, padded
@@ -625,16 +625,23 @@ class TorchScheduler:
         idx = np.arange(_pow2(NRx * L)) % (NRx * L)
         return Reqs(*(to_tensor(a.reshape((NRx * L,) + a.shape[2:])[idx], self.device) for a in p.rt_preq))
 
-    def _tier_typeok(self, p: EncodedProblem, tb: K.Tables) -> torch.Tensor:
-        """[NRx, L, IW] words — per relaxable requirement class and tier,
-        the pairwise pod x type screen (the tier rows of `_pod_typeok`), in
-        one `typeok_screen` launch over `_tier_rows`."""
+    def _tier_typeok(self, p: EncodedProblem, ireq: Reqs, va: VocabArrays) -> torch.Tensor:
+        """[NRx_pad, L, IW] words — per relaxable requirement class and
+        tier, the pairwise pod x type screen (the tier rows of
+        `_pod_typeok`), in one `typeok_screen` launch over `_tier_rows`; the
+        NRx axis is bucketed with zero rows like the other tier tables."""
         IW = max(1, (p.num_types + 31) // 32)
         rows = self._tier_rows(p)
         if rows is None:
-            return torch.zeros((1, 1, IW), dtype=torch.int32, device=self.device)
-        NRx, L = len(p.rt_tier_reqs), p.num_tiers
-        return typeok_screen(tb.ireq, tb.va, rows, IW)[: NRx * L].reshape(NRx, L, IW)
+            out = torch.zeros((1, 1, IW), dtype=torch.int32, device=self.device)
+        else:
+            NRx, L = len(p.rt_tier_reqs), p.num_tiers
+            out = typeok_screen(ireq, va, rows, IW)[: NRx * L].reshape(NRx, L, IW)
+        if buckets.enabled():
+            n_pad = buckets.bucket(out.shape[0], floor=1) - out.shape[0]
+            if n_pad > 0:
+                out = torch.cat([out, out.new_zeros((n_pad,) + out.shape[1:])])
+        return out
 
     # -- tensor construction --------------------------------------------
 
@@ -662,14 +669,17 @@ class TorchScheduler:
         Gv, Gh = len(p.vgroups), len(p.hgroups)
         v_anti = np.array([g.group.type.value == 2 for g in p.vgroups], dtype=bool).reshape(Gv)
         h_inverse = np.array([g.inverse for g in p.hgroups], dtype=bool).reshape(Gh)
-        tb = K.Tables(
-            va=VocabArrays.from_vocab(p.vocab, self.device),
+        va = VocabArrays.from_vocab(p.vocab, self.device)
+        ireq = self._reqs(p.ireq)
+        self._typeok = self._pod_typeok(p, ireq, va)
+        return K.Tables(
+            va=va,
             treq=self._reqs(p.treq),
             tdaemon=t(p.tdaemon),
             ttypes=t(p.ttypes),
             tlimit_def=t(p.tlimit_def),
             thas_limits=t(p.thas_limits),
-            ireq=self._reqs(p.ireq),
+            ireq=ireq,
             ialloc=t(p.ialloc),
             icap=t(p.icap),
             otype=t(p.otype),
@@ -691,22 +701,13 @@ class TorchScheduler:
             filter_reqs=self._reqs(p.filter_reqs),
             thp=t(p.thp if p.thp is not None else np.zeros((p.num_templates, 0), np.uint32)),
             rt_preq=Reqs(*(t(pad_rt(a)) for a in p.rt_preq)),
-            rt_typeok=torch.zeros((1, 1, max(1, (p.num_types + 31) // 32)), dtype=torch.int32, device=self.device),
+            rt_typeok=self._tier_typeok(p, ireq, va),
             rt_tol_t=t(pad_rt(p.rt_tol_t)),
             rt_tol_e=t(pad_rt(p.rt_tol_e)),
             rt_kind=t(pad_rt(p.rt_kind)),
             rt_gid=t(pad_rt(p.rt_gid)),
             rt_sel=t(pad_rt(p.rt_sel)),
         )
-        # the type screens need tb.ireq/va: filled after the tables
-        self._typeok = self._pod_typeok(p, tb)
-        rt_typeok = self._tier_typeok(p, tb)
-        if buckets.enabled():
-            nrx_pad = buckets.bucket(rt_typeok.shape[0], floor=1)
-            if nrx_pad > rt_typeok.shape[0]:
-                pad = torch.zeros((nrx_pad - rt_typeok.shape[0],) + rt_typeok.shape[1:], dtype=torch.int32, device=self.device)
-                rt_typeok = torch.cat([rt_typeok, pad])
-        return tb._replace(rt_typeok=rt_typeok)
 
     def _init_state(self, p: EncodedProblem, N: int) -> K.State:
         dev = self.device
