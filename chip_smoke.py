@@ -5,7 +5,7 @@ Run from the repository root on a machine with one NVIDIA card:
 
     python3 chip_smoke.py
 
-It builds the five CUDA kernels from csrc/ and holds each against its plain
+It builds the eight CUDA kernels from csrc/ and holds each against its plain
 PyTorch version on the card, bit for bit:
 
 - K1 typeok_screen on the headline's class rows and the c6 mix's tier rows;
@@ -19,7 +19,12 @@ PyTorch version on the card, bit for bit:
   two small tiered problems and the c6 mix's two dispatches;
 - K4 run_arrays on the headline round;
 - K5 dedup_rows on the headline's final claim rows and on 16384 synthetic
-  rows with many duplicates.
+  rows with many duplicates;
+- K6 fast_sweep (prefix and singleton lanes) and K8 set_sweep (1024
+  removal sets) on a 2000-node under-utilized fleet (the reference's c4
+  shape: 100 candidates, 20 pending pods of a second class), and K7
+  scan_lanes (prefix and singleton lanes) on 64 candidates of a 2000-node
+  fleet whose riders carry a zone spread.
 
 Then it drives the provisioning solve end to end, each path with the launch
 counts set to 0 just before and read just after: the headline
@@ -29,8 +34,11 @@ pods, whose decisions must equal the runs path's; the c6 realistic mix
 (bench.py `pods_realistic(10000)`: 98% diverse, a 2% tail of preference
 pods) through the runs path with the tier loop, whose odometer must equal
 the JAX package's; and the 1000-pod preference round through the scan path
-with the tier loop. It checks decisions against the port's oracle on
-eight problems, and prints:
+with the tier loop; then the consolidation sweeps: prefix_feasibility and
+singleton_feasibility on both fleets (the fast path and the full-state lane
+path) and SetSweepContext.evaluate, their verdicts held against the port's
+sequential referee (helpers.simulate_scheduling on the oracle). It checks
+decisions against the port's oracle on eight problems, and prints:
 
 - the card's name and power limit (nvidia-smi),
 - one JSON line {"kernels": [...]} with each kernel's launches on its path,
@@ -66,6 +74,21 @@ C6_JAX_ODOMETER = {
     "steps": 1709, "bulk_steps": 1019, "tier_steps": 1290, "tier_hist": [690, 200, 200, 200, 0, 0, 0, 0],
     "dispatches": 2, "overflow_signals": 1, "regrows": 1, "claims_opened": 1962, "claim_slots": 2048,
 }
+# the consolidation sweeps (the reference's c4 bench shape, sweep.py:763
+# bench_sweep and setsweep.py:557 bench_set_sweep): an under-utilized
+# fleet, its top candidates by (disruption cost, name), pending pods of a
+# second class so the class loop runs C >= 2 classes
+SWEEP_NODES = 2000
+SWEEP_CANDIDATES = 100
+SWEEP_PENDING = 20
+SET_LANES = 1024
+# the full-state lane path: riders with a zone spread fail the fast gates;
+# 64 lanes x 64 union pods is the reference's 4096 limit
+LANE_CANDIDATES = 64
+RIDER_SPREAD = 4
+REFEREE_SEEDED = 16  # seeded lanes of each kind held against the referee
+# the device functions of K6 and K8, as the profiler names them
+SWEEP_KERNELS = ("sweep_cache_kernel", "fast_sweep_lanes", "set_sweep_lanes")
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 CORE_OPS_PER_S = 67e12  # H100 SXM non-tensor 32-bit rate (fp32 figure)
 
@@ -445,6 +468,28 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def device_ms(fn, reps: int, names: tuple) -> Optional[float]:
+    """Per-call device time in ms of the kernels whose names contain one of
+    `names`, summed from a torch.profiler trace of `reps` calls (None when
+    the trace shows them no device time). Unlike cuda_ms, the host work
+    between launches does not count."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total_us = sum(
+        getattr(e, "device_time_total", 0) or getattr(e, "cuda_time_total", 0)
+        for e in prof.key_averages()
+        if any(n in e.key for n in names)
+    )
+    return total_us / 1e3 / reps if total_us else None
+
+
 def nbytes(*trees) -> int:
     import torch
 
@@ -583,10 +628,284 @@ def phase_breakdown(world, dev) -> dict:
     return out
 
 
+def row(name, source, replaces, nlaunch, mism, ms, plain_ms, bound_ms, bound_by, library_ms=None) -> dict:
+    """One kernel's entry of the kernels line."""
+    return {
+        "name": name, "route": "cuda", "source": f"karpenter_tpu_torch/csrc/{source}",
+        "replaces": replaces, "launches": nlaunch, "mismatches": mism, "max_abs_err": 0,
+        "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
+    }
+
+
 def bound(nbytes_: int, ops: int) -> tuple[float, str]:
     """(ms, "bytes" or "operations"): the larger of the two least times."""
     tb_, to_ = nbytes_ / HBM_BYTES_PER_S, ops / CORE_OPS_PER_S
     return max(tb_, to_) * 1e3, "bytes" if tb_ >= to_ else "operations"
+
+
+def sweep_candidates(world, n: int) -> list:
+    """The fleet's top n consolidation candidates, in the reference's order
+    (disruption cost, then name)."""
+    from karpenter_tpu_torch.controllers.disruption.helpers import build_candidates
+
+    cands = build_candidates(world.kube, world.cluster, world.cloud, world.clock, lambda c: c.consolidatable())
+    cands.sort(key=lambda c: (c.disruption_cost, c.name))
+    return cands[:n]
+
+
+def referee_lanes(verdicts, seeded: int, seed: int) -> list[int]:
+    """Lanes to hold against the sequential referee: every lane whose
+    verdict differs from a neighbour's, plus `seeded` lanes drawn from a
+    seeded generator."""
+    import numpy as np
+
+    v = list(verdicts)
+    edges = {k for k in range(len(v)) for j in (k - 1, k + 1) if 0 <= j < len(v) and v[j] != v[k]}
+    rng = np.random.default_rng(seed)
+    picks = rng.choice(len(v), size=min(seeded, len(v)), replace=False)
+    return sorted(edges | {int(k) for k in picks})
+
+
+def referee_mismatches(world, cands, rows, verdicts) -> list[int]:
+    """Lanes (indices into rows) whose verdict the port's sequential
+    referee contradicts: all pods scheduled and at most one non-empty new
+    claim (helpers.simulate_scheduling on the oracle)."""
+    from karpenter_tpu_torch.controllers.disruption.helpers import simulate_scheduling
+
+    bad = []
+    for k, row in rows:
+        subset = [c for j, c in enumerate(cands) if row[j]]
+        sim = simulate_scheduling(world.kube, world.cluster, world.cloud, subset, force_oracle=True)
+        ok = sim.all_pods_scheduled() and len(sim.non_empty_new_claims()) <= 1
+        if ok != bool(verdicts[k]):
+            bad.append(k)
+    return bad
+
+
+def sweep_phase(dev) -> Optional[list]:
+    """The consolidation sweeps on the card: the fast path (K6, prefix and
+    singleton lanes) and the removal-set sweep (K8) at the c4 shape, the
+    full-state lane path (K7) on a spread fleet; each main path with its
+    launch counts reset just before and read just after, each kernel held
+    bit for bit against its plain version on the same inputs, verdicts held
+    against the sequential referee. Returns the kernels-line rows, or None
+    when a check failed."""
+    import numpy as np
+    import torch
+
+    from karpenter_tpu_torch.controllers.disruption import setsweep as SS
+    from karpenter_tpu_torch.controllers.disruption import sweep as S
+    from karpenter_tpu_torch.solver import tpu_kernel as K
+    from karpenter_tpu_torch.solver.ordering import ffd_sort_key
+    from karpenter_tpu_torch.solver.tpu_problem import encode_problem
+    from karpenter_tpu_torch.testing.fixtures import underutilized_world
+
+    t_phase = time.monotonic()
+    t0 = time.monotonic()
+    w = underutilized_world(SWEEP_NODES, seed=7, n_pending=SWEEP_PENDING)
+    cands = sweep_candidates(w, SWEEP_CANDIDATES)
+    log(f"sweep world: {SWEEP_NODES} nodes, {len(cands)} candidates, {SWEEP_PENDING} pending pods "
+        f"({time.monotonic() - t0:.1f}s host)")
+    rows_out = []
+    profiled = []  # (row index, call, reps, kernel names) for device_ms
+
+    def reset():
+        for counts in (S.LAUNCHES, SS.LAUNCHES, K.LAUNCHES):
+            for k in counts:
+                counts[k] = 0
+
+    # ---- the fast path (K6): main path runs, then the kernel vs plain ----
+    verdicts = {}
+    for singleton in (False, True):
+        reset()
+        t0 = time.monotonic()
+        verdicts[singleton] = S.prefix_feasibility(w.kube, w.cluster, w.cloud, cands, singleton=singleton, device=dev)
+        torch.cuda.synchronize()
+        dt = time.monotonic() - t0
+        key = "fast_sweep_singleton" if singleton else "fast_sweep"
+        n_launch = S.LAUNCHES[key]
+        log(f"{key} main path: {dt:.3f}s host, path={S.last_sweep['path']}, steps={S.last_sweep['steps']}, "
+            f"launches={dict(S.LAUNCHES)}, feasible {sum(verdicts[singleton])}/{len(cands)}")
+        if S.last_sweep["path"] != "sweep_fast" or n_launch != 1:
+            return None
+        # host phases: the union whole, then its encode, FFD order and table
+        # upload again one by one, the lane inputs and the dispatch
+        phases = {}
+        t0 = time.monotonic()
+        u = S.build_union(w.kube, w.cluster, w.cloud, cands, device=dev)
+        torch.cuda.synchronize()
+        phases["build_union"] = time.monotonic() - t0
+        t0 = time.monotonic()
+        encode_problem(u.sched.oracle, u.pods)
+        phases["encode"] = time.monotonic() - t0
+        t0 = time.monotonic()
+        data = u.sched.oracle.cached_pod_data
+        sorted(range(len(u.pods)), key=lambda i: ffd_sort_key(u.pods[i], data[u.pods[i].uid].requests))
+        phases["order"] = time.monotonic() - t0
+        t0 = time.monotonic()
+        u.sched._tables(u.problem)
+        u.sched._upload_pod_tables(u.problem)
+        torch.cuda.synchronize()
+        phases["upload"] = time.monotonic() - t0
+        t0 = time.monotonic()
+        args = S.fast_sweep_args(u.sched, u.problem, cands, u.view_slot, u.order, u.pod_prefix, singleton)
+        torch.cuda.synchronize()
+        phases["lane_inputs"] = time.monotonic() - t0
+        xs1, avail0, cand_idx, counts, sizes = args
+        t0 = time.monotonic()
+        got = S.fast_sweep(u.tb, u.base, *args, singleton=singleton)
+        got[0].cpu()
+        phases["dispatch"] = time.monotonic() - t0
+        want = S.fast_sweep_plain(u.tb, u.base, S._row0(xs1), avail0, cand_idx, counts, sizes, singleton)
+        torch.cuda.synchronize()
+        mism = int((got[0] != want[0]).sum()) + int(int(got[1]) != int(want[1]))
+        mism += int(got[0].cpu().tolist() != verdicts[singleton])
+        ms = cuda_ms(lambda: S.fast_sweep(u.tb, u.base, *args, singleton=singleton), 20)
+        profiled.append((len(rows_out), lambda u=u, a=args, s=singleton: S.fast_sweep(u.tb, u.base, *a, singleton=s),
+                         20, SWEEP_KERNELS))
+        plain_ms = cuda_ms(lambda: S.fast_sweep_plain(u.tb, u.base, S._row0(xs1), *args[1:], singleton), 3)
+        B, C = counts.shape
+        E, R = avail0.shape
+        I, T, TWn = u.tb.ialloc.shape[0], u.tb.tdaemon.shape[0], u.tb.va.full_mask.shape[0]
+        nb = nbytes(u.tb, u.base.ereq, u.base.h_cnt, u.base.v_cnt, xs1, avail0, cand_idx, counts, sizes) + B
+        # per lane, class and node a quotient and a compare per dim and the
+        # take; the template-fit filters over the I types
+        ops = 2 * B * C * E * R + (T * C + B) * I * (TWn + R)
+        b_ms, b_by = bound(nb, ops)
+        log(f"K6 {key} (E={E}, B={B}, C={C}, R={R}, T={T}, I={I}): {mism} mismatches vs plain; "
+            f"kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, "
+            f"bound {b_ms:.6f} ms ({b_by}); host phases (s): " + json.dumps({k: round(v, 4) for k, v in phases.items()}))
+        if mism:
+            return None
+        rows_out.append(row("fast_sweep (singleton)" if singleton else "fast_sweep", "fast_sweep.cu",
+                            "karpenter_tpu/controllers/disruption/sweep.py:158", n_launch, mism, ms, plain_ms,
+                            b_ms, b_by))
+
+    # ---- the removal-set sweep (K8) ----
+    t0 = time.monotonic()
+    ctx = SS.SetSweepContext.build(w.kube, w.cluster, w.cloud, cands, device=dev)
+    proposer = SS.SetProposer(cands, seed=7, max_lanes=SET_LANES)
+    member = proposer.first_round()
+    if len(member) < SET_LANES:
+        member = np.concatenate([member, proposer._dedup(proposer._random(4 * SET_LANES))], axis=0)[:SET_LANES]
+    log(f"set sweep context + {len(member)} first-round rows: {time.monotonic() - t0:.2f}s host")
+    reset()
+    t0 = time.monotonic()
+    set_verdicts = ctx.evaluate(member)
+    dt = time.monotonic() - t0
+    n_launch = SS.LAUNCHES["set_sweep"]
+    log(f"set_sweep main path: {dt:.3f}s host, steps={S.last_sweep['steps']}, launches={dict(SS.LAUNCHES)}, "
+        f"feasible {int(set_verdicts.sum())}/{len(member)}")
+    if n_launch != 1:
+        return None
+    args = ctx.kernel_args(member)
+    got = SS.set_sweep(*args)
+    want = SS.set_sweep_plain(args[0], args[1], S._row0(args[2]), *args[3:])
+    torch.cuda.synchronize()
+    mism = int((got[0] != want[0]).sum()) + int(int(got[1]) != int(want[1]))
+    mism += int(got[0].cpu().numpy()[: len(member)].tolist() != set_verdicts.tolist())
+    ms = cuda_ms(lambda: SS.set_sweep(*args), 20)
+    profiled.append((len(rows_out), lambda args=args: SS.set_sweep(*args), 20, SWEEP_KERNELS))
+    plain_ms = cuda_ms(lambda: SS.set_sweep_plain(args[0], args[1], S._row0(args[2]), *args[3:]), 3)
+    Bp, Jp = args[5].shape
+    C = args[8].shape[0]
+    E, R = ctx.avail0.shape
+    nb = nbytes(args) - nbytes(args[1]) + nbytes(args[1].ereq, args[1].h_cnt, args[1].v_cnt) + Bp
+    ops = Bp * Jp * C + 2 * Bp * C * E * R + (T * C + Bp) * I * (TWn + R)
+    b_ms, b_by = bound(nb, ops)
+    log(f"K8 set_sweep (B={Bp} lanes for {len(member)} rows, J={Jp}, C={C}, E={E}): {mism} mismatches vs plain; "
+        f"kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, bound {b_ms:.6f} ms ({b_by})")
+    if mism:
+        return None
+    rows_out.append(row("set_sweep", "set_sweep.cu", "karpenter_tpu/controllers/disruption/setsweep.py:100",
+                        n_launch, mism, ms, plain_ms, b_ms, b_by))
+
+    # ---- the referee on the fast world ----
+    t0 = time.monotonic()
+    n_checked, bad = 0, []
+    for singleton in (False, True):
+        lanes = referee_lanes(verdicts[singleton], REFEREE_SEEDED, seed=7 + singleton)
+        rows = [(k, [j == k if singleton else j <= k for j in range(len(cands))]) for k in lanes]
+        bad += referee_mismatches(w, cands, rows, verdicts[singleton])
+        n_checked += len(rows)
+    lanes = referee_lanes(set_verdicts, REFEREE_SEEDED, seed=9)
+    bad += referee_mismatches(w, cands, [(k, member[k]) for k in lanes], set_verdicts)
+    n_checked += len(lanes)
+    log(f"referee, fast world: {n_checked} lanes checked, {len(bad)} disagree ({time.monotonic() - t0:.1f}s host)")
+    if bad:
+        return None
+
+    # ---- the full-state lane path (K7) ----
+    t0 = time.monotonic()
+    w2 = underutilized_world(SWEEP_NODES, seed=7, rider_spread=RIDER_SPREAD)
+    cands2 = sweep_candidates(w2, LANE_CANDIDATES)
+    log(f"lane world: {SWEEP_NODES} nodes, riders with a zone spread (max skew {RIDER_SPREAD}), "
+        f"{len(cands2)} candidates ({time.monotonic() - t0:.1f}s host)")
+    k7_ms, k7_plain_ms, k7_mism, k7_launch, nb, ops = 0.0, 0.0, 0, 0, 0, 0
+    for singleton in (False, True):
+        reset()
+        t0 = time.monotonic()
+        lane_verdicts = S.prefix_feasibility(w2.kube, w2.cluster, w2.cloud, cands2, singleton=singleton, device=dev)
+        torch.cuda.synchronize()
+        dt = time.monotonic() - t0
+        k7_launch += K.LAUNCHES["scan_lanes"] + K.LAUNCHES["scan_lanes_relax"]
+        log(f"scan_lanes main path ({'singleton' if singleton else 'prefix'}): {dt:.3f}s host, "
+            f"path={S.last_sweep['path']}, steps={S.last_sweep['steps']}, launches={dict(K.LAUNCHES)}, "
+            f"feasible {sum(lane_verdicts)}/{len(cands2)}: {''.join('1' if v else '0' for v in lane_verdicts)}")
+        if S.last_sweep["path"] != "sweep_vmap" or K.LAUNCHES["scan_lanes"] + K.LAUNCHES["scan_lanes_relax"] != 1:
+            return None
+        u2 = S.build_union(w2.kube, w2.cluster, w2.cloud, cands2, device=dev)
+        st_b, xs, valid_b, lane_pods, relax = S.lane_scan_args(w2.cluster, cands2, u2, singleton)
+        got = K.scan_lanes(u2.tb, st_b, xs, valid_b, relax)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        want = K.scan_lanes_plain(u2.tb, st_b, xs, valid_b, relax)
+        end.record()
+        torch.cuda.synchronize()
+        k7_plain_ms += start.elapsed_time(end)
+        bad_fields = [n for n, a, b in zip(("kinds", "slots", "overflow", "steps"), got[1:], want[1:])
+                      if not torch.equal(a, b)]
+        bad_fields += state_mismatches(got[0], want[0])
+        log(f"K7 scan_lanes ({'singleton' if singleton else 'prefix'}; B={valid_b.shape[0]}, P={valid_b.shape[1]}, "
+            f"E={st_b.eavail.shape[1]}, N={st_b.active.shape[1]}, relax={relax}): mismatched {bad_fields or 'nothing'} "
+            f"vs plain ({start.elapsed_time(end):.1f} ms plain)")
+        k7_mism += len(bad_fields)
+        if bad_fields:
+            return None
+        k7_ms += cuda_ms(lambda: K.scan_lanes(u2.tb, st_b, xs, valid_b, relax), 3)
+        # (the K7 row is appended after both lane kinds, at this index)
+        profiled.append((len(rows_out), lambda a=(u2.tb, st_b, xs, valid_b, relax): K.scan_lanes(*a), 3,
+                         ("scan_lanes_kernel",)))
+        # each lane reads the shared tables and batch and reads and writes
+        # its own State once
+        nb += nbytes(u2.tb, xs, valid_b) + 2 * nbytes(st_b) + nbytes(got[1], got[2])
+        ops += int(valid_b.sum()) * st_b.eavail.shape[1] * (u2.tb.va.full_mask.shape[0] + u2.tb.va.num_keys)
+        t0 = time.monotonic()
+        if singleton:
+            lanes = list(range(len(cands2)))
+        else:
+            lanes = referee_lanes(lane_verdicts, 4, seed=11)
+        rows = [(k, [j == k if singleton else j <= k for j in range(len(cands2))]) for k in lanes]
+        bad = referee_mismatches(w2, cands2, rows, lane_verdicts)
+        log(f"referee, lane world ({'singleton' if singleton else 'prefix'}): {len(rows)} lanes checked, "
+            f"{len(bad)} disagree ({time.monotonic() - t0:.1f}s host)")
+        if bad:
+            return None
+    b_ms, b_by = bound(nb, ops)
+    log(f"K7 scan_lanes prefix + singleton: kernel {k7_ms:.3f} ms, plain {k7_plain_ms:.1f} ms, "
+        f"bound {b_ms:.6f} ms ({b_by})")
+    rows_out.append(row("scan_lanes", "scan_lanes.cu", "karpenter_tpu/controllers/disruption/sweep.py:690",
+                        k7_launch, k7_mism, k7_ms, k7_plain_ms, b_ms, b_by))
+
+    # the kernels' own device time, from profiler traces taken after every
+    # check, so that no trace overlaps the host timings above
+    for i, fn, reps, names in profiled:
+        got_ms = device_ms(fn, reps, names)
+        if got_ms is not None:
+            rows_out[i]["device_ms"] = rows_out[i].get("device_ms", 0.0) + got_ms
+    log("device time by the profiler (ms): " + json.dumps({r["name"]: r.get("device_ms") for r in rows_out}))
+    log(f"sweep phase: {time.monotonic() - t_phase:.1f}s")
+    return rows_out
 
 
 def main() -> int:
@@ -1191,14 +1510,12 @@ def main() -> int:
         if not same:
             return 1
 
-    # ---- 12. the kernels line ----
-    def row(name, source, replaces, nlaunch, mism, ms, plain_ms, bound_ms, bound_by, library_ms=None):
-        return {
-            "name": name, "route": "cuda", "source": f"karpenter_tpu_torch/csrc/{source}",
-            "replaces": replaces, "launches": nlaunch, "mismatches": mism, "max_abs_err": 0,
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
-        }
+    # ---- 12. the consolidation sweeps (K6, K7, K8) ----
+    sweep_rows = sweep_phase(dev)
+    if sweep_rows is None:
+        return 1
 
+    # ---- 13. the kernels line ----
     kernels = [
         row("typeok_screen", "typeok.cu", "karpenter_tpu/solver/tpu.py:61", launches["typeok_screen"], k1_mism,
             k1_ms, k1_plain_ms, k1_bound, k1_by),
@@ -1228,7 +1545,7 @@ def main() -> int:
             tier_steps={"preference_round": pref_trips, "c6": c6_trips},
             tier_hist={"preference_round": pref_hist, "c6": odo6["tier_hist"]},
         ),
-    ]
+    ] + sweep_rows
     log(f"chip_smoke: {time.monotonic() - t_start:.1f}s in all")
     print(json.dumps({"kernels": kernels}))
     print(smi)

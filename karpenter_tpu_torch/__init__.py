@@ -7,15 +7,25 @@ never `jax` or `karpenter_tpu`; the pure-Python host modules (api,
 scheduling, cloudprovider, encode, oracle) are kept as copies.
 
 Layout:
-  api/, utils/, scheduling/, cloudprovider/, testing/   host copies
+  api/, utils/, scheduling/, cloudprovider/             host copies
+  testing/                                              fixtures (host copies and
+                                                        underutilized_world)
   ops/vocab.py, ops/encode.py                           host encoding copies
   ops/kernels.py                                        requirement algebra
   device.py                                             device choice, bit words
-  solver/tpu_kernel.py                                  the per-pod step (K2)
-  solver/tpu.py                                         TorchScheduler (K1)
+  solver/tpu_kernel.py                                  the per-pod step (K2) and
+                                                        its lane grid (K7)
+  solver/tpu_runs.py                                    the run kernel (K3)
+  solver/tpu.py                                         TorchScheduler (K1, K4, K5)
+  controllers/kube.py, state.py, provisioning.py        API store, cluster cache
+                                                        (host copies)
+  controllers/disruption/                               candidates, the referee,
+                                                        sweep.py (K6, K7),
+                                                        setsweep.py (K8)
   csrc/, _build.py                                      CUDA sources, nvcc build
   wire.py, convert.py                                   request decode, reference
-                                                        tensors -> port tensors
+                                                        tensors and clusters ->
+                                                        the port's
 """
 
 __version__ = "0.1.0"

@@ -23,7 +23,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent.parent / "build" / "karpenter_tpu_torch"
-SOURCES = ("typeok", "scan_step", "run_step", "run_arrays", "dedup_rows")
+SOURCES = ("typeok", "scan_step", "run_step", "run_arrays", "dedup_rows", "scan_lanes", "fast_sweep", "set_sweep")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

@@ -5,11 +5,11 @@
 // and off (the step itself, :560 `_step`, and the tier loop, :898
 // `_step_relax`, are step.cuh).
 //
-// Design. One CTA of NT threads walks the pods in order; per pod it stages
-// the pod (stage_pod) and runs the shared step (exact_step, or with relax
-// the tier loop relax_step around it), which updates the state in device
-// memory in place. With relax == 0 the walk is the plain exact step and the
-// tier counters stay 0.
+// Design. One CTA of NT threads walks the pods in order (scan_walk in
+// step.cuh); per pod it stages the pod (stage_pod) and runs the shared step
+// (exact_step, or with relax the tier loop relax_step around it), which
+// updates the state in device memory in place. With relax == 0 the walk is
+// the plain exact step and the tier counters stay 0.
 //
 // Bound on an H100: bytes. Per pod the claim screen reads the live claim
 // rows (N x (2 TW words + 5 K)), so at the headline shape a pod moves some
@@ -18,30 +18,7 @@
 // reductions, which a later multi-CTA design attacks.
 #include "step.cuh"
 
-__global__ void __launch_bounds__(NT, 1) scan_step_kernel() {
-  stage_vocab();
-  int over_any = 0;
-  for (int p = 0; p < A.P; ++p) {
-    stage_pod(p);
-    int kind, over, slot;
-    if (A.relax) {
-      const int trips = relax_step(p, kind, over, slot);
-      if (threadIdx.x == 0) tier_tick(trips);
-    } else {
-      slot = exact_step(kind, over);
-    }
-    if (threadIdx.x == 0) {
-      I32(kinds)[p] = kind;
-      I32(slots)[p] = slot;
-    }
-    over_any |= over;
-    __syncthreads();
-  }
-  if (threadIdx.x == 0) {
-    I32(counters)[0] = over_any;
-    I32(counters)[1] = A.P;
-  }
-}
+__global__ void __launch_bounds__(NT, 1) scan_step_kernel() { scan_walk(); }
 
 #define KTPU_NAME(name) #name ","
 static const char kFieldNames[] =

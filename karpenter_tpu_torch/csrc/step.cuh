@@ -64,8 +64,25 @@ enum { KIND_EXISTING = 0, KIND_CLAIM = 1, KIND_NEW = 2, KIND_FAIL = 3 };
 
 __constant__ StepArgs A;
 
+#ifdef KTPU_LANE_GRID
+// K7 scan_lanes: one CTA per lane. A holds lane 0's addresses; a field
+// that varies by lane (the state, the valid row, the outputs and the
+// claim-screen scratch) has its lanes laid out one after another, `LS.f`
+// elements apart, and every access adds blockIdx.x lanes of that stride
+// (0 for the tables and the shared pod rows). The library without the
+// define (K2, K3) reads A as it is.
+struct LaneStrides {
+#define KTPU_DECL_STRIDE(name) long long name;
+  KTPU_STEP_PTR_FIELDS(KTPU_DECL_STRIDE)
+#undef KTPU_DECL_STRIDE
+};
+__constant__ LaneStrides LS;
+#define I32(f) ((int*)A.f + (long long)blockIdx.x * LS.f)
+#define U8(f) ((uint8_t*)A.f + (long long)blockIdx.x * LS.f)
+#else
 #define I32(f) ((int*)A.f)
 #define U8(f) ((uint8_t*)A.f)
+#endif
 #define ROW(p, r)                                                                              \
   Row {                                                                                        \
     I32(p##_mask) + (long long)(r)*A.TW, I32(p##_exmask) + (long long)(r)*A.TW,                \
@@ -965,4 +982,33 @@ __device__ int relax_step(int p, int& kind, int& over, int& slot) {
     if (kind != KIND_FAIL || over || !sh.valid) break;
   }
   return trips;
+}
+
+// The scan walk (tpu_kernel.py solve_scan): the batch's pods in order, each
+// staged and taken through the exact step or, with relax, the tier loop;
+// kinds and slots per pod, then the counter block's overflow and steps. K2
+// walks it in its one CTA, K7 in each lane's CTA. All threads call.
+__device__ __forceinline__ void scan_walk() {
+  stage_vocab();
+  int over_any = 0;
+  for (int p = 0; p < A.P; ++p) {
+    stage_pod(p);
+    int kind, over, slot;
+    if (A.relax) {
+      const int trips = relax_step(p, kind, over, slot);
+      if (threadIdx.x == 0) tier_tick(trips);
+    } else {
+      slot = exact_step(kind, over);
+    }
+    if (threadIdx.x == 0) {
+      I32(kinds)[p] = kind;
+      I32(slots)[p] = slot;
+    }
+    over_any |= over;
+    __syncthreads();
+  }
+  if (threadIdx.x == 0) {
+    I32(counters)[0] = over_any;
+    I32(counters)[1] = A.P;
+  }
 }

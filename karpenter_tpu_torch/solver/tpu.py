@@ -154,14 +154,19 @@ def _popcount_rows(seg: np.ndarray) -> np.ndarray:
     return np.unpackbits(seg.astype("<u4").view(np.uint8), axis=-1).sum(axis=-1)
 
 
-def _bulk_gates(p: EncodedProblem) -> bool:
+def _bulk_gates(p: EncodedProblem, strict_types: bool = False) -> bool:
     """Problem-level gates for the bulk windows (the reference's
-    `_bulk_gates` with strict_types=False, the run kernel's rule): no
-    minValues, no pool limits, no template host ports, no reservation
-    offerings, each concrete type row single-valued per key or covering the
-    union of the type rows (the kernel verifies surviving types exactly at
-    every commit, so the screens need only be sound relative to the type
-    universe), and offerings whose zone sets agree across capacity types."""
+    `_bulk_gates`): no minValues, no pool limits, no template host ports,
+    no reservation offerings, each concrete type row single-valued per key
+    or covering the union of the type rows, and offerings whose zone sets
+    agree across capacity types.
+
+    strict_types: the per-key type-structure rule. The run kernel verifies
+    surviving types exactly at every commit, so its screens need only be
+    sound relative to the type universe (the default, the union of the type
+    rows). The consolidation sweep's delta kernel has no per-commit verify
+    and needs every concrete row single-valued or spanning the whole vocab
+    segment (strict_types=True, the reference's default)."""
     if (p.treq.minv != -1).any() or (p.preq_c.minv != -1).any():
         return False
     if p.num_existing and (p.ereq.minv != -1).any():
@@ -175,8 +180,11 @@ def _bulk_gates(p: EncodedProblem) -> bool:
         off, words = vocab.word_offset[kid], vocab.words_per_key[kid]
         seg = p.ireq.mask[:, off : off + words]
         concrete = p.ireq.defined[:, kid] & ~p.ireq.other[:, kid]
-        union = np.bitwise_or.reduce(np.where(concrete[:, None], seg, 0), axis=0)
-        full = int(_popcount_rows(union[None])[0])
+        if strict_types:
+            full = len(vocab.values[kid])
+        else:
+            union = np.bitwise_or.reduce(np.where(concrete[:, None], seg, 0), axis=0)
+            full = int(_popcount_rows(union[None])[0])
         pop = _popcount_rows(seg)
         if (concrete & (pop > 1) & (pop < full)).any():
             return False

@@ -74,9 +74,9 @@ KIND_CLAIM = 1
 KIND_NEW = 2
 KIND_FAIL = 3
 
-# launches of the CUDA step kernel (one per solve_scan call on the card),
-# counted apart for launches with the relax tier loop on
-LAUNCHES = {"scan_step": 0, "scan_step_relax": 0}
+# launches of the CUDA step kernels (one per solve_scan / scan_lanes call
+# on the card), counted apart for launches with the relax tier loop on
+LAUNCHES = {"scan_step": 0, "scan_step_relax": 0, "scan_lanes": 0, "scan_lanes_relax": 0}
 
 # relax-tier odometer bins: a pod's trips at tier t land in bin
 # min(t, ODO_TIER_BINS - 1) (the reference's layout)
@@ -823,9 +823,59 @@ def solve_scan(tb: Tables, st: State, xs: PodX, relax: bool = False):
     return _launch_scan_step(tb, _clone_state(st), xs, relax)
 
 
+def _lane(st: State, b: int) -> State:
+    return State(*(Reqs(*(a[b] for a in f)) if isinstance(f, Reqs) else f[b] for f in st))
+
+
+def stack_lanes(states: list) -> State:
+    """States stacked on a new leading lane axis (a contiguous copy)."""
+    return State(
+        *(
+            Reqs(*(torch.stack(list(a)) for a in zip(*fs))) if isinstance(fs[0], Reqs) else torch.stack(list(fs))
+            for fs in zip(*states)
+        )
+    )
+
+
+def scan_lanes_plain(tb: Tables, st: State, xs: PodX, valid, relax: bool = False):
+    """The plain version of the lane scan: lane b walks the batch `xs`
+    over its own state (every field of `st` carries a leading lane axis)
+    with its own valid row `valid[b]`, as `solve_scan_plain` does. Returns
+    (state [B, ...], kinds [B, P], slots [B, P], overflowed [B], steps
+    [B])."""
+    outs = [solve_scan_plain(tb, _lane(st, b), xs._replace(valid=valid[b]), relax) for b in range(valid.shape[0])]
+    return (
+        stack_lanes([o[0] for o in outs]),
+        torch.stack([o[1] for o in outs]),
+        torch.stack([o[2] for o in outs]),
+        torch.stack([o[3] for o in outs]),
+        torch.stack([o[4].steps for o in outs]),
+    )
+
+
+def scan_lanes(tb: Tables, st: State, xs: PodX, valid, relax: bool = False):
+    """`solve_scan` over B independent lanes: the reference's
+    `vmap(solve_scan)` with the state batched on every field and the pod
+    batch shared but for its valid row. Returns scan_lanes_plain's tuple.
+
+    CPU tensors take the plain version. CUDA tensors launch K7
+    `scan_lanes` (csrc/scan_lanes.cu: K2's walk with one CTA per lane),
+    which updates a copy of `st` in place.
+
+    Replaces: karpenter_tpu/controllers/disruption/sweep.py:690-697
+    `jax.vmap(solve_scan)` (the full-state sweep of
+    `_prefix_feasibility_traced`).
+    Bound on an H100: bytes (each lane reads its state and the shared
+    tables once per pod); the lanes run in parallel on the SMs, each a
+    dependent chain of K2's block reductions."""
+    if st.rank.device.type == "cpu":
+        return scan_lanes_plain(tb, st, xs, valid, relax)
+    return _launch_scan_lanes(tb, _clone_state(st), xs, valid, relax)
+
+
 # ---------------------------------------------------------------------------
-# the CUDA kernels' wrappers (scan_step here, run_step in tpu_runs.py: both
-# take the argument block of csrc/step_args.h)
+# the CUDA kernels' wrappers (scan_step and scan_lanes here, run_step in
+# tpu_runs.py: all take the argument block of csrc/step_args.h)
 
 # the kernels' shared-memory staging limits (csrc/step_args.h)
 _LIMITS = {"TW": 128, "K": 64, "C": 8, "IW": 128, "R": 32, "Gv": 64, "Gh": 64, "HPW": 32, "T": 64, "NRESW": 32}
@@ -1011,3 +1061,67 @@ def _launch_scan_step(tb: Tables, st: State, xs: PodX, relax: bool):
     launch_step(lib, "scan_step", args_type, vals, dev)
     LAUNCHES["scan_step_relax" if relax else "scan_step"] += 1
     return st, kinds, slots, counters[0] != 0, counters_odometer(counters, dev)
+
+
+@functools.lru_cache(maxsize=None)
+def _scan_lanes_library():
+    lib, args_type = step_library("scan_lanes")
+    lib.scan_lanes_launch.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+    lib.scan_lanes_strides_size.restype = ctypes.c_int
+    return lib, args_type
+
+
+def _launch_scan_lanes(tb: Tables, st: State, xs: PodX, valid, relax: bool):
+    """Launch scan_lanes over valid.shape[0] lanes on `st` (every field
+    with a leading lane axis, updated in place); returns the scan_lanes
+    tuple. The kernel reads StepArgs at lane 0's addresses and a
+    per-field lane stride (csrc/step.cuh LaneStrides)."""
+    lib, args_type = _scan_lanes_library()
+    dev = st.rank.device
+    B, P = valid.shape
+    if xs.valid.shape[0] != P:
+        raise ValueError(f"scan_lanes: valid has {P} positions, the batch {xs.valid.shape[0]}")
+    lane0 = _lane(st, 0)
+    vals = step_arg_values(tb, lane0, xs, dev)
+    if relax:
+        tier_arg_values(tb, xs, vals, dev)
+    N = lane0.active.shape[0]
+    kinds = torch.empty((B, P), dtype=torch.int32, device=dev)
+    slots = torch.empty((B, P), dtype=torch.int32, device=dev)
+    counters = torch.zeros((B, N_COUNTERS), dtype=torch.int32, device=dev)
+    cand = torch.empty((B, N), dtype=torch.uint8, device=dev)
+    strides = {}  # field -> elements between lanes (0: shared by every lane)
+
+    def put_lane(name, t, dtype):
+        if t.shape[0] != B:
+            raise ValueError(f"scan_lanes: {name} has {t.shape[0]} lanes, expected {B}")
+        vals[name] = checked_ptr(t, dtype, dev, name)
+        strides[name] = t[0].numel()
+
+    i32, b8 = torch.int32, torch.bool
+    for name, dtype in (("active", b8), ("count", i32), ("rank", i32), ("tmpl", i32)):
+        put_lane(name, getattr(st, name), dtype)
+    for prefix in ("creq", "ereq"):
+        for field, t, dtype in zip(Reqs._fields, getattr(st, prefix), REQS_DTYPES):
+            put_lane(f"{prefix}_{field}", t, dtype)
+    for name, dtype in (
+        ("crequests", i32), ("alive", i32), ("cmax_alloc", i32), ("n_claims", i32), ("eavail", i32),
+        ("trem", i32), ("v_cnt", i32), ("h_cnt", i32), ("rescap", i32), ("held", i32), ("hp_used", i32),
+    ):
+        put_lane(name, getattr(st, name), dtype)
+    put_lane("valid", valid, b8)
+    put_lane("kinds", kinds, i32)
+    put_lane("slots", slots, i32)
+    put_lane("counters", counters, i32)
+    put_lane("cand", cand, torch.uint8)
+    args = step_args("scan_lanes", args_type, vals)
+    ptr_names = [f for f, t in args_type._fields_ if t is ctypes.c_void_p]
+    stride_type = type("LaneStrides", (ctypes.Structure,), {"_fields_": [(f, ctypes.c_longlong) for f in ptr_names]})
+    if ctypes.sizeof(stride_type) != lib.scan_lanes_strides_size():
+        raise RuntimeError("scan_lanes: LaneStrides layout disagrees with the library")
+    lane_strides = stride_type(**strides)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    code = lib.scan_lanes_launch(ctypes.byref(args), ctypes.byref(lane_strides), B, ctypes.c_void_p(stream))
+    _build.check_launch("scan_lanes", code)
+    LAUNCHES["scan_lanes_relax" if relax else "scan_lanes"] += 1
+    return st, kinds, slots, counters[:, 0] != 0, counters[:, 1]

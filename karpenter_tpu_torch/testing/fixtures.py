@@ -338,3 +338,155 @@ def make_preference_pods(count: int) -> list[Pod]:
         )
     return out
 
+
+
+# ---------------------------------------------------------------------------
+# consolidation fleets
+
+
+# seeds per oracle solve in underutilized_world
+_SEED_CHUNK = 64
+
+
+def underutilized_world(
+    n_nodes: int,
+    *,
+    seed: int = 7,
+    sizes: Optional[list[int]] = None,
+    rider_requests=None,
+    seed_requests=None,
+    n_pending: int = 0,
+    pending_requests=None,
+    rider_spread: Optional[int] = None,
+):
+    """An under-utilized fleet without the control plane: the counterpart
+    of the reference's `underutilized_operator` (and its
+    `make_underutilized_fleet`), built directly on the port's API store.
+
+    `n_nodes` seed pods with hostname anti-affinity (seed_requests, default
+    700m / 512Mi) are solved by the port's oracle `Scheduler` against a
+    default NodePool (100% disruption budget) and the KWOK types (`sizes`
+    as construct_instance_types takes them). Each new claim launches
+    through the KWOK provider's `create` (the cheapest compatible
+    offering), and its Node registers and initializes as the lifecycle
+    controller would make it. Each seed is then swapped for a small bound
+    RUNNING rider (rider_requests, default 100m / 128Mi) on its node, and
+    the claims are marked consolidatable. `n_pending` unbound pods
+    (pending_requests, default 250m / 256Mi) wait for the next solve.
+    `rider_spread` gives every rider a zone topology spread with that
+    max skew (DoNotSchedule, over the riders).
+
+    Returns a convert.World (kube, cluster, clock, cloud)."""
+    from karpenter_tpu_torch.api.objects import (
+        COND_CONSOLIDATABLE,
+        COND_INITIALIZED,
+        COND_LAUNCHED,
+        COND_REGISTERED,
+        PodPhase,
+    )
+    from karpenter_tpu_torch.cloudprovider.kwok import KwokCloudProvider, construct_instance_types
+    from karpenter_tpu_torch.controllers.kube import FakeClock, SimKube
+    from karpenter_tpu_torch.controllers.state import UNREGISTERED_TAINT, Cluster, wire_informers
+    from karpenter_tpu_torch.convert import World
+    from karpenter_tpu_torch.solver.oracle import Scheduler, SchedulerOptions
+    from karpenter_tpu_torch.solver.topology import Topology
+
+    clock = FakeClock()
+    kube = SimKube(clock)
+    cluster = Cluster(clock)
+    wire_informers(kube, cluster)
+    cloud = KwokCloudProvider(
+        kube, clock, instance_types=construct_instance_types(sizes=sizes) if sizes is not None else None
+    )
+    reset_rng(seed)
+    pool = kube.create("NodePool", node_pool(name="default", budgets=[Budget(nodes="100%")]))
+
+    seeds = [
+        pod(
+            name=f"seed-{i}",
+            labels={"fleet": "seed"},
+            requests=dict(seed_requests or {"cpu": "700m", "memory": "512Mi"}),
+            pod_anti_requirements=[
+                PodAffinityTerm(
+                    topology_key=well_known.HOSTNAME_LABEL_KEY,
+                    label_selector=LabelSelector(match_labels={"fleet": "seed"}),
+                )
+            ],
+        )
+        for i in range(n_nodes)
+    ]
+    # The anti-affinity puts every seed on a claim of its own, so solving
+    # the seeds in chunks gives the claims one solve would, at a cost
+    # linear in the fleet (one solve is quadratic: each seed screens every
+    # claim opened before it).
+    its_by_pool = {pool.name: cloud.get_instance_types(pool)}
+    claims = []
+    for lo in range(0, n_nodes, _SEED_CHUNK):
+        chunk = seeds[lo : lo + _SEED_CHUNK]
+        topology = Topology([pool], its_by_pool, chunk, state_node_views=[])
+        results = Scheduler([pool], its_by_pool, topology, [], [], SchedulerOptions()).solve(chunk)
+        opened = [c for c in results.new_node_claims if c.pods]
+        if results.pod_errors or len(opened) < len(chunk):
+            raise RuntimeError(f"fleet setup: {len(results.pod_errors)} seeds unplaced")
+        claims += opened
+
+    node_of_seed = {}
+    clock.advance(2.0)
+    for k, claim in enumerate(claims, start=1):
+        nc = claim.to_node_claim()
+        nc.metadata.name = f"{claim.nodepool_name}-{k:05d}"
+        nc.metadata.finalizers.append(well_known.TERMINATION_FINALIZER)
+        launched = cloud.create(nc)
+        # lifecycle launch: the provider's status and labels, then the
+        # claim's single-value requirements, then its own labels
+        nc.status = launched.status
+        labels = dict(launched.metadata.labels)
+        for r in nc.requirements:
+            if r.operator == "In" and len(r.values) == 1:
+                labels[r.key] = r.values[0]
+        labels.update(nc.metadata.labels)
+        nc.metadata.labels = labels
+        for cond in (COND_LAUNCHED, COND_REGISTERED, COND_INITIALIZED, COND_CONSOLIDATABLE):
+            nc.status.conditions[cond] = "True"
+        kube.create("NodeClaim", nc)
+        # registration and initialization of the node the provider made
+        node = cloud._pending_nodes.pop()[1]
+        node.metadata.labels.update(labels)
+        node.metadata.labels[well_known.NODE_REGISTERED_LABEL_KEY] = "true"
+        node.metadata.labels[well_known.NODE_INITIALIZED_LABEL_KEY] = "true"
+        node.taints = [t for t in node.taints if t != UNREGISTERED_TAINT]
+        kube.create("Node", node)
+        for p in claim.pods:
+            node_of_seed[p.name] = node.name
+
+    clock.advance(2.0)
+    spread = []
+    if rider_spread is not None:
+        spread = [
+            TopologySpreadConstraint(
+                max_skew=rider_spread,
+                topology_key=well_known.TOPOLOGY_ZONE_LABEL_KEY,
+                label_selector=LabelSelector(match_labels={"fleet": "rider"}),
+            )
+        ]
+    for i in range(n_nodes):
+        rider = pod(
+            name=f"rider-{i}",
+            labels={"fleet": "rider"},
+            requests=dict(rider_requests or {"cpu": "100m", "memory": "128Mi"}),
+            topology_spread_constraints=spread,
+        )
+        rider.node_name = node_of_seed[f"seed-{i}"]
+        rider.phase = PodPhase.RUNNING
+        kube.create("Pod", rider)
+    for i in range(n_pending):
+        kube.create(
+            "Pod",
+            pod(
+                name=f"pending-{i}",
+                labels={"fleet": "pending"},
+                requests=dict(pending_requests or {"cpu": "250m", "memory": "256Mi"}),
+            ),
+        )
+    clock.advance(30.0)
+    return World(kube, cluster, clock, cloud)
