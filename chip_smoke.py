@@ -21,10 +21,13 @@ PyTorch version on the card, bit for bit:
 - K5 dedup_rows on the headline's final claim rows and on 16384 synthetic
   rows with many duplicates;
 - K6 fast_sweep (prefix and singleton lanes) and K8 set_sweep (1024
-  removal sets) on a 2000-node under-utilized fleet (the reference's c4
-  shape: 100 candidates, 20 pending pods of a second class), and K7
-  scan_lanes (prefix and singleton lanes) on 64 candidates of a 2000-node
-  fleet whose riders carry a zone spread.
+  removal sets), verdicts and per-lane leftovers, on a 2000-node
+  under-utilized fleet (the reference's c4 shape: 100 candidates, 20
+  pending pods of a second class), where every lane places all its pods
+  on existing nodes, and on a 2000-node leftover fleet, where every lane
+  leaves pods for one new claim that some lanes' leftovers fit and others'
+  do not; K7 scan_lanes (prefix and singleton lanes) on 64 candidates of a
+  2000-node fleet whose riders carry a zone spread.
 
 Then it drives the provisioning solve end to end, each path with the launch
 counts set to 0 just before and read just after: the headline
@@ -35,8 +38,8 @@ pods, whose decisions must equal the runs path's; the c6 realistic mix
 pods) through the runs path with the tier loop, whose odometer must equal
 the JAX package's; and the 1000-pod preference round through the scan path
 with the tier loop; then the consolidation sweeps: prefix_feasibility and
-singleton_feasibility on both fleets (the fast path and the full-state lane
-path) and SetSweepContext.evaluate, their verdicts held against the port's
+singleton_feasibility on the three fleets (the fast path and the full-state
+lane path) and SetSweepContext.evaluate, their verdicts held against the port's
 sequential referee (helpers.simulate_scheduling on the oracle). It checks
 decisions against the port's oracle on eight problems, and prints:
 
@@ -87,6 +90,13 @@ SET_LANES = 1024
 LANE_CANDIDATES = 64
 RIDER_SPREAD = 4
 REFEREE_SEEDED = 16  # seeded lanes of each kind held against the referee
+PAST_EDGE = 4  # spread-fleet prefix lanes held past the last verdict change
+# the leftover fleet: riders as large as the seeds fill every node, so each
+# lane's riders and the pending pods (which fit no node) are left over for
+# one new claim: the largest KWOK type hosts them up to prefix lane 21
+LEFTOVER_RIDER = {"cpu": "700m", "memory": "512Mi"}
+LEFTOVER_PENDING = {"cpu": "12", "memory": "1Gi"}
+LEFTOVER_TAG = ", leftover fleet"
 # the device functions of K6 and K8, as the profiler names them
 SWEEP_KERNELS = ("sweep_cache_kernel", "fast_sweep_lanes", "set_sweep_lanes")
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
@@ -682,52 +692,63 @@ def referee_mismatches(world, cands, rows, verdicts) -> list[int]:
     return bad
 
 
-def sweep_phase(dev) -> Optional[list]:
-    """The consolidation sweeps on the card: the fast path (K6, prefix and
-    singleton lanes) and the removal-set sweep (K8) at the c4 shape, the
-    full-state lane path (K7) on a spread fleet; each main path with its
-    launch counts reset just before and read just after, each kernel held
-    bit for bit against its plain version on the same inputs, verdicts held
-    against the sequential referee. Returns the kernels-line rows, or None
-    when a check failed."""
+def reset_sweep_launches() -> None:
+    """Set the launch counts of K6, K7 and K8 (and K2/K3's) to 0."""
+    from karpenter_tpu_torch.controllers.disruption import setsweep as SS
+    from karpenter_tpu_torch.controllers.disruption import sweep as S
+    from karpenter_tpu_torch.solver import tpu_kernel as K
+
+    for counts in (S.LAUNCHES, SS.LAUNCHES, K.LAUNCHES):
+        for k in counts:
+            counts[k] = 0
+
+
+def fast_fleet_checks(dev, w, cands, tag: str, seed: int, rows_out: list, profiled: list) -> bool:
+    """K6 (prefix and singleton lanes) and K8 (SET_LANES first-round rows,
+    smallest set first) on one fleet: each main path with its launch count
+    reset just before and read just after; each kernel's verdicts, steps
+    and per-lane leftovers held bit for bit against its plain version;
+    the verdicts held against the sequential referee. Appends the
+    kernels-line rows (names suffixed with `tag`) and the profiler's
+    calls; False when a check failed."""
     import numpy as np
     import torch
 
     from karpenter_tpu_torch.controllers.disruption import setsweep as SS
     from karpenter_tpu_torch.controllers.disruption import sweep as S
-    from karpenter_tpu_torch.solver import tpu_kernel as K
     from karpenter_tpu_torch.solver.ordering import ffd_sort_key
     from karpenter_tpu_torch.solver.tpu_problem import encode_problem
-    from karpenter_tpu_torch.testing.fixtures import underutilized_world
 
-    t_phase = time.monotonic()
-    t0 = time.monotonic()
-    w = underutilized_world(SWEEP_NODES, seed=7, n_pending=SWEEP_PENDING)
-    cands = sweep_candidates(w, SWEEP_CANDIDATES)
-    log(f"sweep world: {SWEEP_NODES} nodes, {len(cands)} candidates, {SWEEP_PENDING} pending pods "
-        f"({time.monotonic() - t0:.1f}s host)")
-    rows_out = []
-    profiled = []  # (row index, call, reps, kernel names) for device_ms
+    def held(got, want, verdicts) -> int:
+        """Mismatches of (feasible, steps, left) against the plain version
+        and of the verdicts against the main path's."""
+        mism = int((got[0] != want[0]).sum()) + int(int(got[1]) != int(want[1])) + int((got[2] != want[2]).sum())
+        return mism + int(got[0].cpu().tolist()[: len(verdicts)] != list(verdicts))
 
-    def reset():
-        for counts in (S.LAUNCHES, SS.LAUNCHES, K.LAUNCHES):
-            for k in counts:
-                counts[k] = 0
+    def ops_and_left(B, C, E, R, tb, left) -> tuple[int, int]:
+        """The kernel's operations on these inputs: per lane, class and
+        node a quotient and a compare per dim; the [T, C] template-fit
+        table; one template filter over the I types for each lane with
+        leftovers (the others take no filter). Also that lane count."""
+        I, T, TWn = tb.ialloc.shape[0], tb.tdaemon.shape[0], tb.va.full_mask.shape[0]
+        n_left = int((left.sum(dim=1) > 0).sum())
+        return 2 * B * C * E * R + (T * C + n_left) * I * (TWn + R), n_left
 
-    # ---- the fast path (K6): main path runs, then the kernel vs plain ----
+    # ---- K6: main path runs, then the kernel vs plain ----
     verdicts = {}
     for singleton in (False, True):
-        reset()
+        reset_sweep_launches()
         t0 = time.monotonic()
         verdicts[singleton] = S.prefix_feasibility(w.kube, w.cluster, w.cloud, cands, singleton=singleton, device=dev)
         torch.cuda.synchronize()
         dt = time.monotonic() - t0
         key = "fast_sweep_singleton" if singleton else "fast_sweep"
         n_launch = S.LAUNCHES[key]
-        log(f"{key} main path: {dt:.3f}s host, path={S.last_sweep['path']}, steps={S.last_sweep['steps']}, "
-            f"launches={dict(S.LAUNCHES)}, feasible {sum(verdicts[singleton])}/{len(cands)}")
+        log(f"{key}{tag} main path: {dt:.3f}s host, path={S.last_sweep['path']}, steps={S.last_sweep['steps']}, "
+            f"launches={dict(S.LAUNCHES)}, feasible {sum(verdicts[singleton])}/{len(cands)}: "
+            f"{''.join('1' if v else '0' for v in verdicts[singleton])}")
         if S.last_sweep["path"] != "sweep_fast" or n_launch != 1:
-            return None
+            return False
         # host phases: the union whole, then its encode, FFD order and table
         # upload again one by one, the lane inputs and the dispatch
         phases = {}
@@ -753,57 +774,56 @@ def sweep_phase(dev) -> Optional[list]:
         phases["lane_inputs"] = time.monotonic() - t0
         xs1, avail0, cand_idx, counts, sizes = args
         t0 = time.monotonic()
-        got = S.fast_sweep(u.tb, u.base, *args, singleton=singleton)
+        got = S.fast_sweep(u.tb, u.base, *args, singleton=singleton, with_left=True)
         got[0].cpu()
         phases["dispatch"] = time.monotonic() - t0
-        want = S.fast_sweep_plain(u.tb, u.base, S._row0(xs1), avail0, cand_idx, counts, sizes, singleton)
+        want = S.fast_sweep_plain(u.tb, u.base, S._row0(xs1), avail0, cand_idx, counts, sizes, singleton, True)
         torch.cuda.synchronize()
-        mism = int((got[0] != want[0]).sum()) + int(int(got[1]) != int(want[1]))
-        mism += int(got[0].cpu().tolist() != verdicts[singleton])
+        mism = held(got, want, verdicts[singleton])
         ms = cuda_ms(lambda: S.fast_sweep(u.tb, u.base, *args, singleton=singleton), 20)
         profiled.append((len(rows_out), lambda u=u, a=args, s=singleton: S.fast_sweep(u.tb, u.base, *a, singleton=s),
                          20, SWEEP_KERNELS))
         plain_ms = cuda_ms(lambda: S.fast_sweep_plain(u.tb, u.base, S._row0(xs1), *args[1:], singleton), 3)
         B, C = counts.shape
         E, R = avail0.shape
-        I, T, TWn = u.tb.ialloc.shape[0], u.tb.tdaemon.shape[0], u.tb.va.full_mask.shape[0]
         nb = nbytes(u.tb, u.base.ereq, u.base.h_cnt, u.base.v_cnt, xs1, avail0, cand_idx, counts, sizes) + B
-        # per lane, class and node a quotient and a compare per dim and the
-        # take; the template-fit filters over the I types
-        ops = 2 * B * C * E * R + (T * C + B) * I * (TWn + R)
+        ops, n_left = ops_and_left(B, C, E, R, u.tb, want[2])
         b_ms, b_by = bound(nb, ops)
-        log(f"K6 {key} (E={E}, B={B}, C={C}, R={R}, T={T}, I={I}): {mism} mismatches vs plain; "
+        log(f"K6 {key}{tag} (E={E}, B={B}, C={C}, R={R}, T={u.tb.tdaemon.shape[0]}, I={u.tb.ialloc.shape[0]}, "
+            f"{n_left} lanes with leftovers): {mism} mismatches vs plain (verdicts, steps, leftovers); "
             f"kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, "
             f"bound {b_ms:.6f} ms ({b_by}); host phases (s): " + json.dumps({k: round(v, 4) for k, v in phases.items()}))
         if mism:
-            return None
-        rows_out.append(row("fast_sweep (singleton)" if singleton else "fast_sweep", "fast_sweep.cu",
+            return False
+        rows_out.append(row(("fast_sweep (singleton)" if singleton else "fast_sweep") + tag, "fast_sweep.cu",
                             "karpenter_tpu/controllers/disruption/sweep.py:158", n_launch, mism, ms, plain_ms,
                             b_ms, b_by))
 
-    # ---- the removal-set sweep (K8) ----
+    # ---- K8: the removal-set sweep ----
     t0 = time.monotonic()
     ctx = SS.SetSweepContext.build(w.kube, w.cluster, w.cloud, cands, device=dev)
     proposer = SS.SetProposer(cands, seed=7, max_lanes=SET_LANES)
     member = proposer.first_round()
     if len(member) < SET_LANES:
         member = np.concatenate([member, proposer._dedup(proposer._random(4 * SET_LANES))], axis=0)[:SET_LANES]
-    log(f"set sweep context + {len(member)} first-round rows: {time.monotonic() - t0:.2f}s host")
-    reset()
+    # smallest set first, so a verdict that follows the set's size changes
+    # between few neighbours
+    member = member[np.argsort(member.sum(axis=1), kind="stable")]
+    log(f"set sweep context{tag} + {len(member)} first-round rows: {time.monotonic() - t0:.2f}s host")
+    reset_sweep_launches()
     t0 = time.monotonic()
     set_verdicts = ctx.evaluate(member)
     dt = time.monotonic() - t0
     n_launch = SS.LAUNCHES["set_sweep"]
-    log(f"set_sweep main path: {dt:.3f}s host, steps={S.last_sweep['steps']}, launches={dict(SS.LAUNCHES)}, "
+    log(f"set_sweep{tag} main path: {dt:.3f}s host, steps={S.last_sweep['steps']}, launches={dict(SS.LAUNCHES)}, "
         f"feasible {int(set_verdicts.sum())}/{len(member)}")
     if n_launch != 1:
-        return None
+        return False
     args = ctx.kernel_args(member)
-    got = SS.set_sweep(*args)
-    want = SS.set_sweep_plain(args[0], args[1], S._row0(args[2]), *args[3:])
+    got = SS.set_sweep(*args, with_left=True)
+    want = SS.set_sweep_plain(args[0], args[1], S._row0(args[2]), *args[3:], with_left=True)
     torch.cuda.synchronize()
-    mism = int((got[0] != want[0]).sum()) + int(int(got[1]) != int(want[1]))
-    mism += int(got[0].cpu().numpy()[: len(member)].tolist() != set_verdicts.tolist())
+    mism = held(got, want, set_verdicts.tolist())
     ms = cuda_ms(lambda: SS.set_sweep(*args), 20)
     profiled.append((len(rows_out), lambda args=args: SS.set_sweep(*args), 20, SWEEP_KERNELS))
     plain_ms = cuda_ms(lambda: SS.set_sweep_plain(args[0], args[1], S._row0(args[2]), *args[3:]), 3)
@@ -811,29 +831,68 @@ def sweep_phase(dev) -> Optional[list]:
     C = args[8].shape[0]
     E, R = ctx.avail0.shape
     nb = nbytes(args) - nbytes(args[1]) + nbytes(args[1].ereq, args[1].h_cnt, args[1].v_cnt) + Bp
-    ops = Bp * Jp * C + 2 * Bp * C * E * R + (T * C + Bp) * I * (TWn + R)
+    ops, n_left = ops_and_left(Bp, C, E, R, args[0], want[2])
+    ops += Bp * Jp * C  # the counts base + M @ P
     b_ms, b_by = bound(nb, ops)
-    log(f"K8 set_sweep (B={Bp} lanes for {len(member)} rows, J={Jp}, C={C}, E={E}): {mism} mismatches vs plain; "
+    log(f"K8 set_sweep{tag} (B={Bp} lanes for {len(member)} rows, J={Jp}, C={C}, E={E}, {n_left} lanes with "
+        f"leftovers): {mism} mismatches vs plain (verdicts, steps, leftovers); "
         f"kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, bound {b_ms:.6f} ms ({b_by})")
     if mism:
-        return None
-    rows_out.append(row("set_sweep", "set_sweep.cu", "karpenter_tpu/controllers/disruption/setsweep.py:100",
+        return False
+    rows_out.append(row("set_sweep" + tag, "set_sweep.cu", "karpenter_tpu/controllers/disruption/setsweep.py:100",
                         n_launch, mism, ms, plain_ms, b_ms, b_by))
 
-    # ---- the referee on the fast world ----
+    # ---- the referee ----
     t0 = time.monotonic()
     n_checked, bad = 0, []
     for singleton in (False, True):
-        lanes = referee_lanes(verdicts[singleton], REFEREE_SEEDED, seed=7 + singleton)
+        lanes = referee_lanes(verdicts[singleton], REFEREE_SEEDED, seed=seed + singleton)
         rows = [(k, [j == k if singleton else j <= k for j in range(len(cands))]) for k in lanes]
         bad += referee_mismatches(w, cands, rows, verdicts[singleton])
         n_checked += len(rows)
-    lanes = referee_lanes(set_verdicts, REFEREE_SEEDED, seed=9)
+    lanes = referee_lanes(set_verdicts, REFEREE_SEEDED, seed=seed + 2)
     bad += referee_mismatches(w, cands, [(k, member[k]) for k in lanes], set_verdicts)
     n_checked += len(lanes)
-    log(f"referee, fast world: {n_checked} lanes checked, {len(bad)} disagree ({time.monotonic() - t0:.1f}s host)")
-    if bad:
+    log(f"referee{tag}: {n_checked} lanes checked, {len(bad)} disagree ({time.monotonic() - t0:.1f}s host)")
+    return not bad
+
+
+def sweep_phase(dev) -> Optional[list]:
+    """The consolidation sweeps on the card: the fast path (K6, prefix and
+    singleton lanes) and the removal-set sweep (K8) at the c4 shape, where
+    every lane places all its pods on existing nodes, and on a leftover
+    fleet whose lanes leave pods for one new claim, which some lanes'
+    leftovers fit and others' do not; the full-state lane path (K7) on a
+    spread fleet. Each main path with its launch counts reset just before
+    and read just after, each kernel held bit for bit against its plain
+    version on the same inputs, verdicts held against the sequential
+    referee. Returns the kernels-line rows, or None when a check failed."""
+    import torch
+
+    from karpenter_tpu_torch.controllers.disruption import sweep as S
+    from karpenter_tpu_torch.solver import tpu_kernel as K
+    from karpenter_tpu_torch.testing.fixtures import underutilized_world
+
+    t_phase = time.monotonic()
+    rows_out = []
+    profiled = []  # (row index, call, reps, kernel names) for device_ms
+    t0 = time.monotonic()
+    w = underutilized_world(SWEEP_NODES, seed=7, n_pending=SWEEP_PENDING)
+    cands = sweep_candidates(w, SWEEP_CANDIDATES)
+    log(f"sweep world: {SWEEP_NODES} nodes, {len(cands)} candidates, {SWEEP_PENDING} pending pods "
+        f"({time.monotonic() - t0:.1f}s host)")
+    if not fast_fleet_checks(dev, w, cands, "", 7, rows_out, profiled):
         return None
+    t0 = time.monotonic()
+    w = underutilized_world(
+        SWEEP_NODES, seed=7, rider_requests=LEFTOVER_RIDER, n_pending=SWEEP_PENDING, pending_requests=LEFTOVER_PENDING
+    )
+    cands = sweep_candidates(w, SWEEP_CANDIDATES)
+    log(f"leftover world: {SWEEP_NODES} nodes with riders of {LEFTOVER_RIDER}, {len(cands)} candidates, "
+        f"{SWEEP_PENDING} pending pods of {LEFTOVER_PENDING} ({time.monotonic() - t0:.1f}s host)")
+    if not fast_fleet_checks(dev, w, cands, LEFTOVER_TAG, 17, rows_out, profiled):
+        return None
+    del w, cands
 
     # ---- the full-state lane path (K7) ----
     t0 = time.monotonic()
@@ -843,7 +902,7 @@ def sweep_phase(dev) -> Optional[list]:
         f"{len(cands2)} candidates ({time.monotonic() - t0:.1f}s host)")
     k7_ms, k7_plain_ms, k7_mism, k7_launch, nb, ops = 0.0, 0.0, 0, 0, 0, 0
     for singleton in (False, True):
-        reset()
+        reset_sweep_launches()
         t0 = time.monotonic()
         lane_verdicts = S.prefix_feasibility(w2.kube, w2.cluster, w2.cloud, cands2, singleton=singleton, device=dev)
         torch.cuda.synchronize()
@@ -884,7 +943,11 @@ def sweep_phase(dev) -> Optional[list]:
         if singleton:
             lanes = list(range(len(cands2)))
         else:
-            lanes = referee_lanes(lane_verdicts, 4, seed=11)
+            # every prefix lane up to PAST_EDGE past the last verdict change
+            # (a deep prefix lane's referee call is long), and seeded ones
+            v = lane_verdicts
+            edge = max([k for k in range(1, len(v)) if v[k] != v[k - 1]], default=0)
+            lanes = sorted(set(range(min(len(v), edge + 1 + PAST_EDGE))) | set(referee_lanes(v, 4, seed=11)))
         rows = [(k, [j == k if singleton else j <= k for j in range(len(cands2))]) for k in lanes]
         bad = referee_mismatches(w2, cands2, rows, lane_verdicts)
         log(f"referee, lane world ({'singleton' if singleton else 'prefix'}): {len(rows)} lanes checked, "

@@ -63,12 +63,12 @@ LANE_BUCKET_FLOOR = 64
 LAUNCHES = {"set_sweep": 0}
 
 
-def set_sweep_plain(tb, st, x, avail0, slot_cand, member, base_counts, percand_counts, sizes):
+def set_sweep_plain(tb, st, x, avail0, slot_cand, member, base_counts, percand_counts, sizes, with_left=False):
     """The reference's `_set_sweep_kernel` for one pod row `x`:
     (feasible [B] bool, steps) for membership rows `member` [B, J] (int32
-    0/1). slot_cand [E] maps existing slots to candidates (J = not a
-    candidate); percand_counts [J, C] is P; base_counts [C] counts the pods
-    valid in every lane."""
+    0/1), and the leftovers [B, C] with `with_left`. slot_cand [E] maps
+    existing slots to candidates (J = not a candidate); percand_counts
+    [J, C] is P; base_counts [C] counts the pods valid in every lane."""
     rc = KR._build_cache(tb, st, x)
     B, J = member.shape
     # a zero column so the sentinel J gathers "never removed"
@@ -76,15 +76,17 @@ def set_sweep_plain(tb, st, x, avail0, slot_cand, member, base_counts, percand_c
     removed = member_pad[:, slot_cand.clamp(0, J).long()] > 0  # [B, E]
     # an exact integer product (0/1 x small counts; the host guards bound it)
     counts = base_counts[None, :] + (member[:, :, None] * percand_counts[None]).sum(dim=1, dtype=torch.int32)
-    return ffd_feasibility_core_plain(tb, rc, _lane_avail(avail0, removed), counts, sizes)
+    return ffd_feasibility_core_plain(tb, rc, _lane_avail(avail0, removed), counts, sizes, with_left)
 
 
-def set_sweep(tb, st, xs, avail0, slot_cand, member, base_counts, percand_counts, sizes):
+def set_sweep(tb, st, xs, avail0, slot_cand, member, base_counts, percand_counts, sizes, with_left=False):
     """(feasible [B] bool, steps) of the removal-set sweep for the pod in
-    row 0 of the batch `xs`. CPU tensors take the plain version; CUDA
-    tensors launch K8."""
+    row 0 of the batch `xs`, and the leftovers [B, C] with `with_left`.
+    CPU tensors take the plain version; CUDA tensors launch K8."""
     if st.rank.device.type == "cpu":
-        return set_sweep_plain(tb, st, _row0(xs), avail0, slot_cand, member, base_counts, percand_counts, sizes)
+        return set_sweep_plain(
+            tb, st, _row0(xs), avail0, slot_cand, member, base_counts, percand_counts, sizes, with_left
+        )
     B, J = member.shape
     if tuple(percand_counts.shape) != (J, sizes.shape[0]) or tuple(base_counts.shape) != (sizes.shape[0],):
         raise ValueError(
@@ -92,7 +94,7 @@ def set_sweep(tb, st, xs, avail0, slot_cand, member, base_counts, percand_counts
             f"base {tuple(base_counts.shape)} and sizes {tuple(sizes.shape)} disagree"
         )
     lanes = {"slot_cand": slot_cand, "member": member, "base_counts": base_counts, "percand": percand_counts}
-    out = launch_sweep("set_sweep", tb, st, xs, avail0, sizes, B, lanes, J=J)
+    out = launch_sweep("set_sweep", tb, st, xs, avail0, sizes, B, lanes, with_left, J=J)
     LAUNCHES["set_sweep"] += 1
     return out
 

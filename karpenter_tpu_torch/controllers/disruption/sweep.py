@@ -89,13 +89,14 @@ class SweepUnsupported(Exception):
 # the plain versions
 
 
-def ffd_feasibility_core_plain(tb: K.Tables, rc: KR.RunCache, avail, counts, sizes):
+def ffd_feasibility_core_plain(tb: K.Tables, rc: KR.RunCache, avail, counts, sizes, with_left=False):
     """The shared body of every delta-state sweep (the reference's
     `_ffd_feasibility_core`): given per-lane availability `avail` [B, E, R]
     (-1 marks a removed slot) and per-lane valid-pod counts `counts` [B, C]
     over the contiguous class sequence (sizes [C, R]), run the class-cumsum
     FFD identity and the <= 1-new-claim check. Returns (feasible [B] bool,
-    steps), steps being the class-loop trips (C)."""
+    steps), steps being the class-loop trips (C), and with `with_left` the
+    leftover pods per lane and class [B, C] int32 as a third item."""
     dev = avail.device
     B, C = counts.shape
     I = tb.ialloc.shape[0]
@@ -139,7 +140,8 @@ def ffd_feasibility_core_plain(tb: K.Tables, rc: KR.RunCache, avail, counts, siz
     final_b = KR._rows_at(rc.final_t, tstar)
     fit_tot = KR._type_filter_rows(final_b, tmember[tstar], tb.tdaemon[tstar] + tot, tb).any(dim=-1)
     claim_ok = has_t & fit_tot
-    return torch.where(any_left, claim_ok, torch.ones_like(claim_ok)), C
+    feasible = torch.where(any_left, claim_ok, torch.ones_like(claim_ok))
+    return (feasible, C, left) if with_left else (feasible, C)
 
 
 def _lane_avail(avail0, removed):
@@ -147,10 +149,13 @@ def _lane_avail(avail0, removed):
     return torch.where(removed[..., None], K._i32(-1, avail0.device), avail0[None])
 
 
-def fast_sweep_plain(tb: K.Tables, st: K.State, x: K.PodX, avail0, cand_idx, counts, sizes, singleton=False):
+def fast_sweep_plain(
+    tb: K.Tables, st: K.State, x: K.PodX, avail0, cand_idx, counts, sizes, singleton=False, with_left=False
+):
     """The reference's `_fast_sweep_kernel` for one pod row `x`: prefix
     lane k removes candidates[:k+1], singleton lane k candidates[k] alone.
-    Returns (feasible [B] bool, steps)."""
+    Returns (feasible [B] bool, steps), and the leftovers [B, C] with
+    `with_left`."""
     rc = KR._build_cache(tb, st, x)
     B = counts.shape[0]
     karr = torch.arange(B, dtype=torch.int32, device=counts.device)
@@ -158,21 +163,25 @@ def fast_sweep_plain(tb: K.Tables, st: K.State, x: K.PodX, avail0, cand_idx, cou
         removed = cand_idx[None, :] == karr[:, None]
     else:
         removed = cand_idx[None, :] <= karr[:, None]
-    return ffd_feasibility_core_plain(tb, rc, _lane_avail(avail0, removed), counts, sizes)
+    return ffd_feasibility_core_plain(tb, rc, _lane_avail(avail0, removed), counts, sizes, with_left)
 
 
 def _row0(xs: K.PodX) -> K.PodX:
     return K.PodX(*(Reqs(*(a[0] for a in f)) if isinstance(f, Reqs) else f[0] for f in xs))
 
 
-def fast_sweep(tb: K.Tables, st: K.State, xs: K.PodX, avail0, cand_idx, counts, sizes, singleton=False):
+def fast_sweep(
+    tb: K.Tables, st: K.State, xs: K.PodX, avail0, cand_idx, counts, sizes, singleton=False, with_left=False
+):
     """(feasible [B] bool, steps) of the delta-state sweep for the pod in
-    row 0 of the batch `xs`. CPU tensors take the plain version; CUDA
-    tensors launch K6."""
+    row 0 of the batch `xs`, and the leftovers [B, C] with `with_left`.
+    CPU tensors take the plain version; CUDA tensors launch K6."""
     if st.rank.device.type == "cpu":
-        return fast_sweep_plain(tb, st, _row0(xs), avail0, cand_idx, counts, sizes, singleton)
+        return fast_sweep_plain(tb, st, _row0(xs), avail0, cand_idx, counts, sizes, singleton, with_left)
     lanes = {"cand_idx": cand_idx, "counts": counts}
-    out = launch_sweep("fast_sweep", tb, st, xs, avail0, sizes, counts.shape[0], lanes, singleton=int(singleton))
+    out = launch_sweep(
+        "fast_sweep", tb, st, xs, avail0, sizes, counts.shape[0], lanes, with_left, singleton=int(singleton)
+    )
     LAUNCHES["fast_sweep_singleton" if singleton else "fast_sweep"] += 1
     return out
 
@@ -203,10 +212,11 @@ def sweep_library(name: str):
     return lib, args_type, sweep_type
 
 
-def launch_sweep(name: str, tb, st, xs, avail0, sizes, B: int, lanes: dict, **ints):
+def launch_sweep(name: str, tb, st, xs, avail0, sizes, B: int, lanes: dict, with_left=False, **ints):
     """Launch sweep kernel `name` over B lanes; `lanes` holds the kernel's
     own lane inputs (int32 tensors by SweepArgs field name), `ints` its
-    int fields. Returns (feasible [B] bool, steps as a 0-dim tensor)."""
+    int fields. Returns (feasible [B] bool, steps as a 0-dim tensor), and
+    with `with_left` the leftovers [B, C] the kernel wrote."""
     lib, args_type, sweep_type = sweep_library(name)
     dev = st.rank.device
     E, R = st.eavail.shape
@@ -242,6 +252,8 @@ def launch_sweep(name: str, tb, st, xs, avail0, sizes, B: int, lanes: dict, **in
     stream = torch.cuda.current_stream(dev).cuda_stream
     code = getattr(lib, f"{name}_launch")(ctypes.byref(args), ctypes.byref(sargs), ctypes.c_void_p(stream))
     _build.check_launch(name, code)
+    if with_left:
+        return feasible.bool(), steps[0], work["left"][:, :C]
     return feasible.bool(), steps[0]
 
 

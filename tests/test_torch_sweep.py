@@ -231,6 +231,42 @@ def test_fast_path_matches_reference(fleet, monkeypatch):
         assert got_steps == int(steps)
 
 
+def test_fast_path_with_leftovers_matches_reference(monkeypatch):
+    """Pending pods that fit no node are left over in every lane with the
+    removed nodes' riders: the first leftover class (the pending one) and
+    the one-claim fit of the leftover total decide, and the 32-core type
+    hosts the pending pods and some riders only up to a prefix."""
+    op = fleet_op(21, 8, [2, 32], "1200m", "1500m")
+    for i in range(3):
+        op.kube.create("Pod", fixtures.pod(name=f"pending-{i}", requests={"cpu": "8", "memory": "1Gi"}))
+    ref, port = sides(op)
+    captured = []
+    real = jax.jit(rsweep._fast_sweep_kernel, static_argnames=("singleton",))
+
+    def spy(*args, singleton=False):
+        out = real(*args, singleton=singleton)
+        captured.append((jax.device_get(args), singleton, jax.device_get(out)))
+        return out
+
+    monkeypatch.setattr(rsweep, "_fast_sweep_cached", spy)
+    for singleton in (False, True):
+        want, want_steps = ref_sweep(ref, singleton)
+        got, got_steps = port_sweep(port, singleton)
+        assert psweep.last_sweep["path"] == "sweep_fast"
+        assert got == want, (singleton, got, want)
+        assert got_steps == want_steps
+    assert True in want and False in ref_sweep(ref, False)[0]  # some prefixes fit one new claim, some do not
+    for (tb, st, x, avail0, cand_idx, counts, sizes), singleton, (feas, _) in captured:
+        t = lambda a: torch.from_numpy(np.array(a))
+        got_feas, _, left = psweep.fast_sweep_plain(
+            convert.tables(tb), convert.state(st), convert.pod_x(x), t(avail0), t(cand_idx), t(counts), t(sizes),
+            singleton=singleton, with_left=True,
+        )
+        assert np.array_equal(got_feas.numpy(), np.asarray(feas))
+        assert (left[:, 0] == 3).all()  # the pending class comes first and fits no node
+        assert (left[:, 1] == 1 if singleton else left[:, 1] == torch.arange(1, left.shape[0] + 1)).all()
+
+
 def _lane_inputs(args):
     """The reference's vmap inputs (tb, st_b, xs_b) as the port's
     scan_lanes inputs: every state field with its lane axis, the shared
