@@ -27,7 +27,9 @@ PyTorch version on the card, bit for bit:
   on existing nodes, and on a 2000-node leftover fleet, where every lane
   leaves pods for one new claim that some lanes' leftovers fit and others'
   do not; K7 scan_lanes (prefix and singleton lanes) on 64 candidates of a
-  2000-node fleet whose riders carry a zone spread.
+  2000-node fleet whose riders carry a zone spread;
+- K7 scan_lanes as the fleet launch (a lane stride on every pod field) on
+  the first 256 positions of 8 fleet lanes of 2000 pods, relax off and on.
 
 Then it drives the provisioning solve end to end, each path with the launch
 counts set to 0 just before and read just after: the headline
@@ -40,8 +42,13 @@ the JAX package's; and the 1000-pod preference round through the scan path
 with the tier loop; then the consolidation sweeps: prefix_feasibility and
 singleton_feasibility on the three fleets (the fast path and the full-state
 lane path) and SetSweepContext.evaluate, their verdicts held against the port's
-sequential referee (helpers.simulate_scheduling on the oracle). It checks
-decisions against the port's oracle on eight problems, and prints:
+sequential referee (helpers.simulate_scheduling on the oracle); then fleet
+lanes: windows of 2, 5 and 8 concurrent scan-path solves of 2000 self-spread
+pods each and a window of 4 lanes with preference ladders, through
+TorchScheduler(fleet=FleetCoalescer), every lane coalesced (one K7 launch
+per round) and equal to its solo solve through K2, and an overflowing lane
+that leaves its window. It checks decisions against the port's oracle on
+ten problems, and prints:
 
 - the card's name and power limit (nvidia-smi),
 - one JSON line {"kernels": [...]} with each kernel's launches on its path,
@@ -97,6 +104,19 @@ PAST_EDGE = 4  # spread-fleet prefix lanes held past the last verdict change
 LEFTOVER_RIDER = {"cpu": "700m", "memory": "512Mi"}
 LEFTOVER_PENDING = {"cpu": "12", "memory": "1Gi"}
 LEFTOVER_TAG = ", leftover fleet"
+# fleet lanes: concurrent scan-path solves of one cluster (the headline's
+# types and pool), lane k with make_self_spread_pods(FLEET_PODS, "<k+1>00m")
+FLEET_PODS = 2000
+FLEET_WINDOWS = (2, 5, 8)  # lanes per window, relax off
+FLEET_RELAX_LANES = 4  # a window whose lanes add the same preference pods
+FLEET_PREF_PODS = 200
+FLEET_PREF_SEED = 7
+FLEET_CHECK_POSITIONS = 256  # FFD positions of each lane K7 is held to its plain version on
+FLEET_CHECK_LANES = 8
+FLEET_ORACLE_LANES = (0, 7)  # lanes of the widest window held against the oracle
+FLEET_OVERFLOW = (80, ("100m", "200m", "4100m"))  # pods per lane; the last lane needs a node per pod
+FLEET_WINDOW_SECONDS = 10.0
+FLEET_JOIN_SECONDS = 300.0
 # the device functions of K6 and K8, as the profiler names them
 SWEEP_KERNELS = ("sweep_cache_kernel", "fast_sweep_lanes", "set_sweep_lanes")
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
@@ -692,15 +712,19 @@ def referee_mismatches(world, cands, rows, verdicts) -> list[int]:
     return bad
 
 
-def reset_sweep_launches() -> None:
-    """Set the launch counts of K6, K7 and K8 (and K2/K3's) to 0."""
+def reset_launches() -> None:
+    """Set every kernel wrapper's launch count and the fleet counters to 0."""
     from karpenter_tpu_torch.controllers.disruption import setsweep as SS
     from karpenter_tpu_torch.controllers.disruption import sweep as S
+    from karpenter_tpu_torch.solver import fleet as F
+    from karpenter_tpu_torch.solver import tpu as T
     from karpenter_tpu_torch.solver import tpu_kernel as K
+    from karpenter_tpu_torch.solver import tpu_runs as KR
 
-    for counts in (S.LAUNCHES, SS.LAUNCHES, K.LAUNCHES):
+    for counts in (S.LAUNCHES, SS.LAUNCHES, T.LAUNCHES, K.LAUNCHES, KR.LAUNCHES):
         for k in counts:
             counts[k] = 0
+    F.reset_counters()
 
 
 def fast_fleet_checks(dev, w, cands, tag: str, seed: int, rows_out: list, profiled: list) -> bool:
@@ -737,7 +761,7 @@ def fast_fleet_checks(dev, w, cands, tag: str, seed: int, rows_out: list, profil
     # ---- K6: main path runs, then the kernel vs plain ----
     verdicts = {}
     for singleton in (False, True):
-        reset_sweep_launches()
+        reset_launches()
         t0 = time.monotonic()
         verdicts[singleton] = S.prefix_feasibility(w.kube, w.cluster, w.cloud, cands, singleton=singleton, device=dev)
         torch.cuda.synchronize()
@@ -810,7 +834,7 @@ def fast_fleet_checks(dev, w, cands, tag: str, seed: int, rows_out: list, profil
     # between few neighbours
     member = member[np.argsort(member.sum(axis=1), kind="stable")]
     log(f"set sweep context{tag} + {len(member)} first-round rows: {time.monotonic() - t0:.2f}s host")
-    reset_sweep_launches()
+    reset_launches()
     t0 = time.monotonic()
     set_verdicts = ctx.evaluate(member)
     dt = time.monotonic() - t0
@@ -902,7 +926,7 @@ def sweep_phase(dev) -> Optional[list]:
         f"{len(cands2)} candidates ({time.monotonic() - t0:.1f}s host)")
     k7_ms, k7_plain_ms, k7_mism, k7_launch, nb, ops = 0.0, 0.0, 0, 0, 0, 0
     for singleton in (False, True):
-        reset_sweep_launches()
+        reset_launches()
         t0 = time.monotonic()
         lane_verdicts = S.prefix_feasibility(w2.kube, w2.cluster, w2.cloud, cands2, singleton=singleton, device=dev)
         torch.cuda.synchronize()
@@ -922,9 +946,7 @@ def sweep_phase(dev) -> Optional[list]:
         end.record()
         torch.cuda.synchronize()
         k7_plain_ms += start.elapsed_time(end)
-        bad_fields = [n for n, a, b in zip(("kinds", "slots", "overflow", "steps"), got[1:], want[1:])
-                      if not torch.equal(a, b)]
-        bad_fields += state_mismatches(got[0], want[0])
+        bad_fields = lanes_mismatches(got, want)
         log(f"K7 scan_lanes ({'singleton' if singleton else 'prefix'}; B={valid_b.shape[0]}, P={valid_b.shape[1]}, "
             f"E={st_b.eavail.shape[1]}, N={st_b.active.shape[1]}, relax={relax}): mismatched {bad_fields or 'nothing'} "
             f"vs plain ({start.elapsed_time(end):.1f} ms plain)")
@@ -969,6 +991,337 @@ def sweep_phase(dev) -> Optional[list]:
     log("device time by the profiler (ms): " + json.dumps({r["name"]: r.get("device_ms") for r in rows_out}))
     log(f"sweep phase: {time.monotonic() - t_phase:.1f}s")
     return rows_out
+
+
+def fleet_world(its, cpu: str, n_pods: int, n_pref: int = 0) -> World:
+    """One fleet lane's problem: n_pods self-spread pods at `cpu` (the
+    fixture that forces the scan path) and n_pref preference pods from one
+    seed, against `its` on one default NodePool."""
+    from karpenter_tpu_torch.solver.topology import Topology
+    from karpenter_tpu_torch.testing import fixtures
+
+    pools = [fixtures.node_pool(name="default")]
+    ibp = {"default": its}
+    pods = fixtures.make_self_spread_pods(n_pods, cpu)
+    if n_pref:
+        fixtures.reset_rng(FLEET_PREF_SEED)
+        pods += fixtures.make_preference_pods(n_pref)
+    return World(pools, ibp, pods, None, None, Topology(pools, ibp, pods))
+
+
+def traced_scheduler(world: World, dev, fleet=None):
+    """A TorchScheduler whose `_decode` keeps the solve's per-pod kinds and
+    slots (copies) in `.seen` for the checks."""
+    from karpenter_tpu_torch.solver.tpu import TorchScheduler
+
+    sched = TorchScheduler(world.pools, world.ibp, world.topo, world.views, None, world.options, device=dev, fleet=fleet)
+    decode = sched._decode
+
+    def keep(p, st, kinds, slots, timed_out):
+        sched.seen = (kinds.copy(), slots.copy())
+        return decode(p, st, kinds, slots, timed_out)
+
+    sched._decode = keep
+    return sched
+
+
+def lane_outcome(sched, res, pods) -> tuple:
+    """What a lane must agree on with its solo solve: the decisions, the
+    per-pod kinds and slots, and the odometer."""
+    odo = sched.last_odometer
+    return (results_snapshot(res, pods), sched.seen[0].tobytes(), sched.seen[1].tobytes(),
+            (odo["steps"], odo["tier_steps"], tuple(odo["tier_hist"])))
+
+
+def run_window(worlds: list, dev, captured: list):
+    """Solve every world in its own thread through one FleetCoalescer, all
+    released by one barrier. Returns (outcomes, schedulers, coalescer,
+    wall seconds, launches) or raises when a lane failed or hung. The
+    launch counts are set to 0 just before and read just after."""
+    import threading
+
+    import torch
+
+    from karpenter_tpu_torch.solver import fleet as F
+    from karpenter_tpu_torch.solver import tpu as T
+    from karpenter_tpu_torch.solver import tpu_kernel as K
+
+    coalescer = F.FleetCoalescer(window_seconds=FLEET_WINDOW_SECONDS, max_lanes=len(worlds))
+    scheds = [traced_scheduler(w, dev, coalescer) for w in worlds]
+    outcomes, errors = [None] * len(worlds), []
+    barrier = threading.Barrier(len(worlds) + 1)
+
+    def lane(k):
+        try:
+            barrier.wait(timeout=FLEET_JOIN_SECONDS)
+            res = scheds[k].solve(worlds[k].pods)
+            outcomes[k] = lane_outcome(scheds[k], res, worlds[k].pods)
+        except BaseException as e:  # reported below; the phase fails on it
+            errors.append(e)
+
+    real_dispatch = F.fleet_dispatch
+
+    def keep_first(tb, st_b, xs_b, relax=True):
+        if not captured:
+            captured.append((tb, st_b, xs_b, relax))
+        return real_dispatch(tb, st_b, xs_b, relax)
+
+    threads = [threading.Thread(target=lane, args=(k,), daemon=True) for k in range(len(worlds))]
+    for t in threads:
+        t.start()
+    torch.cuda.synchronize()
+    reset_launches()
+    F.fleet_dispatch = keep_first
+    try:
+        barrier.wait(timeout=FLEET_JOIN_SECONDS)
+        t0 = time.monotonic()
+        for t in threads:
+            t.join(timeout=FLEET_JOIN_SECONDS)
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+    finally:
+        F.fleet_dispatch = real_dispatch
+    launches = {k: v for counts in (T.LAUNCHES, K.LAUNCHES) for k, v in counts.items()}
+    if any(t.is_alive() for t in threads) or errors:
+        raise RuntimeError(f"fleet window: lanes hung or failed: {errors}")
+    return outcomes, scheds, coalescer, wall, launches
+
+
+def solo_outcomes(worlds: list, dev) -> tuple[list, float]:
+    """Each world solved alone in a fresh TorchScheduler (no coalescer),
+    on the scan path through K2; (outcomes, summed wall seconds)."""
+    import torch
+
+    from karpenter_tpu_torch.solver import tpu_kernel as K
+
+    outs, total = [], 0.0
+    for w in worlds:
+        sched = traced_scheduler(w, dev)
+        n0 = K.LAUNCHES["scan_step"] + K.LAUNCHES["scan_step_relax"]
+        t0 = time.monotonic()
+        res = sched.solve(w.pods)
+        torch.cuda.synchronize()
+        total += time.monotonic() - t0
+        if sched.last_used_runs or K.LAUNCHES["scan_step"] + K.LAUNCHES["scan_step_relax"] == n0:
+            raise RuntimeError("a fleet lane's solo referee did not run K2")
+        outs.append(lane_outcome(sched, res, w.pods))
+    return outs, total
+
+
+def cut_positions(xs, n: int):
+    """The first n pod positions of a stacked PodX ([B, P, ...] fields),
+    contiguous."""
+    from karpenter_tpu_torch.ops.encode import Reqs
+
+    def cut(a):
+        return a[:, :n].contiguous()
+
+    return type(xs)(*(Reqs(*(cut(a) for a in f)) if isinstance(f, Reqs) else cut(f) for f in xs))
+
+
+def lanes_mismatches(got, want) -> list[str]:
+    """Fields where two solve_scan_lanes results differ."""
+    import torch
+
+    bad = state_mismatches(got[0], want[0])
+    bad += [n for n, a, b in zip(("kinds", "slots", "overflow"), got[1:4], want[1:4]) if not torch.equal(a, b)]
+    return bad + odometer_mismatches(got[4], want[4])
+
+
+def fleet_inputs(worlds: list, dev):
+    """(tb, st_b, xs_b, relax) of the first round of a window of these
+    worlds, assembled as the coalescer assembles it: lane 0's tables, each
+    lane's initial State and its pods in FFD order at the window's rung."""
+    from karpenter_tpu_torch.solver import epochs
+    from karpenter_tpu_torch.solver import fleet as F
+    from karpenter_tpu_torch.solver.tpu_problem import _pow2, encode_problem
+
+    lanes = []
+    for w in worlds:
+        sched, pods = scheduler_for(w, dev)
+        problem = encode_problem(sched.oracle, pods)
+        order = sched._order_pods(problem)
+        tb = sched._tables(problem)
+        sched._upload_pod_tables(problem)
+        lanes.append((sched, problem, order, tb))
+    if len({epochs.table_fingerprint(p) for _, p, _, _ in lanes}) != 1:
+        raise RuntimeError("fleet check lanes do not share one table fingerprint")
+    n = len(worlds[0].pods)
+    N = min(_pow2(max(64, (n + 3) // 4)), _pow2(n))
+    P0 = max(_pow2(len(o)) for _, _, o, _ in lanes)
+    st_b, xs_b = F.stack_lanes(
+        [s._init_state(p, N) for s, p, _, _ in lanes],
+        [s._pod_xs_with_idx(p, o, pad_to=P0)[0] for s, p, o, _ in lanes],
+    )
+    return lanes[0][3], st_b, xs_b, bool((lanes[0][1].ntiers_r > 1).any())
+
+
+def fleet_bound(tb, st_b, xs_b) -> tuple[float, str]:
+    """Row 11's bound for a fleet launch: the tables read once; per lane
+    the State read and written once, the pod rows read once, kinds and
+    slots written; one screen of every (valid pod, existing node) pair."""
+    B, P = xs_b.valid.shape
+    nb = nbytes(tb) + 2 * nbytes(st_b) + nbytes(xs_b) + 2 * 4 * B * P
+    ops = int(xs_b.valid.sum()) * st_b.eavail.shape[1] * (tb.va.full_mask.shape[0] + tb.va.num_keys)
+    return bound(nb, ops)
+
+
+def fleet_phase(dev, its) -> Optional[dict]:
+    """Fleet lanes on the card: windows of 2, 5 and 8 concurrent scan-path
+    solves (relax off) and a window of FLEET_RELAX_LANES lanes with
+    preference ladders, each through TorchScheduler(fleet=FleetCoalescer),
+    one thread per lane. Every lane must be coalesced (no solo fallback),
+    one K7 launch per round, and every lane's decisions, kinds, slots and
+    odometer must equal its solo solve through K2; two lanes of the widest
+    window also equal the oracle. The fleet launch is held bit for bit to
+    its plain version on each lane's first FLEET_CHECK_POSITIONS positions
+    (B=8, relax off and on); an overflowing lane must leave its window and
+    equal its solo solve. Measures each window's launch (events and the
+    profiler), its wall time against the sum of its solo solves and its
+    host phases, and K7 at B=1 against K2 on one lane. Returns the
+    kernels-line row, or None when a check failed."""
+    import torch
+
+    from karpenter_tpu_torch.solver import fleet as F
+    from karpenter_tpu_torch.solver import tpu_kernel as K
+    from karpenter_tpu_torch.solver.oracle import Scheduler
+
+    t_phase = time.monotonic()
+    windows = {}
+    total_launches, inputs_b8 = 0, None
+    specs = [(str(B), B, 0) for B in FLEET_WINDOWS] + [(f"{FLEET_RELAX_LANES}+relax", FLEET_RELAX_LANES, FLEET_PREF_PODS)]
+    for label, B, n_pref in specs:
+        make = [lambda k=k: fleet_world(its, f"{k + 1}00m", FLEET_PODS, n_pref) for k in range(B)]
+        solo, solo_s = solo_outcomes([m() for m in make], dev)
+        captured = []
+        worlds = [m() for m in make]
+        try:
+            outcomes, scheds, coalescer, wall, launches = run_window(worlds, dev, captured)
+        except RuntimeError as e:
+            log(f"fleet window {label}: {e}")
+            return None
+        modes = [s.last_fleet and s.last_fleet["mode"] for s in scheds]
+        rounds = coalescer.last_window.get("rounds")
+        fleet_launch = launches["fleet_lanes"] + launches["fleet_lanes_relax"]
+        bad = [k for k in range(B) if outcomes[k] != solo[k]]
+        log(
+            f"fleet window {label}: {B} lanes x {FLEET_PODS} self-spread pods (+{n_pref} preference pods), "
+            f"modes {modes}, FLEET_SOLVES {F.FLEET_SOLVES}, rounds {rounds}, dispatches {F.FLEET_DISPATCHES}, "
+            f"launches {launches}; {wall:.3f}s wall against {solo_s:.3f}s for the {B} solo solves; "
+            f"lanes differing from their solo solve: {bad or 'none'}"
+        )
+        if any(m != "coalesced" for m in modes) or F.FLEET_SOLVES != {"coalesced": B, "solo_window": 0, "fallback": 0}:
+            log(f"fleet window {label}: a lane was not coalesced; last_fallback_error={coalescer.last_fallback_error!r}")
+            return None
+        if bad or not rounds or F.FLEET_DISPATCHES["fleet"] != rounds or fleet_launch != rounds:
+            return None
+        if launches["scan_step"] or launches["scan_step_relax"] or bool(n_pref) != bool(launches["fleet_lanes_relax"]):
+            return None  # no lane ran the solo loop, and relax follows the lanes' tiers
+        lane_phases = {k: round(sum(s.last_phases[k] for s in scheds), 4) for k in scheds[0].last_phases}
+        waits = [round(s.last_fleet["wait_seconds"], 4) for s in scheds]
+        log(f"fleet window {label} host phases (s): lanes' sums {json.dumps(lane_phases)}, window "
+            f"{json.dumps({k: round(v, 4) for k, v in coalescer.last_window['phases'].items()})}, waits {waits}")
+        tb, st_b, xs_b, relax = captured[0]
+        ms = cuda_ms(lambda: K.solve_scan_lanes(tb, st_b, xs_b, relax), 3)
+        b_ms, b_by = fleet_bound(tb, st_b, xs_b)
+        windows[label] = {
+            "lanes": B, "rounds": rounds, "P0": int(xs_b.valid.shape[1]), "N": int(st_b.active.shape[1]),
+            "launch_ms": ms, "bound_ms": b_ms, "bound_by": b_by, "window_s": wall, "solo_sum_s": solo_s,
+            "window_phases_s": coalescer.last_window["phases"], "lane_phases_s": lane_phases, "waits_s": waits,
+            "_args": (tb, st_b, xs_b, relax),
+        }
+        total_launches += fleet_launch
+        if B == max(FLEET_WINDOWS) and not n_pref:
+            inputs_b8 = (tb, st_b, xs_b, relax)
+            for k in FLEET_ORACLE_LANES:
+                w = fleet_world(its, f"{k + 1}00m", FLEET_PODS)
+                t0 = time.monotonic()
+                want = results_snapshot(Scheduler(w.pools, w.ibp, w.topo).solve(w.pods), w.pods)
+                same = want == outcomes[k][0]
+                log(f"fleet lane {k} of {label} vs the oracle: {'equal' if same else 'DIFFERENT'} "
+                    f"({len(want[0])} claims, {time.monotonic() - t0:.1f}s)")
+                if not same:
+                    return None
+
+    # the fleet launch against its plain version, B=8, relax off and on
+    mism, plain_ms, ms_cut, cut_bound, cut_args = 0, 0.0, 0.0, None, None
+    relax_worlds = [fleet_world(its, f"{k + 1}00m", FLEET_PODS, FLEET_PREF_PODS) for k in range(FLEET_CHECK_LANES)]
+    for tb, st_b, xs_b, relax in (inputs_b8, fleet_inputs(relax_worlds, dev)):
+        xs_c = cut_positions(xs_b, FLEET_CHECK_POSITIONS)
+        got = K.solve_scan_lanes(tb, st_b, xs_c, relax)
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        want = K.solve_scan_lanes_plain(tb, st_b, xs_c, relax)
+        torch.cuda.synchronize()
+        p_ms = (time.monotonic() - t0) * 1e3
+        bad = lanes_mismatches(got, want)
+        k_ms = cuda_ms(lambda: K.solve_scan_lanes(tb, st_b, xs_c, relax), 3)
+        log(f"K7 fleet lanes vs plain (B={xs_c.valid.shape[0]}, first {FLEET_CHECK_POSITIONS} positions, "
+            f"N={st_b.active.shape[1]}, relax={relax}, tier_steps={got[4].tier_steps.tolist()}): kernel {k_ms:.3f} ms, "
+            f"plain {p_ms:.1f} ms, mismatched {bad or 'nothing'}")
+        mism += len(bad)
+        if bad:
+            return None
+        if not relax:
+            plain_ms, ms_cut, cut_bound, cut_args = p_ms, k_ms, fleet_bound(tb, st_b, xs_c), (tb, st_b, xs_c, relax)
+        elif not int(got[4].tier_steps.sum()):
+            return None  # the relax check must run the tier loop
+
+    # an overflowing lane leaves its window and equals its solo solve
+    n_over, profiles = FLEET_OVERFLOW
+    small = _small_types((2, 8))
+    solo, _ = solo_outcomes([fleet_world(small, cpu, n_over) for cpu in profiles], dev)
+    outcomes, scheds, coalescer, _, launches = run_window([fleet_world(small, cpu, n_over) for cpu in profiles], dev, [])
+    modes = [s.last_fleet["mode"] for s in scheds]
+    log(f"fleet overflow window: {len(profiles)} lanes x {n_over} pods at {profiles}: modes {modes}, "
+        f"FLEET_SOLVES {F.FLEET_SOLVES}, launches {launches}, equal to solo: {[o == w for o, w in zip(outcomes, solo)]}")
+    if modes != ["coalesced"] * (len(profiles) - 1) + ["fallback"] or outcomes != solo:
+        return None
+    if coalescer.last_fallback_error is not None or not launches["scan_step"]:
+        return None
+
+    # K7 at B=1 against K2 on the same lane (lane 0 of the widest window),
+    # then K7 over the window's first b lanes, in turns with K2
+    tb, st_b, xs_b, _ = inputs_b8
+    st0, xs0 = K.lane_slice(st_b, 0), K.lane_slice(xs_b, 0)
+    st1, xs1 = K.stack_lanes([st0]), K.stack_lanes([xs0])
+    got1 = K.solve_scan_lanes(tb, st1, xs1)
+    got2 = K.solve_scan(tb, st0, xs0)
+    same = torch.equal(got1[1][0], got2[1]) and torch.equal(got1[2][0], got2[2]) and not state_mismatches(
+        K.lane_slice(got1[0], 0), got2[0])
+    k7_one = cuda_ms(lambda: K.solve_scan_lanes(tb, st1, xs1), 3)
+    k2_one = cuda_ms(lambda: K.solve_scan(tb, st0, xs0), 3)
+    k7_one_dev = device_ms(lambda: K.solve_scan_lanes(tb, st1, xs1), 3, ("scan_lanes_kernel",))
+    k2_one_dev = device_ms(lambda: K.solve_scan(tb, st0, xs0), 3, ("scan_step_kernel",))
+    log(f"K7 at B=1 vs K2 on lane 0 (P={xs0.valid.shape[0]}, N={st0.active.shape[0]}): K7 {k7_one:.3f} ms "
+        f"(device {k7_one_dev}), K2 {k2_one:.3f} ms (device {k2_one_dev}); outputs {'equal' if same else 'DIFFERENT'}")
+    if not same:
+        return None
+    sweep = []
+    for b in (0, 1, 2, 4, 8, 1, 0):  # 0: K2 on lane 0
+        if b:
+            args = (tb, *(K.stack_lanes([K.lane_slice(t, k) for k in range(b)]) for t in (st_b, xs_b)))
+            sweep.append((f"K7 x{b}", device_ms(lambda: K.solve_scan_lanes(*args), 3, ("scan_lanes_kernel",))))
+        else:
+            sweep.append(("K2", device_ms(lambda: K.solve_scan(tb, st0, xs0), 3, ("scan_step_kernel",))))
+    log("device ms in turns, lanes 0..b-1 of the widest window: " + json.dumps(sweep))
+
+    # the launches' own device time, after every check
+    for w in windows.values():
+        w["device_ms"] = device_ms(lambda a=w.pop("_args"): K.solve_scan_lanes(*a), 3, ("scan_lanes_kernel",))
+    log("fleet windows: " + json.dumps(windows))
+    # ms, plain_ms, bound_ms and device_ms: the relax-off check's launch (B=8,
+    # the first FLEET_CHECK_POSITIONS positions); each window's own launch
+    # under "windows"
+    out = dict(
+        row("fleet_lanes", "scan_lanes.cu", "karpenter_tpu/solver/fleet.py:164", total_launches, mism,
+            ms_cut, plain_ms, *cut_bound),
+        device_ms=device_ms(lambda: K.solve_scan_lanes(*cut_args), 3, ("scan_lanes_kernel",)), windows=windows,
+        k7_b1_vs_k2={"k7_ms": k7_one, "k2_ms": k2_one, "k7_device_ms": k7_one_dev, "k2_device_ms": k2_one_dev,
+                     "in_turns_device_ms": sweep},
+    )
+    log(f"fleet phase: {time.monotonic() - t_phase:.1f}s")
+    return out
 
 
 def main() -> int:
@@ -1578,7 +1931,12 @@ def main() -> int:
     if sweep_rows is None:
         return 1
 
-    # ---- 13. the kernels line ----
+    # ---- 13. fleet lanes (K7 with a lane stride on every pod field) ----
+    fleet_row = fleet_phase(dev, its)
+    if fleet_row is None:
+        return 1
+
+    # ---- 14. the kernels line ----
     kernels = [
         row("typeok_screen", "typeok.cu", "karpenter_tpu/solver/tpu.py:61", launches["typeok_screen"], k1_mism,
             k1_ms, k1_plain_ms, k1_bound, k1_by),
@@ -1608,7 +1966,7 @@ def main() -> int:
             tier_steps={"preference_round": pref_trips, "c6": c6_trips},
             tier_hist={"preference_round": pref_hist, "c6": odo6["tier_hist"]},
         ),
-    ] + sweep_rows
+    ] + sweep_rows + [fleet_row]
     log(f"chip_smoke: {time.monotonic() - t_start:.1f}s in all")
     print(json.dumps({"kernels": kernels}))
     print(smi)

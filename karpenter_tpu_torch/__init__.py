@@ -17,6 +17,9 @@ Layout:
                                                         its lane grid (K7)
   solver/tpu_runs.py                                    the run kernel (K3)
   solver/tpu.py                                         TorchScheduler (K1, K4, K5)
+  solver/fleet.py, solver/epochs.py                     fleet lanes (K7 with a lane
+                                                        stride on every pod field)
+                                                        and their window key
   controllers/kube.py, state.py, provisioning.py        API store, cluster cache
                                                         (host copies)
   controllers/disruption/                               candidates, the referee,

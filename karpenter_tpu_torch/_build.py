@@ -7,7 +7,8 @@ PyTorch headers, so a build takes seconds). Libraries land in
 of every source in `csrc/` and the flags, so an edit rebuilds and an
 unchanged tree reuses the build. All sources compile in parallel, one
 `nvcc` each. A failed build raises with the compiler's output; nothing
-falls back.
+falls back. A module lock makes the first use build once when several
+threads (a fleet window's lanes) reach their first kernel together.
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -57,10 +59,21 @@ def build_dir() -> Path:
     return BUILD_ROOT / _source_hash()
 
 
-@functools.lru_cache(maxsize=None)
+# held around the first build and load: functools.lru_cache alone lets two
+# threads that miss together both run the body (two nvcc into one
+# directory); re-entrant because `library` calls `build_all`
+_LOCK = threading.RLock()
+
+
 def build_all() -> dict:
     """Compile every source not yet built for this hash, all at once.
     Returns {name: {"path", "seconds", "log"}} (seconds 0 when reused)."""
+    with _LOCK:
+        return _build_all()
+
+
+@functools.lru_cache(maxsize=None)
+def _build_all() -> dict:
     out_dir = build_dir()
     out_dir.mkdir(parents=True, exist_ok=True)
     procs = {}
@@ -93,9 +106,14 @@ def build_all() -> dict:
     return results
 
 
-@functools.lru_cache(maxsize=None)
 def library(name: str) -> ctypes.CDLL:
     """The loaded library of one source (built on first use)."""
+    with _LOCK:
+        return _library(name)
+
+
+@functools.lru_cache(maxsize=None)
+def _library(name: str) -> ctypes.CDLL:
     return ctypes.CDLL(build_all()[name]["path"])
 
 

@@ -603,12 +603,12 @@ def _lane_scan_feasibility(cluster, candidates, u: UnionSweep, singleton: bool) 
     State; a lane is feasible when none of its pods fails, no claim slot
     overflows and at most one claim opens."""
     st_b, xs, valid_b, lane_pods, relax = lane_scan_args(cluster, candidates, u, singleton)
-    st_out, kinds, _, over, steps = K.scan_lanes(u.tb, st_b, xs, valid_b, relax)
+    st_out, kinds, _, over, odo = K.scan_lanes(u.tb, st_b, xs, valid_b, relax)
     kinds = kinds.cpu().numpy()[:, : lane_pods.shape[1]]
     over = over.cpu().numpy()
     n_claims = st_out.n_claims.cpu().numpy()
     last_sweep.clear()
-    last_sweep.update(path="sweep_vmap", lanes=len(candidates), steps=int(steps.sum()))
+    last_sweep.update(path="sweep_vmap", lanes=len(candidates), steps=int(odo.steps.sum()))
     return [
         not bool(over[k]) and int(n_claims[k]) <= 1 and not np.any((kinds[k] == K.KIND_FAIL) & lane_pods[k])
         for k in range(len(candidates))

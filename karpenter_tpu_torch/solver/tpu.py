@@ -19,7 +19,9 @@ of `oracle.Scheduler` the same way. A solve runs
      grows from N to 2N slots (`_grow`) and the round goes on from there;
    - the scan path otherwise (or with `debug_force_scan`): `_pod_xs`,
      then `tpu_kernel.solve_scan` (kernel K2, `scan_step`); an overflow
-     doubles N and re-solves from scratch,
+     doubles N and re-solves from scratch. With a `fleet` coalescer the
+     scan path first offers itself to a batch window (solver/fleet.py),
+     whose lanes share one K7 launch per round,
 5. `_decode` back to Results, fetching the live claim rows (deduplicated by
    `dedup_rows`, kernel K5, from `_DEDUP_DECODE_MIN` slots up) and writing
    claims, existing-node usage, pool limits and topology counts onto the
@@ -433,12 +435,23 @@ def _new_odo_totals() -> dict:
 
 
 def _fold_odo(totals: dict, odo: K.Odometer) -> None:
+    """Fold one dispatch's odometer into the solve totals."""
     totals["steps"] += int(odo.steps)
     totals["bulk_steps"] += int(odo.bulk_steps)
     totals["tier_steps"] += int(odo.tier_steps)
     for t, v in enumerate(odo.tier_hist.tolist()):
         totals["tier_hist"][t] += v
     totals["dispatches"] += 1
+
+
+def _fold_totals(totals: dict, other: dict) -> None:
+    """Fold another accumulator (a fleet lane's rounds) into the totals."""
+    for k, v in other.items():
+        if k == "tier_hist":
+            for t, n in enumerate(v):
+                totals[k][t] += n
+        else:
+            totals[k] += v
 
 
 # ---------------------------------------------------------------------------
@@ -473,6 +486,7 @@ class TorchScheduler:
         daemonset_pods: Optional[list[Pod]] = None,
         options: Optional[SchedulerOptions] = None,
         device=None,
+        fleet=None,
     ):
         self.device = resolve_device(device)
         # reuse the oracle's init wholesale: template filtering, daemon
@@ -481,11 +495,22 @@ class TorchScheduler:
             node_pools, instance_types_by_pool, topology, state_nodes, daemonset_pods, options
         )
         self.opts = self.oracle.opts
-        # the last solve's kernel odometer (see _new_odo_totals), path and
-        # whether the tier loop ran
+        # fleet.FleetCoalescer (optional): scan-path solves offer themselves
+        # to its batch window and ride shared lane dispatches when siblings
+        # arrive; any None answer (no sibling, overflow, coalescing fault)
+        # runs the solo loop unchanged
+        self.fleet = fleet
+        # the last solve's kernel odometer (see _new_odo_totals), path,
+        # whether the tier loop ran, and its host phases in seconds (encode,
+        # order, tables: the tables, type screens, upload and bulk gates)
         self.last_odometer = None
         self.last_used_runs = False
+        self.last_used_fleet = False
         self.last_relax = False
+        self.last_phases = {}
+        # the fleet window of the last solve (mode, lanes, rounds,
+        # wait_seconds; set by the coalescer), None when it offered none
+        self.last_fleet = None
 
     # -- solve ----------------------------------------------------------
 
@@ -494,14 +519,18 @@ class TorchScheduler:
         callers fall back to the oracle."""
         if not pods:
             return Results(new_node_claims=[], existing_nodes=self.oracle.existing_nodes, pod_errors={})
+        t0 = time_mod.monotonic()
         problem = encode_problem(self.oracle, pods)
         deadline = (
             time_mod.monotonic() + self.opts.timeout_seconds if self.opts.timeout_seconds else None
         )
+        t1 = time_mod.monotonic()
         order = self._order_pods(problem)
+        t2 = time_mod.monotonic()
         tb = self._tables(problem)  # also sets self._typeok
         self._upload_pod_tables(problem)
         self._bulk_flags_c = _bulk_class_flags(problem, _bulk_gates(problem))
+        self.last_phases = {"encode": t1 - t0, "order": t2 - t1, "tables": time_mod.monotonic() - t2}
         # with no relaxable requirement class the kernels run without the
         # tier loop, exactly as for a preference-free problem
         relax = bool((problem.ntiers_r > 1).any())
@@ -521,6 +550,17 @@ class TorchScheduler:
         N = min(_pow2(max(64, (len(pods) + div - 1) // div)), _pow2(len(pods)))
         odo = _new_odo_totals()
         self.last_odometer = odo
+        # fleet coalescing (solver/fleet.py): the scan path only, as in the
+        # reference; the runs path's mid-round regrow is per lane
+        self.last_used_fleet = False
+        self.last_fleet = None
+        if self.fleet is not None and not use_runs:
+            got = self.fleet.solve_lane(self, problem, tb, order, N, relax, deadline)
+            if got is not None:
+                st, kinds, slots, timed_out, lane_odo = got
+                self.last_used_fleet = True
+                _fold_totals(odo, lane_odo)
+                return self._decode(problem, st, kinds, slots, timed_out)
         while True:
             st = self._init_state(problem, N)
             seq = torch.zeros(N, dtype=torch.int32, device=self.device)
@@ -798,14 +838,16 @@ class TorchScheduler:
         # through the exact step before the run cache builds
         self._aff_c = np.isin(p.ptopo_kind_c, (TOPO_AFFINITY_V, TOPO_AFFINITY_H)).any(axis=1)
 
-    def _pod_xs_with_idx(self, p: EncodedProblem, indices: list[int]):
-        """(PodX, idx_d): one round's PodX rows (pow2-padded; pads carry
-        pod 0's rows with valid=False), gathered on the device from the
-        round's one upload, the int32 index array idx_d, which the run
-        driver arrays (`_run_x`) derive from too."""
+    def _pod_xs_with_idx(self, p: EncodedProblem, indices: list[int], pad_to: int = 0):
+        """(PodX, idx_d): one round's PodX rows (pow2-padded, or to
+        `pad_to` when that is larger: a fleet window pads every lane to its
+        shared rung so the lanes stack; pads carry pod 0's rows with
+        valid=False), gathered on the device from the round's one upload,
+        the int32 index array idx_d, which the run driver arrays
+        (`_run_x`) derive from too."""
         d = self._dev_tables
         n = len(indices)
-        P_pad = _pow2(n)
+        P_pad = max(_pow2(n), pad_to)
         idx = np.zeros(P_pad, dtype=np.int32)
         idx[:n] = indices
         idx_d = torch.from_numpy(idx).to(self.device)

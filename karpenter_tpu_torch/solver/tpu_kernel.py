@@ -74,9 +74,14 @@ KIND_CLAIM = 1
 KIND_NEW = 2
 KIND_FAIL = 3
 
-# launches of the CUDA step kernels (one per solve_scan / scan_lanes call
-# on the card), counted apart for launches with the relax tier loop on
-LAUNCHES = {"scan_step": 0, "scan_step_relax": 0, "scan_lanes": 0, "scan_lanes_relax": 0}
+# launches of the CUDA step kernels (one per solve_scan / scan_lanes /
+# solve_scan_lanes call on the card), counted apart for launches with the
+# relax tier loop on; K7 counts the sweep's launches (scan_lanes) apart
+# from the fleet's (fleet_lanes)
+LAUNCHES = {
+    "scan_step": 0, "scan_step_relax": 0, "scan_lanes": 0, "scan_lanes_relax": 0,
+    "fleet_lanes": 0, "fleet_lanes_relax": 0,
+}
 
 # relax-tier odometer bins: a pod's trips at tier t land in bin
 # min(t, ODO_TIER_BINS - 1) (the reference's layout)
@@ -823,17 +828,35 @@ def solve_scan(tb: Tables, st: State, xs: PodX, relax: bool = False):
     return _launch_scan_step(tb, _clone_state(st), xs, relax)
 
 
-def _lane(st: State, b: int) -> State:
-    return State(*(Reqs(*(a[b] for a in f)) if isinstance(f, Reqs) else f[b] for f in st))
+def _lane_field(f, b: int):
+    return Reqs(*(a[b] for a in f)) if isinstance(f, Reqs) else f[b]
 
 
-def stack_lanes(states: list) -> State:
-    """States stacked on a new leading lane axis (a contiguous copy)."""
-    return State(
+def lane_slice(t, b: int):
+    """Lane b of a State or PodX whose every field has a leading lane axis."""
+    return type(t)(*(_lane_field(f, b) for f in t))
+
+
+def stack_lanes(items: list):
+    """States (or PodX batches) stacked on a new leading lane axis (a
+    contiguous copy)."""
+    return type(items[0])(
         *(
             Reqs(*(torch.stack(list(a)) for a in zip(*fs))) if isinstance(fs[0], Reqs) else torch.stack(list(fs))
-            for fs in zip(*states)
+            for fs in zip(*items)
         )
+    )
+
+
+def _stack_outs(outs: list):
+    """solve_scan tuples of B lanes -> (state [B, ...], kinds [B, P],
+    slots [B, P], overflowed [B], odometer with a leading lane axis)."""
+    return (
+        stack_lanes([o[0] for o in outs]),
+        torch.stack([o[1] for o in outs]),
+        torch.stack([o[2] for o in outs]),
+        torch.stack([o[3] for o in outs]),
+        Odometer(*(torch.stack(f) for f in zip(*(o[4] for o in outs)))),
     )
 
 
@@ -841,15 +864,10 @@ def scan_lanes_plain(tb: Tables, st: State, xs: PodX, valid, relax: bool = False
     """The plain version of the lane scan: lane b walks the batch `xs`
     over its own state (every field of `st` carries a leading lane axis)
     with its own valid row `valid[b]`, as `solve_scan_plain` does. Returns
-    (state [B, ...], kinds [B, P], slots [B, P], overflowed [B], steps
-    [B])."""
-    outs = [solve_scan_plain(tb, _lane(st, b), xs._replace(valid=valid[b]), relax) for b in range(valid.shape[0])]
-    return (
-        stack_lanes([o[0] for o in outs]),
-        torch.stack([o[1] for o in outs]),
-        torch.stack([o[2] for o in outs]),
-        torch.stack([o[3] for o in outs]),
-        torch.stack([o[4].steps for o in outs]),
+    (state [B, ...], kinds [B, P], slots [B, P], overflowed [B], odometer
+    [B] per field)."""
+    return _stack_outs(
+        [solve_scan_plain(tb, lane_slice(st, b), xs._replace(valid=valid[b]), relax) for b in range(valid.shape[0])]
     )
 
 
@@ -870,7 +888,38 @@ def scan_lanes(tb: Tables, st: State, xs: PodX, valid, relax: bool = False):
     dependent chain of K2's block reductions."""
     if st.rank.device.type == "cpu":
         return scan_lanes_plain(tb, st, xs, valid, relax)
-    return _launch_scan_lanes(tb, _clone_state(st), xs, valid, relax)
+    return _launch_lanes(tb, _clone_state(st), xs._replace(valid=valid), ("valid",), relax, "scan_lanes")
+
+
+def solve_scan_lanes_plain(tb: Tables, st: State, xs: PodX, relax: bool = False):
+    """The plain version of the fleet lanes: `solve_scan_plain` per lane,
+    each lane with its own State and PodX (every field of both carries a
+    leading lane axis); solve_scan_lanes's tuple."""
+    return _stack_outs(
+        [solve_scan_plain(tb, lane_slice(st, b), lane_slice(xs, b), relax) for b in range(st.rank.shape[0])]
+    )
+
+
+def solve_scan_lanes(tb: Tables, st: State, xs: PodX, relax: bool = False):
+    """One scan-path requeue round for B stacked fleet lanes: the tables
+    shared, each lane's own State and pod batch (every field of `st` and
+    `xs` with a leading lane axis). Returns (state [B, ...], kinds [B, P],
+    slots [B, P], overflowed [B], odometer with a leading lane axis), the
+    reference's `fleet_dispatch` tuple.
+
+    CPU tensors take the plain version. CUDA tensors launch K7
+    `scan_lanes` with a lane stride on every State and PodX field, which
+    updates a copy of `st` in place.
+
+    Replaces: karpenter_tpu/solver/fleet.py:164 `fleet_fn`
+    (`jit(vmap(solve_scan, in_axes=(None, 0, 0)))`), dispatched by
+    `fleet_dispatch` (:215).
+    Bound on an H100: bytes (the tables once, and each lane's State read
+    and written once, its pod rows read once, its kinds and slots
+    written); each lane is K2's dependent chain on its own SM."""
+    if st.rank.device.type == "cpu":
+        return solve_scan_lanes_plain(tb, st, xs, relax)
+    return _launch_lanes(tb, _clone_state(st), xs, PodX._fields, relax, "fleet_lanes")
 
 
 # ---------------------------------------------------------------------------
@@ -918,6 +967,14 @@ def checked_ptr(t: torch.Tensor, dtype: torch.dtype, device: torch.device, name:
 
 # dtypes of a Reqs row's fields, in Reqs._fields order
 REQS_DTYPES = (torch.int32, torch.int32, torch.bool, torch.bool, torch.bool, torch.int32, torch.int32, torch.int32)
+# dtypes of the PodX fields the step kernels read (preq is a Reqs row;
+# rrow and ntiers only with the relax tier loop)
+PODX_DTYPES = {
+    "prequests": torch.int32, "typeok": torch.int32, "tol_t": torch.bool, "tol_e": torch.bool,
+    "topo_kind": torch.int32, "topo_gid": torch.int32, "topo_sel": torch.bool, "sel_v": torch.bool,
+    "sel_h": torch.bool, "inv_h": torch.bool, "own_h": torch.bool, "valid": torch.bool,
+    "hp_own": torch.int32, "hp_conf": torch.int32, "rrow": torch.int32, "ntiers": torch.int32,
+}
 
 
 def step_arg_values(tb: Tables, st: State, xs: PodX, dev) -> dict:
@@ -979,12 +1036,9 @@ def step_arg_values(tb: Tables, st: State, xs: PodX, dev) -> dict:
     ):
         put(name, getattr(st, name), dtype)
     put_reqs("preq", xs.preq)
-    for name, dtype in (
-        ("prequests", i32), ("typeok", i32), ("tol_t", b8), ("tol_e", b8), ("topo_kind", i32),
-        ("topo_gid", i32), ("topo_sel", b8), ("sel_v", b8), ("sel_h", b8), ("inv_h", b8),
-        ("own_h", b8), ("valid", b8), ("hp_own", i32), ("hp_conf", i32),
-    ):
-        put(name, getattr(xs, name), dtype)
+    for name, dtype in PODX_DTYPES.items():
+        if name not in ("rrow", "ntiers"):
+            put(name, getattr(xs, name), dtype)
     return vals
 
 
@@ -1011,14 +1065,16 @@ def tier_arg_values(tb: Tables, xs: PodX, vals: dict, dev) -> None:
         ("rt_typeok", i32), ("rt_tol_t", b8), ("rt_tol_e", b8), ("rt_kind", i32), ("rt_gid", i32), ("rt_sel", b8),
     ):
         vals[name] = checked_ptr(getattr(tb, name), dtype, dev, name)
-    vals["rrow"] = checked_ptr(xs.rrow, i32, dev, "rrow")
-    vals["ntiers"] = checked_ptr(xs.ntiers, i32, dev, "ntiers")
+    for name in ("rrow", "ntiers"):
+        vals[name] = checked_ptr(getattr(xs, name), i32, dev, name)
     vals.update(L=L, NRX=NRX, relax=1)
 
 
 def counters_odometer(counters: torch.Tensor, dev) -> Odometer:
-    """The Odometer of a step kernel's counter block (N_COUNTERS)."""
-    return odometer(counters[1], counters[2], dev, counters[5], counters[6:])
+    """The Odometer of a step kernel's counter block ([N_COUNTERS], or
+    [B, N_COUNTERS] for B lanes: then every field has a leading lane
+    axis)."""
+    return odometer(counters[..., 1], counters[..., 2], dev, counters[..., 5], counters[..., 6:])
 
 
 def step_args(name: str, args_type, vals: dict):
@@ -1071,20 +1127,26 @@ def _scan_lanes_library():
     return lib, args_type
 
 
-def _launch_scan_lanes(tb: Tables, st: State, xs: PodX, valid, relax: bool):
-    """Launch scan_lanes over valid.shape[0] lanes on `st` (every field
-    with a leading lane axis, updated in place); returns the scan_lanes
-    tuple. The kernel reads StepArgs at lane 0's addresses and a
-    per-field lane stride (csrc/step.cuh LaneStrides)."""
+def _launch_lanes(tb: Tables, st: State, xs: PodX, lane_fields, relax: bool, key: str):
+    """Launch scan_lanes over st's lanes on `st` (every field with a
+    leading lane axis, updated in place); `xs`'s fields named in
+    `lane_fields` carry a leading lane axis too, the others are shared by
+    every lane. Returns the solve_scan_lanes tuple and counts the launch
+    under LAUNCHES[key] (key + "_relax" with the tier loop). The kernel
+    reads StepArgs at lane 0's addresses and a per-field lane stride
+    (csrc/step.cuh LaneStrides; 0 for a shared field)."""
     lib, args_type = _scan_lanes_library()
     dev = st.rank.device
-    B, P = valid.shape
-    if xs.valid.shape[0] != P:
-        raise ValueError(f"scan_lanes: valid has {P} positions, the batch {xs.valid.shape[0]}")
-    lane0 = _lane(st, 0)
-    vals = step_arg_values(tb, lane0, xs, dev)
+    B = st.rank.shape[0]
+    xs0 = PodX(*(_lane_field(f, 0) if name in lane_fields else f for name, f in zip(PodX._fields, xs)))
+    P = xs0.valid.shape[0]
+    for name, f in zip(PodX._fields, xs0):
+        if (f.mask if isinstance(f, Reqs) else f).shape[:1] != (P,):
+            raise ValueError(f"{key}: PodX.{name} does not have the batch's {P} positions")
+    lane0 = lane_slice(st, 0)
+    vals = step_arg_values(tb, lane0, xs0, dev)
     if relax:
-        tier_arg_values(tb, xs, vals, dev)
+        tier_arg_values(tb, xs0, vals, dev)
     N = lane0.active.shape[0]
     kinds = torch.empty((B, P), dtype=torch.int32, device=dev)
     slots = torch.empty((B, P), dtype=torch.int32, device=dev)
@@ -1094,7 +1156,7 @@ def _launch_scan_lanes(tb: Tables, st: State, xs: PodX, valid, relax: bool):
 
     def put_lane(name, t, dtype):
         if t.shape[0] != B:
-            raise ValueError(f"scan_lanes: {name} has {t.shape[0]} lanes, expected {B}")
+            raise ValueError(f"{key}: {name} has {t.shape[0]} lanes, expected {B}")
         vals[name] = checked_ptr(t, dtype, dev, name)
         strides[name] = t[0].numel()
 
@@ -1109,7 +1171,12 @@ def _launch_scan_lanes(tb: Tables, st: State, xs: PodX, valid, relax: bool):
         ("trem", i32), ("v_cnt", i32), ("h_cnt", i32), ("rescap", i32), ("held", i32), ("hp_used", i32),
     ):
         put_lane(name, getattr(st, name), dtype)
-    put_lane("valid", valid, b8)
+    for name in lane_fields:
+        if name == "preq":
+            for field, t, dtype in zip(Reqs._fields, xs.preq, REQS_DTYPES):
+                put_lane(f"preq_{field}", t, dtype)
+        elif relax or name not in ("rrow", "ntiers"):
+            put_lane(name, getattr(xs, name), PODX_DTYPES[name])
     put_lane("kinds", kinds, i32)
     put_lane("slots", slots, i32)
     put_lane("counters", counters, i32)
@@ -1123,5 +1190,5 @@ def _launch_scan_lanes(tb: Tables, st: State, xs: PodX, valid, relax: bool):
     stream = torch.cuda.current_stream(dev).cuda_stream
     code = lib.scan_lanes_launch(ctypes.byref(args), ctypes.byref(lane_strides), B, ctypes.c_void_p(stream))
     _build.check_launch("scan_lanes", code)
-    LAUNCHES["scan_lanes_relax" if relax else "scan_lanes"] += 1
-    return st, kinds, slots, counters[:, 0] != 0, counters[:, 1]
+    LAUNCHES[key + "_relax" if relax else key] += 1
+    return st, kinds, slots, counters[:, 0] != 0, counters_odometer(counters, dev)

@@ -321,11 +321,12 @@ def test_lane_scan_path_matches_reference(fleet, monkeypatch):
     assert len(captured) == 2
     relax = False  # the fleets carry no preferences
     for args, (st_out, kinds, slots, over, odo) in captured:
-        g_st, g_kinds, g_slots, g_over, g_steps = PK.scan_lanes_plain(*_lane_inputs(args), relax)
+        g_st, g_kinds, g_slots, g_over, g_odo = PK.scan_lanes_plain(*_lane_inputs(args), relax)
         assert np.array_equal(g_kinds.numpy(), np.asarray(kinds))
         assert np.array_equal(g_slots.numpy(), np.asarray(slots))
         assert np.array_equal(g_over.numpy(), np.asarray(over))
-        assert np.array_equal(g_steps.numpy(), np.asarray(odo.steps))
+        for f in ("steps", "tier_steps", "tier_hist"):
+            assert np.array_equal(getattr(g_odo, f).numpy(), np.asarray(getattr(odo, f))), f
         assert_tree_equal(st_out, g_st, "st_out")
 
 
