@@ -29,7 +29,16 @@ PyTorch version on the card, bit for bit:
   do not; K7 scan_lanes (prefix and singleton lanes) on 64 candidates of a
   2000-node fleet whose riders carry a zone spread;
 - K7 scan_lanes as the fleet launch (a lane stride on every pod field) on
-  the first 256 positions of 8 fleet lanes of 2000 pods, relax off and on.
+  the first 128 positions of 8 fleet lanes of 2000 pods, relax off and on;
+- K3 and K2 at full size on the screens the headline bypasses (2000 pods
+  beside 300 existing nodes: host ports, a pool limit, reservations,
+  minValues; and existing-node windows) and on a 2048-type catalog whose
+  type tables spill from shared to device memory.
+
+It prints the per-phase clock breakdown of K3 (the headline's and c6's two
+dispatches) and K2 (a 2048-pod headline prefix), each profiled launch held
+bit for bit to the same launch without it, and where each launch table
+lived (shared or device memory).
 
 Then it drives the provisioning solve end to end, each path with the launch
 counts set to 0 just before and read just after: the headline
@@ -48,7 +57,7 @@ pods each and a window of 4 lanes with preference ladders, through
 TorchScheduler(fleet=FleetCoalescer), every lane coalesced (one K7 launch
 per round) and equal to its solo solve through K2, and an overflowing lane
 that leaves its window. It checks decisions against the port's oracle on
-ten problems, and prints:
+twelve problems, and prints:
 
 - the card's name and power limit (nvidia-smi),
 - one JSON line {"kernels": [...]} with each kernel's launches on its path,
@@ -96,7 +105,7 @@ SET_LANES = 1024
 # 64 lanes x 64 union pods is the reference's 4096 limit
 LANE_CANDIDATES = 64
 RIDER_SPREAD = 4
-REFEREE_SEEDED = 16  # seeded lanes of each kind held against the referee
+REFEREE_SEEDED = 8  # seeded lanes of each kind held against the referee
 PAST_EDGE = 4  # spread-fleet prefix lanes held past the last verdict change
 # the leftover fleet: riders as large as the seeds fill every node, so each
 # lane's riders and the pending pods (which fit no node) are left over for
@@ -111,11 +120,19 @@ FLEET_WINDOWS = (2, 5, 8)  # lanes per window, relax off
 FLEET_RELAX_LANES = 4  # a window whose lanes add the same preference pods
 FLEET_PREF_PODS = 200
 FLEET_PREF_SEED = 7
-FLEET_CHECK_POSITIONS = 256  # FFD positions of each lane K7 is held to its plain version on
+FLEET_CHECK_POSITIONS = 128  # FFD positions of each lane K7 is held to its plain version on
 FLEET_CHECK_LANES = 8
 FLEET_ORACLE_LANES = (0, 7)  # lanes of the widest window held against the oracle
 FLEET_OVERFLOW = (80, ("100m", "200m", "4100m"))  # pods per lane; the last lane needs a node per pod
 FLEET_WINDOW_SECONDS = 10.0
+# the full-size problems (full_world): a pending backlog beside a few
+# hundred existing nodes on the headline's 500 types
+FULL_PODS = 2000
+FULL_NODES = 300
+# a catalog too large for the type tables' shared memory (the kernels then
+# read the mask words and offerings from device memory)
+LARGE_CATALOG_TYPES = 2048
+LARGE_CATALOG_PODS = 512
 FLEET_JOIN_SECONDS = 300.0
 # the device functions of K6 and K8, as the profiler names them
 SWEEP_KERNELS = ("sweep_cache_kernel", "fast_sweep_lanes", "set_sweep_lanes")
@@ -395,6 +412,103 @@ def mixed_bulk_world(n_pref: int = 0) -> World:
     return World(pools, ibp, pods, views, None, Topology(pools, ibp, pods, state_node_views=views))
 
 
+def full_world(screens: bool, n_pods: int = FULL_PODS, n_nodes: int = FULL_NODES) -> World:
+    """The screens the headline bypasses, at a realistic size (built like
+    mixed_bulk_world, reserved_world and min_values_world): `n_nodes`
+    existing nodes of the headline's types at half their capacity (one
+    holding host port 443), a default pool beside a tainted pool, and the
+    diverse mix with host-port pods (half of them tolerating the taint),
+    preference pods and pods that prefer two instance types. With
+    `screens`, four types carry reserved offerings (capacity 2) and the
+    default pool minValues=3 on the instance type (the narrow pods' first
+    tier then fails minValues) and a cpu limit of 18000 cores, of which
+    its existing nodes hold 13937: about 40 claims open before it binds.
+    Those fail the bulk gates, so the solve takes the scan path. Without,
+    it takes the runs path with existing-node windows."""
+    from karpenter_tpu_torch.api import labels as wk
+    from karpenter_tpu_torch.api.objects import (
+        NodeAffinity, NodeSelectorRequirement, NodeSelectorTerm, Operator, PreferredSchedulingTerm, Taint,
+        TaintEffect, Toleration,
+    )
+    from karpenter_tpu_torch.cloudprovider.kwok import KWOK_ZONES
+    from karpenter_tpu_torch.cloudprovider.types import Offering
+    from karpenter_tpu_torch.scheduling import Requirement, Requirements
+    from karpenter_tpu_torch.solver.nodes import StateNodeView
+    from karpenter_tpu_torch.solver.oracle import SchedulerOptions
+    from karpenter_tpu_torch.solver.topology import Topology
+    from karpenter_tpu_torch.testing import fixtures
+
+    fixtures.reset_rng(17)
+    its = build_universe(HEADLINE_TYPES)
+    for j, it in enumerate(its[:4] if screens else []):
+        it.offerings.append(
+            Offering(
+                requirements=Requirements(
+                    [
+                        Requirement(wk.TOPOLOGY_ZONE_LABEL_KEY, Operator.IN, [KWOK_ZONES[j % 2]]),
+                        Requirement(wk.CAPACITY_TYPE_LABEL_KEY, Operator.IN, ["reserved"]),
+                        Requirement(wk.RESERVATION_ID_LABEL_KEY, Operator.IN, [f"res-{j}"]),
+                    ]
+                ),
+                price=0.001,
+                available=True,
+                reservation_capacity=2,
+            )
+        )
+    taint = Taint("smoke.io/team", TaintEffect.NO_SCHEDULE, "a")
+    default = (
+        fixtures.node_pool(
+            name="default",
+            limits={"cpu": "18000"},
+            requirements=[NodeSelectorRequirement(wk.INSTANCE_TYPE_LABEL_KEY, Operator.EXISTS, min_values=3)],
+        )
+        if screens
+        else fixtures.node_pool(name="default")
+    )
+    pools = [default, fixtures.node_pool(name="dedicated", weight=10, taints=[taint])]
+    ibp = {p.name: its for p in pools}
+    views = []
+    for vi in range(n_nodes):
+        it = its[(vi * 37 + 11) % len(its)]
+        name = f"smoke-full-node-{vi}"
+        labels = {
+            wk.TOPOLOGY_ZONE_LABEL_KEY: KWOK_ZONES[vi % len(KWOK_ZONES)],
+            wk.HOSTNAME_LABEL_KEY: name,
+            wk.INSTANCE_TYPE_LABEL_KEY: it.name,
+            wk.CAPACITY_TYPE_LABEL_KEY: "on-demand",
+            wk.OS_LABEL_KEY: "linux",
+            wk.ARCH_LABEL_KEY: "amd64",
+            wk.NODEPOOL_LABEL_KEY: "default",
+        }
+        v = StateNodeView(
+            name=name,
+            node_labels={wk.TOPOLOGY_ZONE_LABEL_KEY: labels[wk.TOPOLOGY_ZONE_LABEL_KEY]},
+            labels=labels,
+            available={k: q // 2 for k, q in it.allocatable().items()},
+            capacity=dict(it.capacity),
+            initialized=True,
+        )
+        if vi == 0:
+            v.host_port_usage.add(fixtures.pod(name="smoke-full-squat"), [("0.0.0.0", "TCP", 443)])
+        views.append(v)
+    n_port, n_narrow, n_pref = 60, 40, 40
+    pods = fixtures.make_diverse_pods(n_pods - n_port - n_narrow - n_pref)
+    for i in range(n_port):
+        tol = [Toleration(key="smoke.io/team", operator="Exists")] if i % 2 else None
+        p = fixtures.pod(name=f"smoke-full-port-{i}", requests={"cpu": "500m", "memory": "256Mi"}, tolerations=tol)
+        p.host_ports = [("0.0.0.0", "TCP", 443 if i % 3 == 0 else 8080)]
+        pods.append(p)
+    two = [its[0].name, its[5].name]
+    for i in range(n_narrow):
+        p = fixtures.pod(name=f"smoke-full-narrow-{i}", requests={"cpu": "100m"})
+        term = NodeSelectorTerm(match_expressions=[NodeSelectorRequirement(wk.INSTANCE_TYPE_LABEL_KEY, Operator.IN, two)])
+        p.node_affinity = NodeAffinity(preferred=[PreferredSchedulingTerm(weight=5, preference=term)])
+        pods.append(p)
+    pods += fixtures.make_preference_pods(n_pref)
+    options = SchedulerOptions(reserved_capacity_enabled=True) if screens else None
+    return World(pools, ibp, pods, views, options, Topology(pools, ibp, pods, state_node_views=views))
+
+
 def scheduler_for(world: World, dev):
     from karpenter_tpu_torch.solver.tpu import TorchScheduler
 
@@ -547,10 +661,11 @@ class RunsRound(NamedTuple):
     relax: bool
 
 
-def runs_round(world: World, dev, claim_slot_div: Optional[int] = None) -> RunsRound:
+def runs_round(world: World, dev, claim_slot_div: Optional[int] = None, exact_only: bool = False) -> RunsRound:
     """(tb, state, seq, RunX) of a world's first runs-path dispatch, built
     the way TorchScheduler.solve builds it (the run arrays through K4 on
-    the card)."""
+    the card). With `exact_only` a world no class of which passes the bulk
+    gates still gets a round: every pod takes K3's exact step."""
     import torch
 
     from karpenter_tpu_torch.solver import tpu as T
@@ -562,7 +677,7 @@ def runs_round(world: World, dev, claim_slot_div: Optional[int] = None) -> RunsR
     tb = sched._tables(problem)
     sched._upload_pod_tables(problem)
     sched._bulk_flags_c = T._bulk_class_flags(problem, T._bulk_gates(problem))
-    if not sched._bulk_flags_c.any():
+    if not (sched._bulk_flags_c.any() or exact_only):
         raise RuntimeError("runs_round: no pod class passes the bulk gates")
     sched._set_runflags_dev()
     div = claim_slot_div or max(1, int(sched.opts.claim_slot_div))
@@ -655,6 +770,198 @@ def phase_breakdown(world, dev) -> dict:
         raise RuntimeError("phase breakdown needs a one-round solve")
     sched._decode(problem, st, kinds, slots, False)
     mark("dedup_decode")
+    return out
+
+
+def clock_breakdown(kernel: str, launches, mismatches, dev) -> tuple[dict, list]:
+    """The per-phase clock breakdown (csrc/step.cuh prof_mark) of a run of
+    launches of `kernel`, each a function of its prof buffer (None: off),
+    summed over the run. Every profiled launch is held bit for bit to the
+    same launch without the breakdown. Returns ({"cycles", "ms",
+    "clock_mhz", "phases": {phase: {cycles, entries, us, share}}}, the
+    mismatched fields)."""
+    import torch
+
+    from karpenter_tpu_torch.solver import tpu_kernel as K
+
+    total, bad = None, []
+    for launch in launches:
+        prof = K.prof_buffer(kernel, dev)
+        got = launch(prof)
+        want = launch(None)
+        torch.cuda.synchronize()
+        bad += mismatches(got, want)
+        total = prof if total is None else total + prof
+    b = K.breakdown(kernel, total)
+    cyc_per_us = b["cycles"] / max(b["ns"], 1) * 1e3
+    phases = {
+        p: {"cycles": c, "entries": n, "us": round(c / cyc_per_us, 3), "share": round(c / max(b["cycles"], 1), 4)}
+        for p, (c, n) in b["phases"].items()
+        if n
+    }
+    return {"cycles": b["cycles"], "ms": b["ns"] / 1e6, "clock_mhz": round(cyc_per_us, 1), "phases": phases}, bad
+
+
+def runs_checked(world: World, dev, exact_only: bool = False) -> dict:
+    """Every runs-path dispatch of a world's first round (the state grown
+    on each overflow, as TorchScheduler.solve does), each K3 launch held bit
+    for bit to its plain version. Returns the mismatched fields, each
+    dispatch's (steps, bulk_steps, tier_steps), the kernel's and the plain
+    version's ms summed over the dispatches, the last launch's table layout
+    and the final kinds."""
+    import torch
+
+    from karpenter_tpu_torch import device as D
+    from karpenter_tpu_torch.solver import tpu_kernel as K
+    from karpenter_tpu_torch.solver import tpu_runs as KR
+
+    rr = runs_round(world, dev, exact_only=exact_only)
+    st, seq, N, offset = rr.st, rr.seq, rr.st.active.shape[0], 0
+    nseq = torch.zeros((), dtype=torch.int32, device=dev)
+    out = {"bad": [], "steps": [], "ms": 0.0, "plain_ms": 0.0, "kinds": []}
+    while True:
+        batch = rr.order[offset:]
+        rx = rr.rx
+        if offset:
+            xs_b, idx_b = rr.sched._pod_xs_with_idx(rr.problem, batch)
+            rx = rr.sched._run_x(xs_b, idx_b, len(batch))
+        args = (rr.tb, st, rx, seq, nseq, len(batch), rr.relax)
+        got = KR.solve_runs(*args)
+        out["layout"] = K.last_layout("run_step")
+        t0 = time.monotonic()
+        want = KR.solve_runs_plain(*args)
+        torch.cuda.synchronize()
+        out["plain_ms"] += (time.monotonic() - t0) * 1e3
+        out["bad"] += runs_mismatches(got, want)
+        out["ms"] += cuda_ms(lambda: KR.solve_runs(*args), 2)
+        out["steps"].append([int(got[6].steps), int(got[6].bulk_steps), int(got[6].tier_steps)])
+        done = int(got[7]) if bool(got[5]) else len(batch)
+        out["kinds"] += got[3][:done].cpu().tolist()
+        if not bool(got[5]):
+            out["held_bits"] = int(D.popcount(got[0].held).sum())
+            break
+        st, seq = rr.sched._grow(rr.problem, got[0], got[1], N)
+        N, offset, nseq = 2 * N, offset + done, got[2]
+    out.update(relax=rr.relax, E=rr.st.eavail.shape[0], N0=rr.st.active.shape[0], HPW=rr.st.hp_used.shape[1],
+               NRES=rr.st.rescap.shape[0], I=rr.tb.ialloc.shape[0], O=rr.tb.otype.shape[0],
+               TW=rr.tb.va.full_mask.shape[0])
+    return out
+
+
+def scan_checked(world: World, dev, n_slots: int) -> dict:
+    """K2 over a world's whole first round with `n_slots` claim slots (the
+    tier loop on when the round has tiers), held bit for bit to its plain
+    version."""
+    import torch
+
+    from karpenter_tpu_torch.solver import tpu_kernel as K
+
+    tb, st, xs = step_inputs(world, dev, N=n_slots)
+    relax = bool((xs.ntiers > 1).any())
+    got = K.solve_scan(tb, st, xs, relax=relax)
+    layout = K.last_layout("scan_step")
+    t0 = time.monotonic()
+    want = K.solve_scan_plain(tb, st, xs, relax=relax)
+    torch.cuda.synchronize()
+    plain_ms = (time.monotonic() - t0) * 1e3
+    return {
+        "bad": scan_mismatches(got, want), "relax": relax, "P": xs.valid.shape[0], "N": n_slots,
+        "over": bool(got[3]), "tier_steps": int(got[4].tier_steps), "layout": layout,
+        "ms": cuda_ms(lambda: K.solve_scan(tb, st, xs, relax=relax), 2), "plain_ms": plain_ms,
+    }
+
+
+def full_size_phase(dev) -> Optional[dict]:
+    """The screens the headline bypasses at full size, with the solves'
+    decisions equal to the port's oracle: the screens world (pool limit,
+    reservations, minValues; the bulk gates send its solve down the scan
+    path) through K2 (the whole round) and K3 (every dispatch, every pod on
+    its exact step), each held bit for bit to its plain version; and the
+    bulk world (existing-node windows) through K3 against its plain version,
+    its runs-path and forced-scan solves against the oracle. Then a catalog of LARGE_CATALOG_TYPES types, whose type
+    tables do not all fit the shared memory, through both kernels against
+    their plain versions. Returns the phase's numbers, or None when
+    anything disagrees."""
+    from karpenter_tpu_torch.solver import tpu_kernel as K
+    from karpenter_tpu_torch.solver import tpu_runs as KR
+    from karpenter_tpu_torch.solver.oracle import Scheduler
+    from karpenter_tpu_torch.solver.tpu_problem import _pow2
+
+    t_phase = time.monotonic()
+    out = {}
+    for label, screens in (("screens", True), ("bulk", False)):
+        k3 = runs_checked(full_world(screens), dev, exact_only=screens)
+        kinds = k3.pop("kinds")
+        log(
+            f"K3 run_step full-size {label} ({FULL_PODS} pods, E={k3['E']}, HPW={k3['HPW']}, NRES={k3['NRES']}, "
+            f"relax={k3['relax']}, N0={k3['N0']}, held reservations {k3['held_bits']}): dispatches "
+            f"(steps, bulk, tier) {k3['steps']}, "
+            f"kinds(existing/claim/new/fail)={[kinds.count(k) for k in range(4)]}, kernel {k3['ms']:.3f} ms, "
+            f"plain {k3['plain_ms']:.1f} ms, tables {k3['layout']}, mismatches={k3['bad'] or 'none'}"
+        )
+        # K2 against its plain version where it is the main path (the screens
+        # world); the bulk world's forced scan solve is held to the oracle
+        k2 = scan_checked(full_world(screens), dev, _pow2(FULL_PODS)) if screens else None
+        if k2:
+            log(
+                f"K2 scan_step full-size {label} (P={k2['P']}, N={k2['N']}, relax={k2['relax']}, over={k2['over']}, "
+                f"tier_steps={k2['tier_steps']}): kernel {k2['ms']:.3f} ms, plain {k2['plain_ms']:.1f} ms, "
+                f"tables {k2['layout']}, mismatches={k2['bad'] or 'none'}"
+            )
+            if k2["bad"] or k2["over"]:
+                return None
+        if k3["bad"] or kinds.count(K.KIND_EXISTING) == 0 or kinds.count(K.KIND_NEW) == 0:
+            return None
+        ow = full_world(screens)
+        oracle = Scheduler(ow.pools, ow.ibp, ow.topo, ow.views, None, ow.options)
+        want = results_snapshot(oracle.solve(ow.pods), ow.pods)
+        for force in (False,) if screens else (False, True):
+            sched, pods = scheduler_for(full_world(screens), dev)
+            sched.debug_force_scan = force
+            reset_launches()
+            got = results_snapshot(sched.solve(pods), pods)
+            launches = {k: v for c in (K.LAUNCHES, KR.LAUNCHES) for k, v in c.items() if v}
+            log(
+                f"oracle parity, full-size {label}{' (forced scan)' if force else ''}: "
+                f"{'equal' if got == want else 'DIFFERENT'} ({len(want[0])} claims, {len(want[1])} existing nodes "
+                f"used, {len(want[2])} errors; runs path={sched.last_used_runs}, relax={sched.last_relax}, "
+                f"launches {launches})"
+            )
+            runs = not (screens or force)
+            kernel = ("run_step" if runs else "scan_step") + ("_relax" if sched.last_relax else "")
+            if got != want or sched.last_used_runs != runs or not launches.get(kernel):
+                return None
+        out[label] = {"k3": k3, "k2": k2}
+    # the large catalog: tables past the shared-memory budget
+    k3l = runs_checked(headline_world(LARGE_CATALOG_PODS, build_universe(LARGE_CATALOG_TYPES)), dev)
+    k3l.pop("kinds")
+    k2l = scan_checked(headline_world(LARGE_CATALOG_PODS, build_universe(LARGE_CATALOG_TYPES)), dev,
+                       _pow2(LARGE_CATALOG_PODS))
+    log(
+        f"large catalog (I={k3l['I']}, O={k3l['O']}, TW={k3l['TW']}, {LARGE_CATALOG_PODS} pods): K3 dispatches "
+        f"{k3l['steps']} kernel {k3l['ms']:.3f} ms, tables {k3l['layout']}, mismatches={k3l['bad'] or 'none'}; "
+        f"K2 kernel {k2l['ms']:.3f} ms, tables {k2l['layout']}, mismatches={k2l['bad'] or 'none'}"
+    )
+    spilled = not all(k3l["layout"]["shared"].values()) and not all(k2l["layout"]["shared"].values())
+    if k3l["bad"] or k2l["bad"] or k2l["over"] or not spilled:
+        return None
+    out.update(large_k3=k3l, large_k2=k2l, seconds=time.monotonic() - t_phase)
+    log(f"full-size phase: {out['seconds']:.1f}s")
+    return out
+
+
+def ptxas_lines(log_text: str) -> list[str]:
+    """Each kernel's and device function's registers, stack, spills and
+    shared memory from nvcc's -Xptxas -v output, one line per function."""
+    out, name = [], None
+    for line in log_text.splitlines():
+        line = line.strip()
+        if "Function properties for" in line:
+            name = line.split("Function properties for", 1)[1].strip()
+        elif name and ("stack frame" in line or "registers" in line):
+            out.append(f"{name}: {line.replace('ptxas info    : ', '')}")
+        elif "error" in line.lower():
+            out.append(line)
     return out
 
 
@@ -1355,9 +1662,8 @@ def main() -> int:
     log(f"build: {time.monotonic() - t0:.1f}s wall for {len(built)} libraries (parallel nvcc)")
     for name, info in built.items():
         log(f"  {name}: {info['seconds']:.1f}s")
-        for line in info["log"].splitlines():
-            if "registers" in line or "spill" in line or "error" in line.lower():
-                log(f"    {line.strip()}")
+        for line in ptxas_lines(info["log"]):
+            log(f"    {line}")
 
     # ---- 2. the card ----
     smi = subprocess.run(
@@ -1441,11 +1747,13 @@ def main() -> int:
         bad.append("kinds/slots")
     if bool(over_k) != bool(over_p) or int(odo_k.steps) != int(odo_p.steps):
         bad.append("overflow/steps")
+    k2_layout = K.last_layout("scan_step")
     log(
         f"K2 scan_step headline prefix (P={P_h}, N={st_h.active.shape[0]}): kernel {k2_ms:.3f} ms, "
-        f"plain {k2_plain_ms:.1f} ms, mismatches={bad or 'none'}"
+        f"plain {k2_plain_ms:.1f} ms, tables {k2_layout}, mismatches={bad or 'none'}"
     )
-    if bad:
+    # at the headline's shapes every type table lives in shared memory
+    if bad or not all(k2_layout["shared"].values()):
         return 1
     # the least time for the same work: every input read once, the state
     # and the outputs written once, and the (pod, open claim) pairs the
@@ -1510,13 +1818,14 @@ def main() -> int:
     k3_plain_ms += (time.monotonic() - t0) * 1e3
     bad += runs_mismatches(got2, want2)
     k3_ms = cuda_ms(lambda: KR.solve_runs(*first_args), 3) + cuda_ms(lambda: KR.solve_runs(*cont_args), 3)
+    k3_layout = K.last_layout("run_step")
     log(
         f"K3 run_step headline: dispatch 1 N={N1} stops at ptr={ptr1} (steps={int(got1[6].steps)}, "
         f"bulk_steps={int(got1[6].bulk_steps)}); dispatch 2 N={2 * N1} over {len(batch)} pods "
         f"(steps={int(got2[6].steps)}, bulk_steps={int(got2[6].bulk_steps)}, over={bool(got2[5])}); "
-        f"kernel {k3_ms:.3f} ms, plain {k3_plain_ms:.1f} ms, mismatches={bad or 'none'}"
+        f"kernel {k3_ms:.3f} ms, plain {k3_plain_ms:.1f} ms, tables {k3_layout}, mismatches={bad or 'none'}"
     )
-    if bad:
+    if bad or not all(k3_layout["shared"].values()):
         return 1
     k3_iters = int(got1[6].steps) + int(got2[6].steps)
     R_h = rr.tb.ialloc.shape[1]
@@ -1826,6 +2135,24 @@ def main() -> int:
     if bad or not bool(got61[5]):
         return 1
     R6 = rr6.tb.ialloc.shape[1]
+
+    # ---- 10b. the per-phase clock breakdown of K3 and K2 ----
+    # each profiled launch is held bit for bit to the same launch without it
+    t0 = time.monotonic()
+    bd_bad = []
+    for label, kernel, launches_, mism in (
+        ("K3 headline", "run_step", [lambda p, a=a: KR.solve_runs(*a, prof=p) for a in (first_args, cont_args)],
+         runs_mismatches),
+        ("K3+relax c6", "run_step", [lambda p, a=a: KR.solve_runs(*a, prof=p) for a in (first6, cont6)],
+         runs_mismatches),
+        ("K2 headline prefix", "scan_step", [lambda p: K.solve_scan(tb_h, st_h, xs_h, prof=p)], scan_mismatches),
+    ):
+        bd, bad = clock_breakdown(kernel, launches_, mism, dev)
+        bd_bad += bad
+        log(f"clock breakdown {label} ({kernel}; profiled vs plain launch: {bad or 'equal'}): {json.dumps(bd)}")
+    log(f"clock breakdown phase: {time.monotonic() - t0:.1f}s")
+    if bd_bad:
+        return 1
     k3r_bound, k3r_by = bound(
         nbytes(rr6.tb, rr6.st, rr6.rx) + nbytes(st62) + nbytes(rx62) + 2 * 4 * (n6 + len(batch6)),
         int(got61[6].steps) * N61 * (R6 + IW) + int(got62[6].steps) * 2 * N61 * (R6 + IW),
@@ -1925,6 +2252,11 @@ def main() -> int:
         )
         if not same:
             return 1
+
+    # ---- 11b. existing nodes, host ports, limits, reservations and
+    # minValues at full size; a catalog past the shared-memory budget ----
+    if full_size_phase(dev) is None:
+        return 1
 
     # ---- 12. the consolidation sweeps (K6, K7, K8) ----
     sweep_rows = sweep_phase(dev)

@@ -201,8 +201,6 @@ def sweep_library(name: str):
     getattr(lib, f"{name}_launch").argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
     getattr(lib, f"{name}_sweep_field_names").restype = ctypes.c_char_p
     getattr(lib, f"{name}_sweep_args_size").restype = ctypes.c_int
-    getattr(lib, f"{name}_scratch_bytes").argtypes = [ctypes.c_void_p]
-    getattr(lib, f"{name}_scratch_bytes").restype = ctypes.c_longlong
     ptrs, ints = getattr(lib, f"{name}_sweep_field_names")().decode().split("|")
     fields = [(n, ctypes.c_void_p) for n in ptrs.split(",") if n]
     fields += [(n, ctypes.c_int) for n in ints.split(",") if n]

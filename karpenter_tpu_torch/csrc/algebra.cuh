@@ -86,15 +86,6 @@ __device__ __forceinline__ bool compat_keys(u64 conflict, const RowKeys& ak, con
   return (conflict | def_fail) == 0;
 }
 
-// Keys whose combined Gt/Lt bounds collapse (max(gt) >= min(lt)).
-__device__ __forceinline__ u64 collapse_keys(const int* agt, const int* alt, const int* bgt,
-                                             const int* blt, int K) {
-  u64 c = 0;
-  for (int k = 0; k < K; ++k)
-    if (max(agt[k], bgt[k]) >= min(alt[k], blt[k])) c |= kbit(k);
-  return c;
-}
-
 __device__ __forceinline__ unsigned popc32(int x) { return __popc((unsigned)x); }
 
 }  // namespace ktpu

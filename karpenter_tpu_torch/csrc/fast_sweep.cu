@@ -16,7 +16,7 @@
 
 __global__ void __launch_bounds__(NT, 1) fast_sweep_lanes() {
   const int b = blockIdx.x, tid = threadIdx.x, E = A.E, R = A.R;
-  stage_vocab();
+  lane_prologue();
   int* av = SI32(avail) + (long long)b * E * R;
   for (int i = tid; i < E * R; i += NT) {
     const int j = SI32(cand_idx)[i / R];
@@ -33,6 +33,6 @@ extern "C" int fast_sweep_launch(const StepArgs* args, const SweepArgs* sargs, v
   cudaStream_t s = (cudaStream_t)stream;
   const int err = sweep_begin(args, sargs, s);
   if (err != 0) return err;
-  fast_sweep_lanes<<<sargs->B, NT, 0, s>>>();
+  fast_sweep_lanes<<<sargs->B, NT, SWEEP_LANE_SMEM, s>>>();
   return (int)cudaGetLastError();
 }

@@ -15,30 +15,37 @@
 // Bound on an H100: bytes (each lane reads its state rows and the shared
 // tables once per pod, hundreds of KB per lane at 2000 nodes). The lanes run
 // in parallel, one per SM; each is K2's dependent chain of barriers and
-// block reductions, so a lane's walk time is what the launch takes.
+// block reductions, so a lane's walk time is what the launch takes. Each
+// lane's CTA stages the type tables in its own shared memory (one CTA per
+// SM: up to 132 lanes run at once, more queue) and keeps its key masks in
+// its own slice of the scratch block (a lane stride, like the state's).
 #define KTPU_LANE_GRID
 #include "step.cuh"
 
 __global__ void __launch_bounds__(NT, 1) scan_lanes_kernel() { scan_walk(); }
 
-#define KTPU_NAME(name) #name ","
-static const char kFieldNames[] =
-    KTPU_STEP_PTR_FIELDS(KTPU_NAME) "|" KTPU_STEP_INT_FIELDS(KTPU_NAME);
-#undef KTPU_NAME
-
-extern "C" const char* scan_lanes_field_names() { return kFieldNames; }
-
-extern "C" int scan_lanes_args_size() { return (int)sizeof(StepArgs); }
+KTPU_STEP_EXPORTS(scan_lanes)
 
 extern "C" int scan_lanes_strides_size() { return (int)sizeof(LaneStrides); }
+
+// one lane's scratch block (the caller lays B of them one after another)
+extern "C" long long scan_lanes_scratch_bytes(const StepArgs* args) {
+  Carver c{nullptr, 0};
+  KeyCache kc;
+  return (long long)carve_key_cache(c, *args, kc);
+}
 
 extern "C" int scan_lanes_launch(const StepArgs* args, const LaneStrides* strides, int lanes, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (lanes <= 0) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaMemcpyToSymbolAsync(A, args, sizeof(StepArgs), 0, cudaMemcpyHostToDevice, s);
+  StepArgs a = *args;
+  size_t dyn = 0;
+  const int code = step_smem((const void*)scan_lanes_kernel, a, 1, false, &dyn);
+  if (code != 0) return code;
+  cudaError_t err = cudaMemcpyToSymbolAsync(A, &a, sizeof(StepArgs), 0, cudaMemcpyHostToDevice, s);
   if (err != cudaSuccess) return (int)err;
   err = cudaMemcpyToSymbolAsync(LS, strides, sizeof(LaneStrides), 0, cudaMemcpyHostToDevice, s);
   if (err != cudaSuccess) return (int)err;
-  scan_lanes_kernel<<<lanes, NT, 0, s>>>();
+  scan_lanes_kernel<<<lanes, NT, dyn, s>>>();
   return (int)cudaGetLastError();
 }

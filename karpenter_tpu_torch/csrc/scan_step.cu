@@ -12,27 +12,31 @@
 // the plain exact step and the tier counters stay 0.
 //
 // Bound on an H100: bytes. Per pod the claim screen reads the live claim
-// rows (N x (2 TW words + 5 K)), so at the headline shape a pod moves some
-// hundred KB that stay in the 50 MB L2; the real limit of this first
-// version is the per-pod latency of a single CTA's barriers and
-// reductions, which a later multi-CTA design attacks.
+// rows' cached key masks (and the words of the keys that can conflict), so
+// at the headline shape a pod moves some tens of KB that stay in the 50 MB
+// L2; the real limit is the per-pod latency of a single CTA's barriers and
+// dependent loads (step.cuh says what the design does about it). The
+// scratch block holds the claim slots' and existing nodes' key masks.
 #include "step.cuh"
 
 __global__ void __launch_bounds__(NT, 1) scan_step_kernel() { scan_walk(); }
 
-#define KTPU_NAME(name) #name ","
-static const char kFieldNames[] =
-    KTPU_STEP_PTR_FIELDS(KTPU_NAME) "|" KTPU_STEP_INT_FIELDS(KTPU_NAME);
-#undef KTPU_NAME
+KTPU_STEP_EXPORTS(scan_step)
 
-extern "C" const char* scan_step_field_names() { return kFieldNames; }
-
-extern "C" int scan_step_args_size() { return (int)sizeof(StepArgs); }
+extern "C" long long scan_step_scratch_bytes(const StepArgs* args) {
+  Carver c{nullptr, 0};
+  KeyCache kc;
+  return (long long)carve_key_cache(c, *args, kc);
+}
 
 extern "C" int scan_step_launch(const StepArgs* args, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  cudaError_t err = cudaMemcpyToSymbolAsync(A, args, sizeof(StepArgs), 0, cudaMemcpyHostToDevice, s);
-  if (err != cudaSuccess) return (int)err;
-  scan_step_kernel<<<1, NT, 0, s>>>();
+  StepArgs a = *args;
+  size_t dyn = 0;
+  const int err = step_smem((const void*)scan_step_kernel, a, 1, false, &dyn);
+  if (err != 0) return err;
+  const cudaError_t e = cudaMemcpyToSymbolAsync(A, &a, sizeof(StepArgs), 0, cudaMemcpyHostToDevice, s);
+  if (e != cudaSuccess) return (int)e;
+  scan_step_kernel<<<1, NT, dyn, s>>>();
   return (int)cudaGetLastError();
 }

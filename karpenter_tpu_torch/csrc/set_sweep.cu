@@ -19,7 +19,7 @@
 
 __global__ void __launch_bounds__(NT, 1) set_sweep_lanes() {
   const int b = blockIdx.x, tid = threadIdx.x, E = A.E, R = A.R, J = SA.J, C = SA.C;
-  stage_vocab();
+  lane_prologue();
   const int* m = SI32(member) + (long long)b * J;
   int* av = SI32(avail) + (long long)b * E * R;
   for (int i = tid; i < E * R; i += NT) {
@@ -43,6 +43,6 @@ extern "C" int set_sweep_launch(const StepArgs* args, const SweepArgs* sargs, vo
   cudaStream_t s = (cudaStream_t)stream;
   const int err = sweep_begin(args, sargs, s);
   if (err != 0) return err;
-  set_sweep_lanes<<<sargs->B, NT, 0, s>>>();
+  set_sweep_lanes<<<sargs->B, NT, SWEEP_LANE_SMEM, s>>>();
   return (int)cudaGetLastError();
 }

@@ -18,6 +18,8 @@
   /* tables */                                                                               \
   KTPU_REQS_FIELDS(X, treq) X(tdaemon) X(ttypes) X(tlimit_def) X(thas_limits)                \
   KTPU_REQS_FIELDS(X, ireq) X(ialloc) X(icap) X(otype) X(oword) X(obit) X(ovalid) X(orid)    \
+  /* the type tables derived once per launch by the wrapper (tpu_kernel.type_tables) */      \
+  X(ikeys) X(imask_t) X(bkeys) X(igt_t) X(ilt_t) X(ialloc_t) X(oclass) X(otypes)                       \
   X(v_kid) X(v_word) X(v_bit) X(v_reg) X(v_skew) X(v_mindom) X(v_filt) X(v_anti)             \
   X(h_skew) X(h_filt) X(h_inverse) KTPU_REQS_FIELDS(X, freq) X(thp)                          \
   /* relaxation-tier tables [NRX, L, ...] (read only when relax is set) */                   \
@@ -34,11 +36,13 @@
   /* outputs and scratch; the counters block is laid out below */                           \
   X(kinds) X(slots) X(counters) X(cand)                                                      \
   /* the run kernel: claim event sequence, run driver arrays, run cache scratch */           \
-  X(seq) X(is_head) X(bulk) X(aff) X(run_rem) X(scratch)
+  X(seq) X(is_head) X(bulk) X(aff) X(run_rem) X(scratch)                                     \
+  /* the per-phase clock breakdown (int64 [2 * KTPU_NPH + 2]; 0: off) */                     \
+  X(prof)
 
 #define KTPU_STEP_INT_FIELDS(X)                                                              \
   X(P) X(N) X(E) X(T) X(I) X(IW) X(TW) X(K) X(R) X(O) X(Gv) X(VMAX) X(Gh) X(GhS) X(S) X(C)   \
-  X(F) X(FA) X(HPW) X(NRES) X(NRESW) X(n_valid) X(L) X(NRX) X(relax)
+  X(F) X(FA) X(HPW) X(NRES) X(NRESW) X(n_valid) X(L) X(NRX) X(relax) X(NOC) X(NBK) X(SMB)
 
 struct StepArgs {
 #define KTPU_DECL_PTR(name) void* name;
@@ -48,6 +52,10 @@ struct StepArgs {
   KTPU_STEP_INT_FIELDS(KTPU_DECL_INT)
 #undef KTPU_DECL_INT
 };
+
+// NOC: offering classes in `oclass`; NBK: keys in `bkeys`; SMB: the shared-memory
+// budget of the type tables, set by the launch function (the wrapper
+// passes 0).
 
 // Limits of the kernel's shared-memory staging; the wrapper refuses larger
 // problems before launching.
@@ -67,3 +75,19 @@ struct StepArgs {
 #define KTPU_TIER_BINS 8
 // the run kernel's bulk window (tpu_runs.py W)
 #define KTPU_RUN_W 64
+
+// The phases of the per-phase clock breakdown (step.cuh prof_mark), in
+// the order of the prof buffer: cycles of each phase, then the count of
+// its entries, then the launch's total cycles and its globaltimer ns.
+#define KTPU_PHASES(X)                                                                        \
+  X(prologue) X(stage_pod) X(restage) X(seq_rank)                                            \
+  X(cache_claims) X(cache_existing) X(cache_templates) X(bulk_screen)                        \
+  X(existing_rows) X(existing_commit) X(level_select) X(level_rows) X(level_filter)          \
+  X(level_commit) X(solo_rows) X(solo_filter) X(solo_commit) X(new_rows) X(new_filter)       \
+  X(new_commit) X(existing_screen) X(claim_screen) X(verify_argmin) X(verify_build_row)      \
+  X(verify_type_filter) X(verify_min_values) X(template_branch) X(commit_rank)               \
+  X(commit_surviving_max) X(commit_reservations) X(commit_record) X(commit_other) X(other)
+
+#define KTPU_PH_ENUM(name) PH_##name,
+enum { KTPU_PHASES(KTPU_PH_ENUM) KTPU_NPH };
+#undef KTPU_PH_ENUM

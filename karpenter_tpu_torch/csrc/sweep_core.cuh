@@ -73,17 +73,18 @@ __shared__ int sw_any_left, sw_has_t, sw_tstar;
 
 __global__ void __launch_bounds__(NT, 1) sweep_cache_kernel() {
   const int tid = threadIdx.x, R = A.R, C = SA.C;
-  stage_vocab();
   Scratch S;
   carve((char*)A.scratch, A, S);
+  step_prologue(A.SMB, 1, S.kc);
   stage_pod(0);
   build_cache(0, S);
+  WorkRow& F = wrow(0);
   for (int t = 0; t < A.T; ++t) {
-    stage_final(row_of(S.final_t, t));
+    stage_final<false>(F, row_of(S.final_t, t), keys_at(S.fkeys_t, t), bnd_at(S.fkeys_t, t));
     for (int c = 0; c < C; ++c) {
-      for (int r = tid; r < R; r += NT) sh.total[r] = I32(tdaemon)[t * R + r] + SI32(sizes)[c * R + r];
+      for (int r = tid; r < R; r += NT) F.total[r] = I32(tdaemon)[t * R + r] + SI32(sizes)[c * R + r];
       __syncthreads();
-      const bool any = type_filter(2, t);
+      const bool any = type_filter<false>(F, 2, t);
       if (tid == 0) SU8(fit1)[t * C + c] = any;
       __syncthreads();
     }
@@ -185,37 +186,51 @@ __device__ void lane_core(int b, int* av, const int* cnt) {
     ok = false;
     if (sw_has_t) {
       const int t = sw_tstar;
-      stage_final(row_of(S.final_t, t));
-      for (int r = tid; r < R; r += NT) sh.total[r] = I32(tdaemon)[t * R + r] + sw_tot[r];
+      WorkRow& F = wrow(0);
+      stage_final<false>(F, row_of(S.final_t, t), keys_at(S.fkeys_t, t), bnd_at(S.fkeys_t, t));
+      for (int r = tid; r < R; r += NT) F.total[r] = I32(tdaemon)[t * R + r] + sw_tot[r];
       __syncthreads();
-      ok = type_filter(2, t);
+      ok = type_filter<false>(F, 2, t);
     }
   }
   if (tid == 0) SU8(feasible)[b] = ok;
 }
 
-// Upload both argument blocks and launch the cache build; the caller then
-// launches its lane kernel on the same stream. Returns a cudaError_t.
+// The lane kernels' prologue: the vocabulary and the type tables, read
+// from device memory (each lane runs one type filter at most, so staging
+// them per lane would cost more than it saves); one working row.
+__device__ void lane_prologue() {
+  stage_vocab();
+  stage_tables(0, 1);
+}
+
+// the lane kernels' dynamic shared memory: one working row
+#define SWEEP_LANE_SMEM sizeof(WorkRow)
+
+// Upload both argument blocks and launch the cache build (its type tables
+// in shared memory); the caller then launches its lane kernel on the same
+// stream with SWEEP_LANE_SMEM bytes. Returns a cudaError_t.
 inline int sweep_begin(const StepArgs* args, const SweepArgs* sargs, cudaStream_t s) {
   if (sargs->B <= 0 || sargs->C <= 0 || args->T <= 0) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaMemcpyToSymbolAsync(A, args, sizeof(StepArgs), 0, cudaMemcpyHostToDevice, s);
+  StepArgs a = *args;
+  size_t dyn = 0;
+  const int code = step_smem((const void*)sweep_cache_kernel, a, 1, false, &dyn);
+  if (code != 0) return code;
+  cudaError_t err = cudaMemcpyToSymbolAsync(A, &a, sizeof(StepArgs), 0, cudaMemcpyHostToDevice, s);
   if (err != cudaSuccess) return (int)err;
   err = cudaMemcpyToSymbolAsync(SA, sargs, sizeof(SweepArgs), 0, cudaMemcpyHostToDevice, s);
   if (err != cudaSuccess) return (int)err;
-  sweep_cache_kernel<<<1, NT, 0, s>>>();
+  sweep_cache_kernel<<<1, NT, dyn, s>>>();
   return (int)cudaGetLastError();
 }
 
-// The field lists as "ptr,ptr,...|int,int,..." strings.
-#define KTPU_NAME(name) #name ","
-static const char kFieldNames[] = KTPU_STEP_PTR_FIELDS(KTPU_NAME) "|" KTPU_STEP_INT_FIELDS(KTPU_NAME);
-static const char kSweepFieldNames[] = KTPU_SWEEP_PTR_FIELDS(KTPU_NAME) "|" KTPU_SWEEP_INT_FIELDS(KTPU_NAME);
-#undef KTPU_NAME
+// The sweep field list as a "ptr,ptr,...|int,int,..." string.
+static const char kSweepFieldNames[] =
+    KTPU_SWEEP_PTR_FIELDS(KTPU_STR_NAME) "|" KTPU_SWEEP_INT_FIELDS(KTPU_STR_NAME);
 
 // The extern "C" surface every sweep library exports beside its launch.
 #define KTPU_SWEEP_EXPORTS(name)                                                                   \
-  extern "C" const char* name##_field_names() { return kFieldNames; }                              \
-  extern "C" int name##_args_size() { return (int)sizeof(StepArgs); }                              \
+  KTPU_STEP_EXPORTS(name)                                                                          \
   extern "C" const char* name##_sweep_field_names() { return kSweepFieldNames; }                   \
   extern "C" int name##_sweep_args_size() { return (int)sizeof(SweepArgs); }                       \
   extern "C" long long name##_scratch_bytes(const StepArgs* args) {                                \

@@ -41,13 +41,13 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
 from karpenter_tpu_torch import _build
 from karpenter_tpu_torch.device import gather_bits, pack, unpack
-from karpenter_tpu_torch.ops.encode import Reqs
+from karpenter_tpu_torch.ops.encode import GT_NONE, LT_NONE, Reqs
 from karpenter_tpu_torch.ops.kernels import (
     VocabArrays,
     bitwise_or_reduce,
@@ -814,7 +814,7 @@ def solve_scan_plain(tb: Tables, st: State, xs: PodX, relax: bool = False):
     )
 
 
-def solve_scan(tb: Tables, st: State, xs: PodX, relax: bool = False):
+def solve_scan(tb: Tables, st: State, xs: PodX, relax: bool = False, prof: Optional[torch.Tensor] = None):
     """Run the greedy pack over a pod batch; returns (state, kinds, slots,
     overflowed, odometer). `overflowed` means some pod failed only because
     claim slots ran out (grow N and re-solve); the odometer's `steps` counts
@@ -822,10 +822,11 @@ def solve_scan(tb: Tables, st: State, xs: PodX, relax: bool = False):
     count the tier-loop trips.
 
     CPU tensors take the plain version. CUDA tensors launch the
-    `scan_step` kernel, which updates a copy of `st` in place."""
+    `scan_step` kernel, which updates a copy of `st` in place; a `prof`
+    buffer (`prof_buffer`) gets its per-phase clock breakdown."""
     if st.rank.device.type == "cpu":
         return solve_scan_plain(tb, st, xs, relax)
-    return _launch_scan_step(tb, _clone_state(st), xs, relax)
+    return _launch_scan_step(tb, _clone_state(st), xs, relax, prof)
 
 
 def _lane_field(f, b: int):
@@ -944,6 +945,13 @@ def step_library(name: str):
     launch = getattr(lib, f"{name}_launch")
     launch.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
     launch.restype = ctypes.c_int
+    scratch_bytes = getattr(lib, f"{name}_scratch_bytes")
+    scratch_bytes.argtypes = [ctypes.c_void_p]
+    scratch_bytes.restype = ctypes.c_longlong
+    getattr(lib, f"{name}_phase_names").argtypes = []
+    getattr(lib, f"{name}_phase_names").restype = ctypes.c_char_p
+    getattr(lib, f"{name}_last_layout").argtypes = [ctypes.c_void_p]
+    getattr(lib, f"{name}_last_layout").restype = None
     ptrs, ints = getattr(lib, f"{name}_field_names")().decode().split("|")
     fields = [(n, ctypes.c_void_p) for n in ptrs.split(",") if n]
     fields += [(n, ctypes.c_int) for n in ints.split(",") if n]
@@ -951,6 +959,116 @@ def step_library(name: str):
     if ctypes.sizeof(args_type) != getattr(lib, f"{name}_args_size")():
         raise RuntimeError(f"{name}: StepArgs layout disagrees with the library")
     return lib, args_type
+
+
+def phase_names(name: str) -> list:
+    """The phases of a step kernel's clock breakdown (csrc/step_args.h
+    KTPU_PHASES), in the order of its prof buffer."""
+    lib, _ = step_library(name)
+    return [n for n in getattr(lib, f"{name}_phase_names")().decode().split(",") if n]
+
+
+# the launch tables in the order csrc/step.cuh tab_layout places them
+TABLE_ORDER = ("topo", "keys", "offers", "alloc", "bounds", "mask")
+
+
+def last_layout(name: str) -> dict:
+    """Where the library's last launch kept each launch table (True: shared
+    memory, False: read from device memory) and its dynamic shared bytes."""
+    lib, _ = step_library(name)
+    n = len(TABLE_ORDER)
+    out = (ctypes.c_longlong * (n + 1))()
+    getattr(lib, f"{name}_last_layout")(out)
+    return {"shared": {t: out[i] >= 0 for i, t in enumerate(TABLE_ORDER)}, "dynamic_bytes": int(out[n])}
+
+
+def prof_buffer(name: str, device) -> torch.Tensor:
+    """A zeroed prof buffer for one launch of `name`: int64 cycles and
+    entries of each phase, then the launch's total cycles and nanoseconds."""
+    return torch.zeros(2 * len(phase_names(name)) + 2, dtype=torch.int64, device=device)
+
+
+def checked_prof(prof: torch.Tensor, name: str, device) -> int:
+    want = 2 * len(phase_names(name)) + 2
+    if tuple(prof.shape) != (want,):
+        raise ValueError(f"{name}: prof buffer has shape {tuple(prof.shape)}, expected ({want},)")
+    return checked_ptr(prof, torch.int64, device, "prof")
+
+
+def breakdown(name: str, prof: torch.Tensor) -> dict:
+    """A prof buffer as {"phases": {phase: [cycles, entries]}, "cycles",
+    "ns"} (every phase listed, in kernel order)."""
+    names = phase_names(name)
+    v = prof.cpu().tolist()
+    n = len(names)
+    return {"phases": {p: [v[i], v[n + i]] for i, p in enumerate(names)}, "cycles": v[2 * n], "ns": v[2 * n + 1]}
+
+
+class TypeTables(NamedTuple):
+    """The instance-type tables the step kernels stage in shared memory once
+    per launch (csrc/step.cuh `stage_tables`), derived from Tables on their
+    device. The type filter reads only these (and the alive words of the
+    claim or template it checks)."""
+
+    ikeys: torch.Tensor  # [3, I] int64: each type row's other, defined, tol key masks (algebra.cuh row_keys)
+    imask_t: torch.Tensor  # [TW, I] int32: the types' mask words, word-major
+    bkeys: torch.Tensor  # [NBK] int32: the keys on which some type has a bound (gt or lt off its sentinel)
+    igt_t: torch.Tensor  # [NBK, I] int32: the types' gt on those keys
+    ilt_t: torch.Tensor  # [NBK, I] int32: and their lt
+    ialloc_t: torch.Tensor  # [R, I] int32: allocatable, resource-major
+    oclass: torch.Tensor  # [NOC, 2] int32: each offering class's probes, packed (see type_tables)
+    otypes: torch.Tensor  # [NOC, IW] int32: the types offered with that class's probes, as words
+
+
+def key_masks(flags: torch.Tensor) -> torch.Tensor:
+    """[..., K] bool -> [...] int64 with bit k set where flags[..., k] (the
+    kernels' 64-bit key masks; bit 63 is the sign bit)."""
+    K = flags.shape[-1]
+    bits = torch.tensor([1 << k if k < 63 else -(1 << 63) for k in range(K)], dtype=torch.int64, device=flags.device)
+    return (flags.to(torch.int64) * bits).sum(-1)
+
+
+def type_tables(tb: Tables) -> TypeTables:
+    """The step kernels' type tables of `tb`. Key masks follow row_keys:
+    tol = notin | (~other & ~seg_any(mask != 0)), all 64 bits. A key no
+    type bounds leaves each type's gt/lt at their sentinels, so the kernel
+    folds it from the working row alone. An offering counts when it is
+    valid, its type is one of the I and every probe is off (word < 0) or a
+    bit of the TW words (no other offering can ever match); offerings with
+    the same three probes form a class, whose row is [p0 | p1 << 16, p2]
+    as int32 bits (probe j = word * 32 + bit, 0xffff when off) beside the
+    words of the types offered that way. A type has a matching offering
+    exactly when some class whose probes all pass offers it."""
+    va, ir = tb.va, tb.ireq
+    dev = ir.mask.device
+    I, TW = ir.mask.shape
+    K = va.num_keys
+    other, notin, defined = key_masks(ir.other), key_masks(ir.notin), key_masks(ir.defined)
+    per_key = torch.zeros((I, K), dtype=torch.int32, device=dev)
+    per_key.index_add_(1, va.word2key, (ir.mask != 0).to(torch.int32))
+    tol = notin | (~other & ~key_masks(per_key > 0))
+    bounded = ((ir.gt != int(GT_NONE)) | (ir.lt != int(LT_NONE))).any(0)
+    bk = torch.nonzero(bounded).flatten()
+    word, bit = tb.oword.to(torch.int64), tb.obit.to(torch.int64)
+    otype = tb.otype.to(torch.int64)
+    off = word < 0
+    usable = tb.ovalid & (otype >= 0) & (otype < I) & (off | ((word < TW) & (bit >= 0) & (bit < 32))).all(1)
+    code = torch.where(off, torch.full_like(word, 0xFFFF), word * 32 + bit)[usable]
+    classes, which = torch.unique(code, dim=0, return_inverse=True)
+    offered = torch.zeros((classes.shape[0], I), dtype=torch.bool, device=dev)
+    offered[which, otype[usable]] = True
+    p01 = classes[:, 0] | (classes[:, 1] << 16)
+    oclass = torch.stack([torch.where(p01 >= 1 << 31, p01 - (1 << 32), p01), classes[:, 2]], 1).to(torch.int32)
+    return TypeTables(
+        ikeys=torch.stack([other, defined, tol]).contiguous(),
+        imask_t=ir.mask.t().contiguous(),
+        bkeys=bk.to(torch.int32),
+        igt_t=ir.gt[:, bk].t().contiguous(),
+        ilt_t=ir.lt[:, bk].t().contiguous(),
+        ialloc_t=tb.ialloc.t().contiguous(),
+        oclass=oclass.contiguous(),
+        otypes=pack(offered, tb.ttypes.shape[1]),
+    )
 
 
 def checked_ptr(t: torch.Tensor, dtype: torch.dtype, device: torch.device, name: str) -> int:
@@ -1024,6 +1142,11 @@ def step_arg_values(tb: Tables, st: State, xs: PodX, dev) -> dict:
     ):
         put(name, getattr(tb, name), dtype)
     put_reqs("freq", tb.filter_reqs)
+    tt = type_tables(tb)
+    vals["_tt"] = tt
+    for name, t in zip(TypeTables._fields, tt):
+        put(name, t, torch.int64 if name == "ikeys" else i32)
+    vals.update(NOC=tt.oclass.shape[0], NBK=tt.bkeys.shape[0])
     for name, dtype in (("active", b8), ("count", i32), ("rank", i32), ("tmpl", i32)):
         put(name, getattr(st, name), dtype)
     put_reqs("creq", st.creq)
@@ -1097,7 +1220,7 @@ def launch_step(lib, name: str, args_type, vals: dict, dev) -> None:
     _build.check_launch(name, code)
 
 
-def _launch_scan_step(tb: Tables, st: State, xs: PodX, relax: bool):
+def _launch_scan_step(tb: Tables, st: State, xs: PodX, relax: bool, prof: Optional[torch.Tensor] = None):
     """Launch scan_step on `st` (updated in place); returns the
     solve_scan tuple."""
     lib, args_type = step_library("scan_step")
@@ -1114,6 +1237,12 @@ def _launch_scan_step(tb: Tables, st: State, xs: PodX, relax: bool):
     vals["slots"] = checked_ptr(slots, torch.int32, dev, "slots")
     vals["counters"] = checked_ptr(counters, torch.int32, dev, "counters")
     vals["cand"] = checked_ptr(cand, torch.uint8, dev, "cand")
+    if prof is not None:
+        vals["prof"] = checked_prof(prof, "scan_step", dev)
+    # the claim slots' and existing nodes' key masks
+    probe = step_args("scan_step", args_type, vals)
+    scratch = torch.empty(int(lib.scan_step_scratch_bytes(ctypes.byref(probe))), dtype=torch.uint8, device=dev)
+    vals["scratch"] = scratch.data_ptr()
     launch_step(lib, "scan_step", args_type, vals, dev)
     LAUNCHES["scan_step_relax" if relax else "scan_step"] += 1
     return st, kinds, slots, counters[0] != 0, counters_odometer(counters, dev)
@@ -1181,6 +1310,10 @@ def _launch_lanes(tb: Tables, st: State, xs: PodX, lane_fields, relax: bool, key
     put_lane("slots", slots, i32)
     put_lane("counters", counters, i32)
     put_lane("cand", cand, torch.uint8)
+    # each lane's key masks of its claim slots and existing nodes
+    per_lane = int(lib.scan_lanes_scratch_bytes(ctypes.byref(step_args("scan_lanes", args_type, vals))))
+    scratch = torch.empty((B, max(per_lane, 16)), dtype=torch.uint8, device=dev)
+    put_lane("scratch", scratch, torch.uint8)
     args = step_args("scan_lanes", args_type, vals)
     ptr_names = [f for f, t in args_type._fields_ if t is ctypes.c_void_p]
     stride_type = type("LaneStrides", (ctypes.Structure,), {"_fields_": [(f, ctypes.c_longlong) for f in ptr_names]})

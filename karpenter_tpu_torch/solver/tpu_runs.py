@@ -44,8 +44,7 @@ gathers; every such index is masked or clamped here explicitly.
 from __future__ import annotations
 
 import ctypes
-import functools
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -656,29 +655,24 @@ def solve_runs_plain(tb: Tables, st: State, rx: RunX, seq, next_seq, n_valid: in
     )
 
 
-def solve_runs(tb: Tables, st: State, rx: RunX, seq, next_seq, n_valid: int, relax: bool = False):
+def solve_runs(
+    tb: Tables, st: State, rx: RunX, seq, next_seq, n_valid: int, relax: bool = False, prof: Optional[torch.Tensor] = None
+):
     """solve_runs_plain's contract. CPU tensors take the plain version;
     CUDA tensors launch the `run_step` kernel on copies of `st` and
-    `seq`."""
+    `seq`; a `prof` buffer (`tpu_kernel.prof_buffer`) gets its per-phase
+    clock breakdown."""
     if st.rank.device.type == "cpu":
         return solve_runs_plain(tb, st, rx, seq, next_seq, n_valid, relax)
-    return _launch_run_step(tb, K._clone_state(st), rx, seq.clone(), next_seq, n_valid, relax)
+    return _launch_run_step(tb, K._clone_state(st), rx, seq.clone(), next_seq, n_valid, relax, prof)
 
 
 # ---------------------------------------------------------------------------
 # the CUDA kernel's wrapper
 
 
-@functools.lru_cache(maxsize=None)
-def _run_step_library():
+def _launch_run_step(tb: Tables, st: State, rx: RunX, seq, next_seq, n_valid: int, relax: bool, prof=None):
     lib, args_type = K.step_library("run_step")
-    lib.run_step_scratch_bytes.argtypes = [ctypes.c_void_p]
-    lib.run_step_scratch_bytes.restype = ctypes.c_longlong
-    return lib, args_type
-
-
-def _launch_run_step(tb: Tables, st: State, rx: RunX, seq, next_seq, n_valid: int, relax: bool):
-    lib, args_type = _run_step_library()
     dev = st.rank.device
     P = rx.is_head.shape[0]
     if not 0 <= n_valid <= P:
@@ -703,6 +697,8 @@ def _launch_run_step(tb: Tables, st: State, rx: RunX, seq, next_seq, n_valid: in
     probe = K.step_args("run_step", args_type, vals)
     scratch = torch.empty(int(lib.run_step_scratch_bytes(ctypes.byref(probe))), dtype=torch.uint8, device=dev)
     vals["scratch"] = scratch.data_ptr()
+    if prof is not None:
+        vals["prof"] = K.checked_prof(prof, "run_step", dev)
     K.launch_step(lib, "run_step", args_type, vals, dev)
     LAUNCHES["run_step_relax" if relax else "run_step"] += 1
     return st, seq, counters[3], kinds, slots, counters[0] != 0, K.counters_odometer(counters, dev), counters[4]
