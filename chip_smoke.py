@@ -105,7 +105,7 @@ SET_LANES = 1024
 # 64 lanes x 64 union pods is the reference's 4096 limit
 LANE_CANDIDATES = 64
 RIDER_SPREAD = 4
-REFEREE_SEEDED = 8  # seeded lanes of each kind held against the referee
+REFEREE_SEEDED = 16  # seeded lanes of each kind held against the referee
 PAST_EDGE = 4  # spread-fleet prefix lanes held past the last verdict change
 # the leftover fleet: riders as large as the seeds fill every node, so each
 # lane's riders and the pending pods (which fit no node) are left over for
@@ -120,7 +120,7 @@ FLEET_WINDOWS = (2, 5, 8)  # lanes per window, relax off
 FLEET_RELAX_LANES = 4  # a window whose lanes add the same preference pods
 FLEET_PREF_PODS = 200
 FLEET_PREF_SEED = 7
-FLEET_CHECK_POSITIONS = 128  # FFD positions of each lane K7 is held to its plain version on
+FLEET_CHECK_POSITIONS = 256  # FFD positions of each lane K7 is held to its plain version on
 FLEET_CHECK_LANES = 8
 FLEET_ORACLE_LANES = (0, 7)  # lanes of the widest window held against the oracle
 FLEET_OVERFLOW = (80, ("100m", "200m", "4100m"))  # pods per lane; the last lane needs a node per pod
@@ -802,13 +802,27 @@ def clock_breakdown(kernel: str, launches, mismatches, dev) -> tuple[dict, list]
     return {"cycles": b["cycles"], "ms": b["ns"] / 1e6, "clock_mhz": round(cyc_per_us, 1), "phases": phases}, bad
 
 
-def runs_checked(world: World, dev, exact_only: bool = False) -> dict:
+def device_tables_launch(kernel: str, fn):
+    """fn() with every launch table read from device memory (a shared-memory
+    cap of 0), and the launch's table layout."""
+    from karpenter_tpu_torch.solver import tpu_kernel as K
+
+    K.SMEM_CAP = 0
+    try:
+        return fn(), K.last_layout(kernel)
+    finally:
+        K.SMEM_CAP = None
+
+
+def runs_checked(world: World, dev, exact_only: bool = False, device_tables: bool = False) -> dict:
     """Every runs-path dispatch of a world's first round (the state grown
     on each overflow, as TorchScheduler.solve does), each K3 launch held bit
-    for bit to its plain version. Returns the mismatched fields, each
-    dispatch's (steps, bulk_steps, tier_steps), the kernel's and the plain
-    version's ms summed over the dispatches, the last launch's table layout
-    and the final kinds."""
+    for bit to its plain version; with `device_tables` each dispatch also
+    launches with every table in device memory, held to the same plain
+    result. Returns the mismatched fields, each dispatch's (steps,
+    bulk_steps, tier_steps), the kernel's and the plain version's ms summed
+    over the dispatches, the last launch's table layout (and the
+    device-memory launch's) and the final kinds."""
     import torch
 
     from karpenter_tpu_torch import device as D
@@ -833,6 +847,9 @@ def runs_checked(world: World, dev, exact_only: bool = False) -> dict:
         torch.cuda.synchronize()
         out["plain_ms"] += (time.monotonic() - t0) * 1e3
         out["bad"] += runs_mismatches(got, want)
+        if device_tables:
+            got0, out["layout0"] = device_tables_launch("run_step", lambda: KR.solve_runs(*args))
+            out["bad"] += [f"{f} (tables in device memory)" for f in runs_mismatches(got0, want)]
         out["ms"] += cuda_ms(lambda: KR.solve_runs(*args), 2)
         out["steps"].append([int(got[6].steps), int(got[6].bulk_steps), int(got[6].tier_steps)])
         done = int(got[7]) if bool(got[5]) else len(batch)
@@ -848,10 +865,11 @@ def runs_checked(world: World, dev, exact_only: bool = False) -> dict:
     return out
 
 
-def scan_checked(world: World, dev, n_slots: int) -> dict:
+def scan_checked(world: World, dev, n_slots: int, device_tables: bool = False) -> dict:
     """K2 over a world's whole first round with `n_slots` claim slots (the
     tier loop on when the round has tiers), held bit for bit to its plain
-    version."""
+    version; with `device_tables` a second launch reads every table from
+    device memory and is held to the same plain result."""
     import torch
 
     from karpenter_tpu_torch.solver import tpu_kernel as K
@@ -864,8 +882,12 @@ def scan_checked(world: World, dev, n_slots: int) -> dict:
     want = K.solve_scan_plain(tb, st, xs, relax=relax)
     torch.cuda.synchronize()
     plain_ms = (time.monotonic() - t0) * 1e3
+    bad, layout0 = scan_mismatches(got, want), None
+    if device_tables:
+        got0, layout0 = device_tables_launch("scan_step", lambda: K.solve_scan(tb, st, xs, relax=relax))
+        bad += [f"{f} (tables in device memory)" for f in scan_mismatches(got0, want)]
     return {
-        "bad": scan_mismatches(got, want), "relax": relax, "P": xs.valid.shape[0], "N": n_slots,
+        "bad": bad, "layout0": layout0, "relax": relax, "P": xs.valid.shape[0], "N": n_slots,
         "over": bool(got[3]), "tier_steps": int(got[4].tier_steps), "layout": layout,
         "ms": cuda_ms(lambda: K.solve_scan(tb, st, xs, relax=relax), 2), "plain_ms": plain_ms,
     }
@@ -876,12 +898,13 @@ def full_size_phase(dev) -> Optional[dict]:
     decisions equal to the port's oracle: the screens world (pool limit,
     reservations, minValues; the bulk gates send its solve down the scan
     path) through K2 (the whole round) and K3 (every dispatch, every pod on
-    its exact step), each held bit for bit to its plain version; and the
-    bulk world (existing-node windows) through K3 against its plain version,
-    its runs-path and forced-scan solves against the oracle. Then a catalog of LARGE_CATALOG_TYPES types, whose type
-    tables do not all fit the shared memory, through both kernels against
-    their plain versions. Returns the phase's numbers, or None when
-    anything disagrees."""
+    its exact step), each held bit for bit to its plain version, and again
+    with every launch table read from device memory; and the bulk world
+    (existing-node windows) through K3 against its plain version, its
+    runs-path and forced-scan solves against the oracle. Then a catalog of
+    LARGE_CATALOG_TYPES types, whose type tables do not all fit the shared
+    memory, through both kernels against their plain versions. Returns the
+    phase's numbers, or None when anything disagrees."""
     from karpenter_tpu_torch.solver import tpu_kernel as K
     from karpenter_tpu_torch.solver import tpu_runs as KR
     from karpenter_tpu_torch.solver.oracle import Scheduler
@@ -890,27 +913,31 @@ def full_size_phase(dev) -> Optional[dict]:
     t_phase = time.monotonic()
     out = {}
     for label, screens in (("screens", True), ("bulk", False)):
-        k3 = runs_checked(full_world(screens), dev, exact_only=screens)
+        k3 = runs_checked(full_world(screens), dev, exact_only=screens, device_tables=screens)
         kinds = k3.pop("kinds")
         log(
             f"K3 run_step full-size {label} ({FULL_PODS} pods, E={k3['E']}, HPW={k3['HPW']}, NRES={k3['NRES']}, "
             f"relax={k3['relax']}, N0={k3['N0']}, held reservations {k3['held_bits']}): dispatches "
             f"(steps, bulk, tier) {k3['steps']}, "
             f"kinds(existing/claim/new/fail)={[kinds.count(k) for k in range(4)]}, kernel {k3['ms']:.3f} ms, "
-            f"plain {k3['plain_ms']:.1f} ms, tables {k3['layout']}, mismatches={k3['bad'] or 'none'}"
+            f"plain {k3['plain_ms']:.1f} ms, tables {k3['layout']}"
+            + (f", again with tables {k3['layout0']}" if screens else "")
+            + f", mismatches={k3['bad'] or 'none'}"
         )
         # K2 against its plain version where it is the main path (the screens
         # world); the bulk world's forced scan solve is held to the oracle
-        k2 = scan_checked(full_world(screens), dev, _pow2(FULL_PODS)) if screens else None
+        k2 = scan_checked(full_world(screens), dev, _pow2(FULL_PODS), device_tables=True) if screens else None
         if k2:
             log(
                 f"K2 scan_step full-size {label} (P={k2['P']}, N={k2['N']}, relax={k2['relax']}, over={k2['over']}, "
                 f"tier_steps={k2['tier_steps']}): kernel {k2['ms']:.3f} ms, plain {k2['plain_ms']:.1f} ms, "
-                f"tables {k2['layout']}, mismatches={k2['bad'] or 'none'}"
+                f"tables {k2['layout']}, again with tables {k2['layout0']}, mismatches={k2['bad'] or 'none'}"
             )
-            if k2["bad"] or k2["over"]:
+            if k2["bad"] or k2["over"] or any(k2["layout0"]["shared"].values()):
                 return None
         if k3["bad"] or kinds.count(K.KIND_EXISTING) == 0 or kinds.count(K.KIND_NEW) == 0:
+            return None
+        if screens and any(k3["layout0"]["shared"].values()):
             return None
         ow = full_world(screens)
         oracle = Scheduler(ow.pools, ow.ibp, ow.topo, ow.views, None, ow.options)

@@ -584,7 +584,7 @@ extern "C" int run_step_launch(const StepArgs* args, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   StepArgs a = *args;
   size_t dyn = 0;
-  const int err = step_smem((const void*)run_step_kernel, a, RUN_ROWS, false, &dyn);
+  const int err = step_smem((const void*)run_step_kernel, a, RUN_ROWS, &dyn);
   if (err != 0) return err;
   const cudaError_t e = cudaMemcpyToSymbolAsync(A, &a, sizeof(StepArgs), 0, cudaMemcpyHostToDevice, s);
   if (e != cudaSuccess) return (int)e;

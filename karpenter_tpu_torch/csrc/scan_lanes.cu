@@ -40,7 +40,7 @@ extern "C" int scan_lanes_launch(const StepArgs* args, const LaneStrides* stride
   if (lanes <= 0) return (int)cudaErrorInvalidValue;
   StepArgs a = *args;
   size_t dyn = 0;
-  const int code = step_smem((const void*)scan_lanes_kernel, a, 1, false, &dyn);
+  const int code = step_smem((const void*)scan_lanes_kernel, a, 1, &dyn);
   if (code != 0) return code;
   cudaError_t err = cudaMemcpyToSymbolAsync(A, &a, sizeof(StepArgs), 0, cudaMemcpyHostToDevice, s);
   if (err != cudaSuccess) return (int)err;

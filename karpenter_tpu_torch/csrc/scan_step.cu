@@ -33,7 +33,7 @@ extern "C" int scan_step_launch(const StepArgs* args, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   StepArgs a = *args;
   size_t dyn = 0;
-  const int err = step_smem((const void*)scan_step_kernel, a, 1, false, &dyn);
+  const int err = step_smem((const void*)scan_step_kernel, a, 1, &dyn);
   if (err != 0) return err;
   const cudaError_t e = cudaMemcpyToSymbolAsync(A, &a, sizeof(StepArgs), 0, cudaMemcpyHostToDevice, s);
   if (e != cudaSuccess) return (int)e;

@@ -39,17 +39,20 @@
 //   - Launch-invariant tables in shared memory, staged once per launch
 //     (`stage_tables`): the zone-family groups' value words, bits and
 //     registrations [Gv, VMAX] (every topology screen reads them), each
-//     instance type's key masks (other, defined, tol; 24 B a type), the
-//     offerings grouped by their three word/bit
-//     probes (a class per distinct zone, capacity type and reservation:
-//     its packed probes and the words of the types offered that way; the
+//     instance type's key masks (other, defined, tol; 24 B a type, derived
+//     in the prologue with row_keys, threads over I, into the scratch
+//     block's key cache: `type_keys`), the offerings grouped by their
+//     three word/bit probes (a class per distinct zone, capacity type and
+//     reservation: its packed probes and the words of the types offered that way; the
 //     fold per working row is one OR per class and type word instead of an
 //     atomic per offering), its allocatable [R, I], the bounds of the keys
 //     some type bounds, and the types' mask words word-major [TW, I]
 //     (thread i's loads of word w fall in consecutive banks). They go in
 //     that order into the dynamic shared memory beside the working rows
 //     while they fit the budget the launch function sets (the opt-in
-//     maximum less the static block; `tab_layout`). At the headline (I=512,
+//     maximum less the static block, or the wrapper's cap where smaller;
+//     `tab_layout`). The wrapper derives the other tables once per Tables
+//     (tpu_kernel.py `launch_type_tables`). At the headline (I=512,
 //     O=4096 in 8 classes, TW=36, R=4, no bounded type keys) the tables
 //     take about 94 KB and K3's whole block about 160 KB of the 227 KB; a
 //     table that does not fit is read from its device copy, same layout,
@@ -353,8 +356,9 @@ __device__ const void* stage_table(long long at, const void* src, long long byte
 }
 
 // All threads, in the prologue: copy the tables that fit `budget` beside
-// the `nrows` working rows and point sh.t_* at them.
-__device__ void stage_tables(long long budget, int nrows) {
+// the `nrows` working rows and point sh.t_* at them. `ikeys` is the types'
+// key masks in the scratch block (`type_keys`).
+__device__ void stage_tables(long long budget, int nrows, const u64* ikeys) {
   const TabLayout L = tab_layout(A, nrows, budget);
   const long long I = A.I, nb = 4 * (long long)A.NBK * I, GV = (long long)A.Gv * A.VMAX;
   const void* vword = stage_table(L.topo, A.v_word, 4 * GV);
@@ -365,7 +369,7 @@ __device__ void stage_tables(long long budget, int nrows) {
     for (long long i = threadIdx.x; i < GV; i += NT) dst[i] = ((const uint8_t*)A.v_reg)[i];
     vreg = dst;
   }
-  const void* keys = stage_table(L.keys, A.ikeys, 3 * 8 * I);
+  const void* keys = stage_table(L.keys, ikeys, 3 * 8 * I);
   const void* ocls = stage_table(L.off, A.oclass, 8 * (long long)A.NOC);
   const void* otyp = stage_table(L.off < 0 ? -1 : L.off + 8 * (long long)A.NOC, A.otypes, 4 * (long long)A.IW * A.NOC);
   const void* alloc = stage_table(L.alloc, A.ialloc_t, 4 * (long long)A.R * I);
@@ -403,17 +407,19 @@ inline TabLayout& last_layout() {
 }
 
 // Set the type tables' shared-memory budget into `a` (the opt-in maximum
-// less the kernel's static block; 0 with `tables_off`, every table then
-// read from device memory) and the kernel's dynamic-memory limit to what
-// the launch needs, in `bytes`. Returns a cudaError_t.
-inline int step_smem(const void* kernel, StepArgs& a, int nrows, bool tables_off, size_t* bytes) {
+// less the kernel's static block, or the wrapper's a.SMB where that is
+// smaller: 0 reads every table from device memory) and the kernel's
+// dynamic-memory limit to what the launch needs, in `bytes`. Returns a
+// cudaError_t.
+inline int step_smem(const void* kernel, StepArgs& a, int nrows, size_t* bytes) {
   int dev = 0, optin = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   cudaFuncAttributes fa;
   if (err == cudaSuccess) err = cudaFuncGetAttributes(&fa, kernel);
   if (err != cudaSuccess) return (int)err;
-  a.SMB = tables_off ? 0 : optin - (int)fa.sharedSizeBytes;
+  const int room = optin - (int)fa.sharedSizeBytes;
+  if (a.SMB > room) a.SMB = room;
   const TabLayout L = tab_layout(a, nrows, a.SMB);
   last_layout() = L;
   *bytes = (size_t)L.bytes;
@@ -457,11 +463,12 @@ __device__ __forceinline__ u64 row_bnd(const Row& r) {
   return m;
 }
 
-// The claim slots' and existing nodes' key masks: the scan kernels' whole
-// scratch block, the head of the run kernel's.
+// The claim slots', existing nodes' and instance types' key masks: the scan
+// kernels' whole scratch block, the head of the run kernel's.
 struct KeyCache {
-  KeyRows c;  // [4, N]
-  KeyRows e;  // [4, E]
+  KeyRows c;  // [5, N]
+  KeyRows e;  // [5, E]
+  u64* t;     // [3, I] each type's other, defined, tol (the t_keys table's device copy)
 };
 
 struct Carver {
@@ -479,6 +486,7 @@ __host__ __device__ inline KeyRows carve_keys(Carver& c, int n) { return KeyRows
 __host__ __device__ inline size_t carve_key_cache(Carver& c, const StepArgs& a, KeyCache& kc) {
   kc.c = carve_keys(c, a.N);
   kc.e = carve_keys(c, a.E);
+  kc.t = (u64*)c.take((size_t)3 * 8 * a.I);
   return c.off;
 }
 
@@ -1147,14 +1155,30 @@ __device__ void stage_vocab() {
   __syncthreads();
 }
 
-// The launch prologue of the step kernels: the vocabulary, the type tables
-// (`budget` bytes of them in shared memory, beside `nrows` working rows),
-// the templates' key masks, the hostname groups' nonempty flags, and the
-// key masks of every claim slot and existing node as handed in. All threads.
+// The instance types' key masks (row_keys of each ireq row, threads over
+// I) into the key cache: other, defined, tol. All threads; the caller
+// syncs before reading them.
+__device__ void type_keys(const KeyCache& kc) {
+  const int I = A.I;
+  for (int i = threadIdx.x; i < I; i += NT) {
+    const RowKeys k = row_keys(ROW(ireq, i), sh.w2k, A.TW, A.K);
+    kc.t[i] = k.other;
+    kc.t[I + i] = k.defined;
+    kc.t[2 * I + i] = k.tol;
+  }
+}
+
+// The launch prologue of the step kernels: the vocabulary, the types' key
+// masks, the type tables (`budget` bytes of them in shared memory, beside
+// `nrows` working rows), the templates' key masks, the hostname groups'
+// nonempty flags, and the key masks of every claim slot and existing node
+// as handed in. All threads.
 __device__ void step_prologue(long long budget, int nrows, const KeyCache& kc) {
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   stage_vocab();
-  stage_tables(budget, nrows);
+  type_keys(kc);
+  __syncthreads();
+  stage_tables(budget, nrows, kc.t);
   for (int t = tid; t < A.T; t += NT) {
     const RowKeys k = row_keys(ROW(treq, t), sh.w2k, A.TW, A.K);
     sh.tkeys[0][t] = k.other;

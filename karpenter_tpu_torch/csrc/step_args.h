@@ -18,8 +18,8 @@
   /* tables */                                                                               \
   KTPU_REQS_FIELDS(X, treq) X(tdaemon) X(ttypes) X(tlimit_def) X(thas_limits)                \
   KTPU_REQS_FIELDS(X, ireq) X(ialloc) X(icap) X(otype) X(oword) X(obit) X(ovalid) X(orid)    \
-  /* the type tables derived once per launch by the wrapper (tpu_kernel.type_tables) */      \
-  X(ikeys) X(imask_t) X(bkeys) X(igt_t) X(ilt_t) X(ialloc_t) X(oclass) X(otypes)                       \
+  /* the type tables the wrapper derives once per Tables (tpu_kernel.type_tables) */        \
+  X(imask_t) X(bkeys) X(igt_t) X(ilt_t) X(ialloc_t) X(oclass) X(otypes)                     \
   X(v_kid) X(v_word) X(v_bit) X(v_reg) X(v_skew) X(v_mindom) X(v_filt) X(v_anti)             \
   X(h_skew) X(h_filt) X(h_inverse) KTPU_REQS_FIELDS(X, freq) X(thp)                          \
   /* relaxation-tier tables [NRX, L, ...] (read only when relax is set) */                   \
@@ -54,8 +54,9 @@ struct StepArgs {
 };
 
 // NOC: offering classes in `oclass`; NBK: keys in `bkeys`; SMB: the shared-memory
-// budget of the type tables, set by the launch function (the wrapper
-// passes 0).
+// budget of the type tables: the wrapper passes a cap (tpu_kernel.SMEM_CAP,
+// INT_MAX by default) and the launch function lowers it to what the card
+// leaves (step.cuh step_smem).
 
 // Limits of the kernel's shared-memory staging; the wrapper refuses larger
 // problems before launching.

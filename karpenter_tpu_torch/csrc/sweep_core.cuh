@@ -198,10 +198,13 @@ __device__ void lane_core(int b, int* av, const int* cnt) {
 
 // The lane kernels' prologue: the vocabulary and the type tables, read
 // from device memory (each lane runs one type filter at most, so staging
-// them per lane would cost more than it saves); one working row.
+// them per lane would cost more than it saves), the types' key masks from
+// the scratch block the cache kernel filled; one working row.
 __device__ void lane_prologue() {
+  Scratch S;
+  carve((char*)A.scratch, A, S);
   stage_vocab();
-  stage_tables(0, 1);
+  stage_tables(0, 1, S.kc.t);
 }
 
 // the lane kernels' dynamic shared memory: one working row
@@ -214,7 +217,7 @@ inline int sweep_begin(const StepArgs* args, const SweepArgs* sargs, cudaStream_
   if (sargs->B <= 0 || sargs->C <= 0 || args->T <= 0) return (int)cudaErrorInvalidValue;
   StepArgs a = *args;
   size_t dyn = 0;
-  const int code = step_smem((const void*)sweep_cache_kernel, a, 1, false, &dyn);
+  const int code = step_smem((const void*)sweep_cache_kernel, a, 1, &dyn);
   if (code != 0) return code;
   cudaError_t err = cudaMemcpyToSymbolAsync(A, &a, sizeof(StepArgs), 0, cudaMemcpyHostToDevice, s);
   if (err != cudaSuccess) return (int)err;

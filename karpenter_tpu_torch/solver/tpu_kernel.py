@@ -41,6 +41,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import weakref
 from typing import NamedTuple, Optional
 
 import torch
@@ -1007,10 +1008,10 @@ def breakdown(name: str, prof: torch.Tensor) -> dict:
 class TypeTables(NamedTuple):
     """The instance-type tables the step kernels stage in shared memory once
     per launch (csrc/step.cuh `stage_tables`), derived from Tables on their
-    device. The type filter reads only these (and the alive words of the
-    claim or template it checks)."""
+    device once per Tables (`launch_type_tables`). The kernels add each
+    type's key masks in their prologue (`type_keys`). The type filter reads
+    only these (and the alive words of the claim or template it checks)."""
 
-    ikeys: torch.Tensor  # [3, I] int64: each type row's other, defined, tol key masks (algebra.cuh row_keys)
     imask_t: torch.Tensor  # [TW, I] int32: the types' mask words, word-major
     bkeys: torch.Tensor  # [NBK] int32: the keys on which some type has a bound (gt or lt off its sentinel)
     igt_t: torch.Tensor  # [NBK, I] int32: the types' gt on those keys
@@ -1020,17 +1021,9 @@ class TypeTables(NamedTuple):
     otypes: torch.Tensor  # [NOC, IW] int32: the types offered with that class's probes, as words
 
 
-def key_masks(flags: torch.Tensor) -> torch.Tensor:
-    """[..., K] bool -> [...] int64 with bit k set where flags[..., k] (the
-    kernels' 64-bit key masks; bit 63 is the sign bit)."""
-    K = flags.shape[-1]
-    bits = torch.tensor([1 << k if k < 63 else -(1 << 63) for k in range(K)], dtype=torch.int64, device=flags.device)
-    return (flags.to(torch.int64) * bits).sum(-1)
-
-
 def type_tables(tb: Tables) -> TypeTables:
-    """The step kernels' type tables of `tb`. Key masks follow row_keys:
-    tol = notin | (~other & ~seg_any(mask != 0)), all 64 bits. A key no
+    """The step kernels' type tables of `tb`, none a view of it (a view
+    would keep its source alive in `launch_type_tables`' cache). A key no
     type bounds leaves each type's gt/lt at their sentinels, so the kernel
     folds it from the working row alone. An offering counts when it is
     valid, its type is one of the I and every probe is off (word < 0) or a
@@ -1039,14 +1032,9 @@ def type_tables(tb: Tables) -> TypeTables:
     as int32 bits (probe j = word * 32 + bit, 0xffff when off) beside the
     words of the types offered that way. A type has a matching offering
     exactly when some class whose probes all pass offers it."""
-    va, ir = tb.va, tb.ireq
+    ir = tb.ireq
     dev = ir.mask.device
     I, TW = ir.mask.shape
-    K = va.num_keys
-    other, notin, defined = key_masks(ir.other), key_masks(ir.notin), key_masks(ir.defined)
-    per_key = torch.zeros((I, K), dtype=torch.int32, device=dev)
-    per_key.index_add_(1, va.word2key, (ir.mask != 0).to(torch.int32))
-    tol = notin | (~other & ~key_masks(per_key > 0))
     bounded = ((ir.gt != int(GT_NONE)) | (ir.lt != int(LT_NONE))).any(0)
     bk = torch.nonzero(bounded).flatten()
     word, bit = tb.oword.to(torch.int64), tb.obit.to(torch.int64)
@@ -1060,15 +1048,44 @@ def type_tables(tb: Tables) -> TypeTables:
     p01 = classes[:, 0] | (classes[:, 1] << 16)
     oclass = torch.stack([torch.where(p01 >= 1 << 31, p01 - (1 << 32), p01), classes[:, 2]], 1).to(torch.int32)
     return TypeTables(
-        ikeys=torch.stack([other, defined, tol]).contiguous(),
-        imask_t=ir.mask.t().contiguous(),
+        imask_t=ir.mask.t().clone(memory_format=torch.contiguous_format),
         bkeys=bk.to(torch.int32),
         igt_t=ir.gt[:, bk].t().contiguous(),
         ilt_t=ir.lt[:, bk].t().contiguous(),
-        ialloc_t=tb.ialloc.t().contiguous(),
+        ialloc_t=tb.ialloc.t().clone(memory_format=torch.contiguous_format),
         oclass=oclass.contiguous(),
         otypes=pack(offered, tb.ttypes.shape[1]),
     )
+
+
+# The sources of type_tables: a Tables' derived tables are cached while
+# these very tensors live (Tables are built once per solve and not written).
+def _type_sources(tb: Tables) -> tuple:
+    ir = tb.ireq
+    return (ir.mask, ir.gt, ir.lt, tb.ialloc, tb.oword, tb.obit, tb.otype, tb.ovalid, tb.ttypes)
+
+
+_TYPE_TABLES: dict = {}
+
+
+def launch_type_tables(tb: Tables) -> TypeTables:
+    """type_tables(tb), derived at the first launch on `tb` and reused by
+    every later one; the entry goes when its first source tensor is freed."""
+    src = _type_sources(tb)
+    key = tuple(map(id, src))
+    hit = _TYPE_TABLES.get(key)
+    if hit is not None and all(r() is t for r, t in zip(hit[0], src)):
+        return hit[1]
+    tt = type_tables(tb)
+    _TYPE_TABLES[key] = (tuple(weakref.ref(t) for t in src), tt)
+    weakref.finalize(src[0], _TYPE_TABLES.pop, key, None)
+    return tt
+
+
+# A cap on the bytes of launch tables the step kernels keep in shared memory
+# (StepArgs.SMB; the launch lowers it to what the card leaves). None: no
+# cap. chip_smoke.py sets 0 to hold the device-memory path.
+SMEM_CAP: Optional[int] = None
 
 
 def checked_ptr(t: torch.Tensor, dtype: torch.dtype, device: torch.device, name: str) -> int:
@@ -1142,11 +1159,11 @@ def step_arg_values(tb: Tables, st: State, xs: PodX, dev) -> dict:
     ):
         put(name, getattr(tb, name), dtype)
     put_reqs("freq", tb.filter_reqs)
-    tt = type_tables(tb)
+    tt = launch_type_tables(tb)
     vals["_tt"] = tt
     for name, t in zip(TypeTables._fields, tt):
-        put(name, t, torch.int64 if name == "ikeys" else i32)
-    vals.update(NOC=tt.oclass.shape[0], NBK=tt.bkeys.shape[0])
+        put(name, t, i32)
+    vals.update(NOC=tt.oclass.shape[0], NBK=tt.bkeys.shape[0], SMB=2**31 - 1 if SMEM_CAP is None else SMEM_CAP)
     for name, dtype in (("active", b8), ("count", i32), ("rank", i32), ("tmpl", i32)):
         put(name, getattr(st, name), dtype)
     put_reqs("creq", st.creq)

@@ -3,16 +3,21 @@ package's requirement algebra.
 
 The CUDA step kernels (K2, K3, K7 and the sweeps' cache) stage these
 tables in shared memory once per launch and run the type filter on them
-alone: each type's key masks, its mask words word-major, the bounds of the
-keys some type bounds (every other key's bounds come from the working row,
-the type's being the sentinels), the allocatable resource-major and the
-offerings grouped by their three word/bit probes. Here the tables of
-numpy-seeded requirement batches (bounds, collapses, NotIn and
+alone: the types' mask words word-major, the bounds of the keys some type
+bounds (every other key's bounds come from the working row, the type's
+being the sentinels), the allocatable resource-major and the offerings
+grouped by their three word/bit probes, beside each type's key masks,
+which the kernels' prologue derives with algebra.cuh `row_keys`. Here the
+tables of numpy-seeded requirement batches (bounds, collapses, NotIn and
 DoesNotExist rows) are derived on the CPU and the kernel's formulas,
-written out below from the tables alone, are held to `ops/kernels.py`:
-the key masks to `seg_any`/`_dne`, the per-key conflict to `_conflict`,
-and the offering classes' fold to a direct evaluation of every offering.
+written out below, are held to `ops/kernels.py`: the key masks to
+`seg_any`/`_dne`, the per-key conflict to `_conflict`, and the offering
+classes' fold to a direct evaluation of every offering. The wrapper
+derives the tables once per Tables (`launch_type_tables`).
 """
+
+import gc
+
 
 from types import SimpleNamespace
 
@@ -75,10 +80,10 @@ def _row_keys(enc, b: int, w2k, K: int):
     return other, _bits(enc.defined[b]), (notin | (~other & ~seg)) & M64
 
 
-def _kernel_conflict(tt, w2k, K: int, rkeys, rmask, rgt, rlt, i: int) -> int:
+def _kernel_conflict(tt, ikeys, w2k, K: int, rkeys, rmask, rgt, rlt, i: int) -> int:
     """step.cuh type_compatible's conflict of type i against a working row,
-    from the type tables alone."""
-    io, idf, it = (_u64(x) for x in tt.ikeys[:, i])
+    from the type tables and type i's key masks `ikeys` alone."""
+    io, idf, it = ikeys
     ro, rd, rt = rkeys
     low = (1 << K) - 1
     cand = idf & rd & ~(it & rt) & low
@@ -100,13 +105,25 @@ def _kernel_conflict(tt, w2k, K: int, rkeys, rmask, rgt, rlt, i: int) -> int:
     return cand & ~(seg | (io & ro & bnd)) & M64
 
 
-def test_key_masks_sign_bit():
-    flags = torch.zeros((2, 64), dtype=torch.bool)
-    flags[0] = True
-    flags[1, 63] = True
-    got = TK.key_masks(flags).tolist()
-    assert got == [-1, -(1 << 63)]
-    assert TK.key_masks(torch.tensor([[True, False, True]])).tolist() == [5]
+def test_launch_type_tables_derived_once_per_tables():
+    _, _, tb = _tables(5)
+    tt = TK.launch_type_tables(tb)
+    assert TK.launch_type_tables(tb) is tt  # a second launch on the same Tables
+    want = TK.type_tables(tb)
+    for name in TK.TypeTables._fields:
+        assert torch.equal(getattr(tt, name), getattr(want, name)), name
+    # other tensors, even with equal values, are other Tables
+    tb2 = SimpleNamespace(**vars(tb))
+    tb2.ialloc = tb.ialloc.clone()
+    tb2.ialloc[0, 0] += 1
+    tt2 = TK.launch_type_tables(tb2)
+    assert tt2 is not tt and tt2.ialloc_t[0, 0] == tt.ialloc_t[0, 0] + 1
+    # no derived table keeps its Tables alive: the entries go with them
+    keys = [tuple(map(id, TK._type_sources(t))) for t in (tb, tb2)]
+    assert all(k in TK._TYPE_TABLES for k in keys)
+    del tb, tb2, tt, tt2, want
+    gc.collect()
+    assert not any(k in TK._TYPE_TABLES for k in keys)
 
 
 @pytest.mark.parametrize("seed", [0, 1, 2])
@@ -121,8 +138,9 @@ def test_type_keys_and_conflicts_match_reference(seed):
     dne = np.asarray(JKN._dne(jt, jva))
     seg = np.asarray(JKN.seg_any(jnp.asarray(enc.mask) != 0, jva))
     assert np.array_equal(dne, ~enc.other & ~seg)
+    ikeys = [_row_keys(enc, i, w2k, K) for i in range(I)]
     for i in range(I):
-        o, d, t = (_u64(x) for x in tt.ikeys[:, i])
+        o, d, t = ikeys[i]
         assert o == _bits(enc.other[i]) and d == _bits(enc.defined[i])
         assert t & ((1 << K) - 1) == _bits(enc.notin[i] | dne[i])
         assert t >> K == (1 << (64 - K)) - 1  # ~other & ~seg sets every bit past K
@@ -140,7 +158,7 @@ def test_type_keys_and_conflicts_match_reference(seed):
         want = np.asarray(want)
         rkeys = _row_keys(rows, b, w2k, K)
         for i in range(I):
-            got = _kernel_conflict(tt, w2k, K, rkeys, rows.mask[b], rows.gt[b], rows.lt[b], i)
+            got = _kernel_conflict(tt, ikeys[i], w2k, K, rkeys, rows.mask[b], rows.gt[b], rows.lt[b], i)
             assert got == _bits(want[i]), (b, i)
 
 
