@@ -21,24 +21,28 @@ PyTorch version on the card, bit for bit:
 - K5 dedup_rows on the headline's final claim rows and on 16384 synthetic
   rows with many duplicates;
 - K6 fast_sweep (prefix and singleton lanes) and K8 set_sweep (1024
-  removal sets), verdicts and per-lane leftovers, on a 2000-node
-  under-utilized fleet (the reference's c4 shape: 100 candidates, 20
-  pending pods of a second class), where every lane places all its pods
-  on existing nodes, and on a 2000-node leftover fleet, where every lane
-  leaves pods for one new claim that some lanes' leftovers fit and others'
-  do not; K7 scan_lanes (prefix and singleton lanes) on 64 candidates of a
-  2000-node fleet whose riders carry a zone spread;
-- K7 scan_lanes as the fleet launch (a lane stride on every pod field) on
-  the first 128 positions of 8 fleet lanes of 2000 pods, relax off and on;
+  removal sets), verdicts and per-lane leftovers, also with every table
+  and lane in device memory, on a 2000-node under-utilized fleet (the
+  reference's c4 shape: 100 candidates, 20 pending pods of a second
+  class), where every lane places all its pods on existing nodes, on a
+  2000-node leftover fleet, where every lane leaves pods for one new
+  claim that some lanes' leftovers fit and others' do not, and on a
+  2000-node c0 fleet, where a lane's first leftover class is a class no
+  template fits or the riders' one, by lane; K7 scan_lanes (prefix and
+  singleton lanes) on 64 candidates of a 2000-node fleet whose riders
+  carry a zone spread;
+- K7 scan_lanes as the fleet launch (each lane's pod rows its own) on the
+  first 256 positions of 8 fleet lanes of 2000 pods, relax off and on;
 - K3 and K2 at full size on the screens the headline bypasses (2000 pods
   beside 300 existing nodes: host ports, a pool limit, reservations,
   minValues; and existing-node windows) and on a 2048-type catalog whose
   type tables spill from shared to device memory.
 
 It prints the per-phase clock breakdown of K3 (the headline's and c6's two
-dispatches) and K2 (a 2048-pod headline prefix), each profiled launch held
-bit for bit to the same launch without it, and where each launch table
-lived (shared or device memory).
+dispatches), K2 (a 2048-pod headline prefix) and K7 at one lane beside K2
+on the same fleet lane, each profiled launch held bit for bit to the same
+launch without it, where each launch table lived (shared or device
+memory), and the sweep kernels' cache and lane launches apart.
 
 Then it drives the provisioning solve end to end, each path with the launch
 counts set to 0 just before and read just after: the headline
@@ -53,7 +57,8 @@ singleton_feasibility on the three fleets (the fast path and the full-state
 lane path) and SetSweepContext.evaluate, their verdicts held against the port's
 sequential referee (helpers.simulate_scheduling on the oracle); then fleet
 lanes: windows of 2, 5 and 8 concurrent scan-path solves of 2000 self-spread
-pods each and a window of 4 lanes with preference ladders, through
+pods each, a window of 4 lanes with preference ladders and a window of 4
+lanes whose follower pods requeue into a second round, through
 TorchScheduler(fleet=FleetCoalescer), every lane coalesced (one K7 launch
 per round) and equal to its solo solve through K2, and an overflowing lane
 that leaves its window. It checks decisions against the port's oracle on
@@ -113,6 +118,15 @@ PAST_EDGE = 4  # spread-fleet prefix lanes held past the last verdict change
 LEFTOVER_RIDER = {"cpu": "700m", "memory": "512Mi"}
 LEFTOVER_PENDING = {"cpu": "12", "memory": "1Gi"}
 LEFTOVER_TAG = ", leftover fleet"
+# the c0 fleet: the leftover fleet's riders, and on every third node a
+# bound pod asking more cpu than any type in place of its rider, so a
+# lane's first leftover class is the heavy one where it removes a heavy
+# node and the riders' where it does not (and only the riders' fits a
+# template)
+C0_EVERY = 3
+C0_HEAVY = {"cpu": "1000", "memory": "1Gi"}
+C0_TAG = ", c0 fleet"
+C0_REFEREE_SEEDED = 4
 # fleet lanes: concurrent scan-path solves of one cluster (the headline's
 # types and pool), lane k with make_self_spread_pods(FLEET_PODS, "<k+1>00m")
 FLEET_PODS = 2000
@@ -122,9 +136,13 @@ FLEET_PREF_PODS = 200
 FLEET_PREF_SEED = 7
 FLEET_CHECK_POSITIONS = 256  # FFD positions of each lane K7 is held to its plain version on
 FLEET_CHECK_LANES = 8
+FLEET_WIDE_POSITIONS = 64  # positions of the launch past K7's lane table
 FLEET_ORACLE_LANES = (0, 7)  # lanes of the widest window held against the oracle
 FLEET_OVERFLOW = (80, ("100m", "200m", "4100m"))  # pods per lane; the last lane needs a node per pod
 FLEET_WINDOW_SECONDS = 10.0
+# a window whose lanes requeue: each lane adds follower pods that fail in
+# round 1 and land in round 2 (fixtures.make_follower_pods)
+FLEET_FOLLOW = (4, 20)  # lanes, follower pods a lane
 # the full-size problems (full_world): a pending backlog beside a few
 # hundred existing nodes on the headline's 500 types
 FULL_PODS = 2000
@@ -612,11 +630,11 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def device_ms(fn, reps: int, names: tuple) -> Optional[float]:
-    """Per-call device time in ms of the kernels whose names contain one of
-    `names`, summed from a torch.profiler trace of `reps` calls (None when
-    the trace shows them no device time). Unlike cuda_ms, the host work
-    between launches does not count."""
+def device_split(fn, reps: int, names: tuple) -> dict:
+    """Per-call device time in ms of each kernel whose name contains one of
+    `names`, from a torch.profiler trace of `reps` calls ({} when the trace
+    shows them no device time). Unlike cuda_ms, the host work between
+    launches does not count."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -626,12 +644,19 @@ def device_ms(fn, reps: int, names: tuple) -> Optional[float]:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    total_us = sum(
-        getattr(e, "device_time_total", 0) or getattr(e, "cuda_time_total", 0)
-        for e in prof.key_averages()
-        if any(n in e.key for n in names)
-    )
-    return total_us / 1e3 / reps if total_us else None
+    out = {}
+    for e in prof.key_averages():
+        us = getattr(e, "device_time_total", 0) or getattr(e, "cuda_time_total", 0)
+        for n in names:
+            if n in e.key and us:
+                out[n] = out.get(n, 0.0) + us / 1e3 / reps
+    return out
+
+
+def device_ms(fn, reps: int, names: tuple) -> Optional[float]:
+    """device_split's times summed (None when the trace shows none)."""
+    split = device_split(fn, reps, names)
+    return sum(split.values()) if split else None
 
 
 def nbytes(*trees) -> int:
@@ -1017,17 +1042,17 @@ def sweep_candidates(world, n: int) -> list:
     return cands[:n]
 
 
-def referee_lanes(verdicts, seeded: int, seed: int) -> list[int]:
+def referee_lanes(verdicts, seeded: int, seed: int, edges: bool = True) -> list[int]:
     """Lanes to hold against the sequential referee: every lane whose
-    verdict differs from a neighbour's, plus `seeded` lanes drawn from a
-    seeded generator."""
+    verdict differs from a neighbour's (with `edges`), plus `seeded` lanes
+    drawn from a seeded generator."""
     import numpy as np
 
     v = list(verdicts)
-    edges = {k for k in range(len(v)) for j in (k - 1, k + 1) if 0 <= j < len(v) and v[j] != v[k]}
+    changes = {k for k in range(len(v)) for j in (k - 1, k + 1) if edges and 0 <= j < len(v) and v[j] != v[k]}
     rng = np.random.default_rng(seed)
     picks = rng.choice(len(v), size=min(seeded, len(v)), replace=False)
-    return sorted(edges | {int(k) for k in picks})
+    return sorted(changes | {int(k) for k in picks})
 
 
 def referee_mismatches(world, cands, rows, verdicts) -> list[int]:
@@ -1061,14 +1086,19 @@ def reset_launches() -> None:
     F.reset_counters()
 
 
-def fast_fleet_checks(dev, w, cands, tag: str, seed: int, rows_out: list, profiled: list) -> bool:
+def fast_fleet_checks(dev, w, cands, tag: str, seed: int, rows_out: list, profiled: list,
+                      seeded: int = REFEREE_SEEDED, c0_differs: bool = False) -> bool:
     """K6 (prefix and singleton lanes) and K8 (SET_LANES first-round rows,
     smallest set first) on one fleet: each main path with its launch count
     reset just before and read just after; each kernel's verdicts, steps
-    and per-lane leftovers held bit for bit against its plain version;
-    the verdicts held against the sequential referee. Appends the
-    kernels-line rows (names suffixed with `tag`) and the profiler's
-    calls; False when a check failed."""
+    and per-lane leftovers held bit for bit against its plain version, and
+    again with every table and the lanes' availability in device memory
+    (a shared-memory cap of 0); the verdicts held against the sequential
+    referee (`seeded` lanes of each kind and the verdict edges). With
+    `c0_differs`, each kernel's lanes must leave different first leftover
+    classes, and the referee takes the seeded lanes alone (there a verdict
+    changes with every third node). Appends the kernels-line rows (names suffixed with `tag`) and
+    the profiler's calls; False when a check failed."""
     import numpy as np
     import torch
 
@@ -1082,6 +1112,14 @@ def fast_fleet_checks(dev, w, cands, tag: str, seed: int, rows_out: list, profil
         and of the verdicts against the main path's."""
         mism = int((got[0] != want[0]).sum()) + int(int(got[1]) != int(want[1])) + int((got[2] != want[2]).sum())
         return mism + int(got[0].cpu().tolist()[: len(verdicts)] != list(verdicts))
+
+    def first_left(label, left) -> bool:
+        """Log the lanes' first leftover classes; False when c0_differs
+        and every lane has the same one."""
+        c0 = (left > 0).to(torch.int32).argmax(dim=1).tolist()
+        kinds = {c: c0.count(c) for c in sorted(set(c0))}
+        log(f"{label}{tag}: lanes by first leftover class {kinds}")
+        return not c0_differs or len(kinds) > 1
 
     def ops_and_left(B, C, E, R, tb, left) -> tuple[int, int]:
         """The kernel's operations on these inputs: per lane, class and
@@ -1136,8 +1174,12 @@ def fast_fleet_checks(dev, w, cands, tag: str, seed: int, rows_out: list, profil
         got[0].cpu()
         phases["dispatch"] = time.monotonic() - t0
         want = S.fast_sweep_plain(u.tb, u.base, S._row0(xs1), avail0, cand_idx, counts, sizes, singleton, True)
+        got0, _ = device_tables_launch("fast_sweep", lambda: S.fast_sweep(u.tb, u.base, *args, singleton=singleton,
+                                                                          with_left=True))
         torch.cuda.synchronize()
-        mism = held(got, want, verdicts[singleton])
+        mism = held(got, want, verdicts[singleton]) + held(got0, want, verdicts[singleton])
+        if not first_left(key, want[2][: len(cands)]):
+            return False
         ms = cuda_ms(lambda: S.fast_sweep(u.tb, u.base, *args, singleton=singleton), 20)
         profiled.append((len(rows_out), lambda u=u, a=args, s=singleton: S.fast_sweep(u.tb, u.base, *a, singleton=s),
                          20, SWEEP_KERNELS))
@@ -1180,8 +1222,11 @@ def fast_fleet_checks(dev, w, cands, tag: str, seed: int, rows_out: list, profil
     args = ctx.kernel_args(member)
     got = SS.set_sweep(*args, with_left=True)
     want = SS.set_sweep_plain(args[0], args[1], S._row0(args[2]), *args[3:], with_left=True)
+    got0, _ = device_tables_launch("set_sweep", lambda: SS.set_sweep(*args, with_left=True))
     torch.cuda.synchronize()
-    mism = held(got, want, set_verdicts.tolist())
+    mism = held(got, want, set_verdicts.tolist()) + held(got0, want, set_verdicts.tolist())
+    if not first_left("set_sweep", want[2][: len(member)]):
+        return False
     ms = cuda_ms(lambda: SS.set_sweep(*args), 20)
     profiled.append((len(rows_out), lambda args=args: SS.set_sweep(*args), 20, SWEEP_KERNELS))
     plain_ms = cuda_ms(lambda: SS.set_sweep_plain(args[0], args[1], S._row0(args[2]), *args[3:]), 3)
@@ -1204,11 +1249,11 @@ def fast_fleet_checks(dev, w, cands, tag: str, seed: int, rows_out: list, profil
     t0 = time.monotonic()
     n_checked, bad = 0, []
     for singleton in (False, True):
-        lanes = referee_lanes(verdicts[singleton], REFEREE_SEEDED, seed=seed + singleton)
+        lanes = referee_lanes(verdicts[singleton], seeded, seed=seed + singleton, edges=not c0_differs)
         rows = [(k, [j == k if singleton else j <= k for j in range(len(cands))]) for k in lanes]
         bad += referee_mismatches(w, cands, rows, verdicts[singleton])
         n_checked += len(rows)
-    lanes = referee_lanes(set_verdicts, REFEREE_SEEDED, seed=seed + 2)
+    lanes = referee_lanes(set_verdicts, seeded, seed=seed + 2, edges=not c0_differs)
     bad += referee_mismatches(w, cands, [(k, member[k]) for k in lanes], set_verdicts)
     n_checked += len(lanes)
     log(f"referee{tag}: {n_checked} lanes checked, {len(bad)} disagree ({time.monotonic() - t0:.1f}s host)")
@@ -1249,6 +1294,15 @@ def sweep_phase(dev) -> Optional[list]:
     log(f"leftover world: {SWEEP_NODES} nodes with riders of {LEFTOVER_RIDER}, {len(cands)} candidates, "
         f"{SWEEP_PENDING} pending pods of {LEFTOVER_PENDING} ({time.monotonic() - t0:.1f}s host)")
     if not fast_fleet_checks(dev, w, cands, LEFTOVER_TAG, 17, rows_out, profiled):
+        return None
+    t0 = time.monotonic()
+    w = underutilized_world(
+        SWEEP_NODES, seed=7, rider_requests=LEFTOVER_RIDER, heavy_every=C0_EVERY, heavy_requests=C0_HEAVY
+    )
+    cands = sweep_candidates(w, SWEEP_CANDIDATES)
+    log(f"c0 world: {SWEEP_NODES} nodes with riders of {LEFTOVER_RIDER}, every {C0_EVERY}rd holding {C0_HEAVY} "
+        f"instead, {len(cands)} candidates ({time.monotonic() - t0:.1f}s host)")
+    if not fast_fleet_checks(dev, w, cands, C0_TAG, 27, rows_out, profiled, C0_REFEREE_SEEDED, c0_differs=True):
         return None
     del w, cands
 
@@ -1319,18 +1373,23 @@ def sweep_phase(dev) -> Optional[list]:
     # the kernels' own device time, from profiler traces taken after every
     # check, so that no trace overlaps the host timings above
     for i, fn, reps, names in profiled:
-        got_ms = device_ms(fn, reps, names)
-        if got_ms is not None:
-            rows_out[i]["device_ms"] = rows_out[i].get("device_ms", 0.0) + got_ms
+        split = device_split(fn, reps, names)
+        if split:
+            rows_out[i]["device_ms"] = rows_out[i].get("device_ms", 0.0) + sum(split.values())
+            for k, v in split.items():
+                rows_out[i].setdefault("device_ms_split", {})[k] = rows_out[i].get("device_ms_split", {}).get(k, 0.0) + v
     log("device time by the profiler (ms): " + json.dumps({r["name"]: r.get("device_ms") for r in rows_out}))
+    log("device time by kernel, cache launch and lane launch apart (ms): "
+        + json.dumps({r["name"]: r.get("device_ms_split") for r in rows_out}))
     log(f"sweep phase: {time.monotonic() - t_phase:.1f}s")
     return rows_out
 
 
-def fleet_world(its, cpu: str, n_pods: int, n_pref: int = 0) -> World:
+def fleet_world(its, cpu: str, n_pods: int, n_pref: int = 0, n_follow: int = 0) -> World:
     """One fleet lane's problem: n_pods self-spread pods at `cpu` (the
-    fixture that forces the scan path) and n_pref preference pods from one
-    seed, against `its` on one default NodePool."""
+    fixture that forces the scan path), n_pref preference pods from one
+    seed and n_follow follower pods (which need a second round), against
+    `its` on one default NodePool."""
     from karpenter_tpu_torch.solver.topology import Topology
     from karpenter_tpu_torch.testing import fixtures
 
@@ -1340,6 +1399,7 @@ def fleet_world(its, cpu: str, n_pods: int, n_pref: int = 0) -> World:
     if n_pref:
         fixtures.reset_rng(FLEET_PREF_SEED)
         pods += fixtures.make_preference_pods(n_pref)
+    pods += fixtures.make_follower_pods(n_follow)
     return World(pools, ibp, pods, None, None, Topology(pools, ibp, pods))
 
 
@@ -1453,6 +1513,18 @@ def cut_positions(xs, n: int):
     return type(xs)(*(Reqs(*(cut(a) for a in f)) if isinstance(f, Reqs) else cut(f) for f in xs))
 
 
+def lanes_at(out, idx: list):
+    """A solve_scan_lanes result with its lanes gathered at `idx`."""
+    import torch
+
+    def at(x):
+        if isinstance(x, tuple):
+            return type(x)(*(at(f) for f in x))
+        return x[torch.tensor(idx, device=x.device)]
+
+    return tuple(at(x) for x in out)
+
+
 def lanes_mismatches(got, want) -> list[str]:
     """Fields where two solve_scan_lanes results differ."""
     import torch
@@ -1502,18 +1574,21 @@ def fleet_bound(tb, st_b, xs_b) -> tuple[float, str]:
 
 def fleet_phase(dev, its) -> Optional[dict]:
     """Fleet lanes on the card: windows of 2, 5 and 8 concurrent scan-path
-    solves (relax off) and a window of FLEET_RELAX_LANES lanes with
-    preference ladders, each through TorchScheduler(fleet=FleetCoalescer),
-    one thread per lane. Every lane must be coalesced (no solo fallback),
-    one K7 launch per round, and every lane's decisions, kinds, slots and
-    odometer must equal its solo solve through K2; two lanes of the widest
-    window also equal the oracle. The fleet launch is held bit for bit to
+    solves (relax off), a window of FLEET_RELAX_LANES lanes with
+    preference ladders and a window whose lanes' follower pods requeue
+    (every lane at least two rounds), each through
+    TorchScheduler(fleet=FleetCoalescer), one thread per lane. Every lane
+    must be coalesced (no solo fallback), one K7 launch per round, and
+    every lane's decisions, kinds, slots and odometer must equal its solo
+    solve through K2 (a requeued lane's steps: its rounds at the window's
+    rung); two lanes of the widest window also equal the oracle. The fleet launch is held bit for bit to
     its plain version on each lane's first FLEET_CHECK_POSITIONS positions
     (B=8, relax off and on); an overflowing lane must leave its window and
     equal its solo solve. Measures each window's launch (events and the
     profiler), its wall time against the sum of its solo solves and its
-    host phases, and K7 at B=1 against K2 on one lane. Returns the
-    kernels-line row, or None when a check failed."""
+    host phases, and K7 at B=1 against K2 on one lane, with both
+    kernels' clock breakdowns there. Returns the kernels-line row, or None
+    when a check failed."""
     import torch
 
     from karpenter_tpu_torch.solver import fleet as F
@@ -1523,9 +1598,12 @@ def fleet_phase(dev, its) -> Optional[dict]:
     t_phase = time.monotonic()
     windows = {}
     total_launches, inputs_b8 = 0, None
-    specs = [(str(B), B, 0) for B in FLEET_WINDOWS] + [(f"{FLEET_RELAX_LANES}+relax", FLEET_RELAX_LANES, FLEET_PREF_PODS)]
-    for label, B, n_pref in specs:
-        make = [lambda k=k: fleet_world(its, f"{k + 1}00m", FLEET_PODS, n_pref) for k in range(B)]
+    specs = [(str(B), B, 0, 0) for B in FLEET_WINDOWS] + [
+        (f"{FLEET_RELAX_LANES}+relax", FLEET_RELAX_LANES, FLEET_PREF_PODS, 0),
+        (f"{FLEET_FOLLOW[0]}+follow", FLEET_FOLLOW[0], 0, FLEET_FOLLOW[1]),
+    ]
+    for label, B, n_pref, n_follow in specs:
+        make = [lambda k=k: fleet_world(its, f"{k + 1}00m", FLEET_PODS, n_pref, n_follow) for k in range(B)]
         solo, solo_s = solo_outcomes([m() for m in make], dev)
         captured = []
         worlds = [m() for m in make]
@@ -1536,11 +1614,25 @@ def fleet_phase(dev, its) -> Optional[dict]:
             return None
         modes = [s.last_fleet and s.last_fleet["mode"] for s in scheds]
         rounds = coalescer.last_window.get("rounds")
+        lane_rounds = [s.last_fleet and s.last_fleet["rounds"] for s in scheds]
         fleet_launch = launches["fleet_lanes"] + launches["fleet_lanes_relax"]
-        bad = [k for k in range(B) if outcomes[k] != solo[k]]
+        P0w = coalescer.last_window.get("P0")
+
+        def differs(k):
+            """Lane k against its solo solve; a window's later rounds walk
+            the window's rung P0 (the reference's rule), so the steps of a
+            requeued lane are its rounds times P0, the solo loop's its own
+            rungs."""
+            if not n_follow:
+                return outcomes[k] != solo[k]
+            o, w = outcomes[k], solo[k]
+            return o[:3] != w[:3] or o[3][1:] != w[3][1:] or o[3][0] != lane_rounds[k] * P0w
+
+        bad = [k for k in range(B) if differs(k)]
         log(
             f"fleet window {label}: {B} lanes x {FLEET_PODS} self-spread pods (+{n_pref} preference pods), "
-            f"modes {modes}, FLEET_SOLVES {F.FLEET_SOLVES}, rounds {rounds}, dispatches {F.FLEET_DISPATCHES}, "
+            f"modes {modes}, FLEET_SOLVES {F.FLEET_SOLVES}, rounds {rounds} (lanes {lane_rounds}), "
+            f"dispatches {F.FLEET_DISPATCHES}, "
             f"launches {launches}; {wall:.3f}s wall against {solo_s:.3f}s for the {B} solo solves; "
             f"lanes differing from their solo solve: {bad or 'none'}"
         )
@@ -1549,6 +1641,8 @@ def fleet_phase(dev, its) -> Optional[dict]:
             return None
         if bad or not rounds or F.FLEET_DISPATCHES["fleet"] != rounds or fleet_launch != rounds:
             return None
+        if n_follow and min(lane_rounds) < 2:
+            return None  # every lane of this window requeues
         if launches["scan_step"] or launches["scan_step_relax"] or bool(n_pref) != bool(launches["fleet_lanes_relax"]):
             return None  # no lane ran the solo loop, and relax follows the lanes' tiers
         lane_phases = {k: round(sum(s.last_phases[k] for s in scheds), 4) for k in scheds[0].last_phases}
@@ -1559,7 +1653,8 @@ def fleet_phase(dev, its) -> Optional[dict]:
         ms = cuda_ms(lambda: K.solve_scan_lanes(tb, st_b, xs_b, relax), 3)
         b_ms, b_by = fleet_bound(tb, st_b, xs_b)
         windows[label] = {
-            "lanes": B, "rounds": rounds, "P0": int(xs_b.valid.shape[1]), "N": int(st_b.active.shape[1]),
+            "lanes": B, "rounds": rounds, "lane_rounds": lane_rounds, "P0": int(xs_b.valid.shape[1]),
+            "N": int(st_b.active.shape[1]),
             "launch_ms": ms, "bound_ms": b_ms, "bound_by": b_by, "window_s": wall, "solo_sum_s": solo_s,
             "window_phases_s": coalescer.last_window["phases"], "lane_phases_s": lane_phases, "waits_s": waits,
             "_args": (tb, st_b, xs_b, relax),
@@ -1601,6 +1696,22 @@ def fleet_phase(dev, its) -> Optional[dict]:
         elif not int(got[4].tier_steps.sum()):
             return None  # the relax check must run the tier loop
 
+    # a launch wider than K7's lane table runs as consecutive launches: the
+    # widest window's 8 lanes repeated past the table's width, each lane
+    # held to the 8-lane launch on the first FLEET_WIDE_POSITIONS positions
+    tb, st_b, xs_b, relax = inputs_b8
+    xs_c = cut_positions(xs_b, FLEET_WIDE_POSITIONS)
+    width = K._scan_lanes_library()[0].scan_lanes_max_lanes()
+    idx = [k % FLEET_CHECK_LANES for k in range(width + FLEET_CHECK_LANES)]
+    wide = K.solve_scan_lanes(tb, *(K.stack_lanes([K.lane_slice(t, k) for k in idx]) for t in (st_b, xs_c)), relax)
+    narrow = K.solve_scan_lanes(tb, st_b, xs_c, relax)
+    torch.cuda.synchronize()
+    bad = lanes_mismatches(wide, lanes_at(narrow, idx))
+    log(f"K7 over {len(idx)} lanes (a lane table of {width}) vs the {FLEET_CHECK_LANES}-lane launch, first "
+        f"{FLEET_WIDE_POSITIONS} positions: mismatched {bad or 'nothing'}")
+    if bad:
+        return None
+
     # an overflowing lane leaves its window and equals its solo solve
     n_over, profiles = FLEET_OVERFLOW
     small = _small_types((2, 8))
@@ -1631,6 +1742,18 @@ def fleet_phase(dev, its) -> Optional[dict]:
         f"(device {k7_one_dev}), K2 {k2_one:.3f} ms (device {k2_one_dev}); outputs {'equal' if same else 'DIFFERENT'}")
     if not same:
         return None
+    # their per-phase clock breakdowns on that lane, each profiled launch
+    # held bit for bit to the launch without it
+    breakdowns = {}
+    for label, kernel, launch, differ in (
+        ("K7 one lane", "scan_lanes", lambda p: K.solve_scan_lanes(tb, st1, xs1, prof=p), lanes_mismatches),
+        ("K2 same lane", "scan_step", lambda p: K.solve_scan(tb, st0, xs0, prof=p), scan_mismatches),
+    ):
+        bd, bad = clock_breakdown(kernel, [launch], differ, dev)
+        log(f"clock breakdown {label} ({kernel}; profiled vs plain launch: {bad or 'equal'}): {json.dumps(bd)}")
+        if bad:
+            return None
+        breakdowns[label] = {"cycles": bd["cycles"], "ms": bd["ms"], "clock_mhz": bd["clock_mhz"]}
     sweep = []
     for b in (0, 1, 2, 4, 8, 1, 0):  # 0: K2 on lane 0
         if b:
@@ -1652,7 +1775,7 @@ def fleet_phase(dev, its) -> Optional[dict]:
             ms_cut, plain_ms, *cut_bound),
         device_ms=device_ms(lambda: K.solve_scan_lanes(*cut_args), 3, ("scan_lanes_kernel",)), windows=windows,
         k7_b1_vs_k2={"k7_ms": k7_one, "k2_ms": k2_one, "k7_device_ms": k7_one_dev, "k2_device_ms": k2_one_dev,
-                     "in_turns_device_ms": sweep},
+                     "in_turns_device_ms": sweep, "breakdown": breakdowns},
     )
     log(f"fleet phase: {time.monotonic() - t_phase:.1f}s")
     return out
@@ -2290,7 +2413,7 @@ def main() -> int:
     if sweep_rows is None:
         return 1
 
-    # ---- 13. fleet lanes (K7 with a lane stride on every pod field) ----
+    # ---- 13. fleet lanes (K7 with each lane's own pod rows) ----
     fleet_row = fleet_phase(dev, its)
     if fleet_row is None:
         return 1

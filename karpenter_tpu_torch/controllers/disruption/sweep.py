@@ -201,6 +201,9 @@ def sweep_library(name: str):
     getattr(lib, f"{name}_launch").argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
     getattr(lib, f"{name}_sweep_field_names").restype = ctypes.c_char_p
     getattr(lib, f"{name}_sweep_args_size").restype = ctypes.c_int
+    avail_words = getattr(lib, f"{name}_lane_avail_words")
+    avail_words.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+    avail_words.restype = ctypes.c_longlong
     ptrs, ints = getattr(lib, f"{name}_sweep_field_names")().decode().split("|")
     fields = [(n, ctypes.c_void_p) for n in ptrs.split(",") if n]
     fields += [(n, ctypes.c_int) for n in ints.split(",") if n]
@@ -214,7 +217,10 @@ def launch_sweep(name: str, tb, st, xs, avail0, sizes, B: int, lanes: dict, with
     """Launch sweep kernel `name` over B lanes; `lanes` holds the kernel's
     own lane inputs (int32 tensors by SweepArgs field name), `ints` its
     int fields. Returns (feasible [B] bool, steps as a 0-dim tensor), and
-    with `with_left` the leftovers [B, C] the kernel wrote."""
+    with `with_left` the leftovers [B, C] the kernel wrote. A lane keeps
+    its availability in shared memory; where it does not fit there, the
+    library asks for a device buffer of `<name>_lane_avail_words` words a
+    lane, allocated here."""
     lib, args_type, sweep_type = sweep_library(name)
     dev = st.rank.device
     E, R = st.eavail.shape
@@ -228,16 +234,12 @@ def launch_sweep(name: str, tb, st, xs, avail0, sizes, B: int, lanes: dict, with
     feasible = torch.empty(B, dtype=torch.uint8, device=dev)
     steps = torch.zeros(1, dtype=torch.int32, device=dev)
     work = {
-        "avail": torch.empty((B, E, R), dtype=torch.int32, device=dev),
         "left": torch.empty((B, max(C, 1)), dtype=torch.int32, device=dev),
         "fit1": torch.empty((tb.tdaemon.shape[0], max(C, 1)), dtype=torch.uint8, device=dev),
-        "lane_counts": torch.empty((B, max(C, 1)), dtype=torch.int32, device=dev),
     }
     sv = {"avail0": K.checked_ptr(avail0, torch.int32, dev, "avail0"), "sizes": K.checked_ptr(sizes, torch.int32, dev, "sizes")}
     sv["feasible"] = K.checked_ptr(feasible, torch.uint8, dev, "feasible")
     sv["steps"] = K.checked_ptr(steps, torch.int32, dev, "steps")
-    for k, t in work.items():
-        sv[k] = K.checked_ptr(t, t.dtype, dev, k)
     for k, t in lanes.items():
         sv[k] = K.checked_ptr(t, torch.int32, dev, k)
     sv.update(B=B, C=C, **ints)
@@ -245,8 +247,16 @@ def launch_sweep(name: str, tb, st, xs, avail0, sizes, B: int, lanes: dict, with
     unknown = set(sv) - set(names)
     if unknown:
         raise RuntimeError(f"{name}: sweep fields out of step with the library: {sorted(unknown)}")
-    sargs = sweep_type(**{f: sv.get(f, 0) for f in names})
     args = K.step_args(name, args_type, vals)
+    words = int(getattr(lib, f"{name}_lane_avail_words")(ctypes.byref(args), ctypes.byref(sweep_type(**{
+        f: sv.get(f, 0) for f in names}))))
+    if words < 0:
+        raise RuntimeError(f"{name}: the library could not size the lanes' shared memory")
+    if words:
+        work["avail"] = torch.empty((B, words), dtype=torch.int32, device=dev)
+    for k, t in work.items():
+        sv[k] = K.checked_ptr(t, t.dtype, dev, k)
+    sargs = sweep_type(**{f: sv.get(f, 0) for f in names})
     stream = torch.cuda.current_stream(dev).cuda_stream
     code = getattr(lib, f"{name}_launch")(ctypes.byref(args), ctypes.byref(sargs), ctypes.c_void_p(stream))
     _build.check_launch(name, code)

@@ -14,25 +14,26 @@
 // Bound on an H100: bytes (sweep_core.cuh).
 #include "sweep_core.cuh"
 
-__global__ void __launch_bounds__(NT, 1) fast_sweep_lanes() {
-  const int b = blockIdx.x, tid = threadIdx.x, E = A.E, R = A.R;
-  lane_prologue();
-  int* av = SI32(avail) + (long long)b * E * R;
-  for (int i = tid; i < E * R; i += NT) {
-    const int j = SI32(cand_idx)[i / R];
-    const bool removed = SA.singleton ? j == b : j <= b;
-    av[i] = removed ? -1 : SI32(avail0)[i];
-  }
+__global__ void __launch_bounds__(NT, SWEEP_LANES_PER_SM) fast_sweep_lanes() {
+  const int b = blockIdx.x, tid = threadIdx.x, C = SA.C;
+  const LaneMem L = lane_mem(b);
+  const bool singleton = SA.singleton;
+  derive_avail(L, [&](int e) {
+    const int j = SI32(cand_idx)[e];
+    return singleton ? j == b : j <= b;
+  });
+  for (int c = tid; c < C; c += NT) L.cnt[c] = SI32(counts)[(long long)b * C + c];
   __syncthreads();
-  lane_core(b, av, SI32(counts) + (long long)b * SA.C);
+  lane_core(b, L);
 }
 
-KTPU_SWEEP_EXPORTS(fast_sweep)
+KTPU_SWEEP_EXPORTS(fast_sweep, fast_sweep_lanes)
 
 extern "C" int fast_sweep_launch(const StepArgs* args, const SweepArgs* sargs, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  const int err = sweep_begin(args, sargs, s);
+  size_t lane_bytes = 0;
+  const int err = sweep_begin((const void*)fast_sweep_lanes, args, sargs, s, &lane_bytes);
   if (err != 0) return err;
-  fast_sweep_lanes<<<sargs->B, NT, SWEEP_LANE_SMEM, s>>>();
+  fast_sweep_lanes<<<sargs->B, NT, lane_bytes, s>>>();
   return (int)cudaGetLastError();
 }

@@ -136,10 +136,41 @@ __device__ __forceinline__ bool fi_bit(const unsigned* words, int i) { return (w
 // ---------------------------------------------------------------------------
 // the run cache (tpu_runs.py _build_cache), after stage_pod(p)
 
+// existing node e's screen and pod-units; one thread
+__device__ __forceinline__ void cache_existing(int p, const Scratch& S, int e) {
+  bool ok = U8(tol_e)[(long long)p * A.E + e];
+  if (ok) ok = screen_row(ROW(ereq, e), keys_at(S.kc.e, e), bnd_at(S.kc.e, e), e, false);
+  S.ok_e[e] = ok;
+  S.cape[e] = pod_units(I32(eavail) + (long long)e * A.R, sh.preq);
+}
+
+// template t's screen, fresh-claim units, final row and surviving types;
+// all threads call
+__device__ __forceinline__ void cache_template(int p, const Scratch& S, int t) {
+  const int tid = threadIdx.x, T = A.T, R = A.R;
+  WorkRow& F = wrow(0);
+  build_row<false>(F, ROW(treq, t), tmpl_keys(t), -1, true);
+  for (int r = tid; r < R; r += NT) F.total[r] = I32(tdaemon)[t * R + r] + sh.preq[r];
+  __syncthreads();
+  const bool any = type_filter<false>(F, 2, t);
+  int best = 0;
+  for (int i = tid; i < A.I; i += NT)
+    if (fi_bit(F.fi, i)) best = max(best, type_units(i, I32(tdaemon) + t * R, sh.preq));
+  best = block_reduce(best, RED_MAX);
+  if (tid == 0) {
+    S.ok_t[t] = any && F.row_compat && F.row_viable && (F.ftouched & ~F.fsegm) == 0 &&
+                U8(tol_t)[(long long)p * T + t];
+    S.capt[t] = best;
+    keys_put(S.fkeys_t, t, F.fk, F.fbnd);
+  }
+  write_row<false>(row_of(S.final_t, t), F);
+  for (int w = tid; w < A.IW; w += NT) S.alive_t[t * A.IW + w] = (int)F.fi[w];
+  __syncthreads();
+}
+
 __device__ __noinline__ void build_cache(int p, const Scratch& S) {
   const int tid = threadIdx.x;
-  const int E = A.E, N = A.N, T = A.T, R = A.R;
-  WorkRow& F = wrow(0);
+  const int E = A.E, N = A.N, T = A.T;
   for (int n = tid; n < N; n += NT) {
     bool ok = U8(tol_t)[(long long)p * T + clampi(I32(tmpl)[n], 0, T > 0 ? T - 1 : 0)];
     if (ok) ok = screen_row(ROW(creq, n), keys_at(S.kc.c, n), bnd_at(S.kc.c, n), E + n, true);
@@ -147,31 +178,8 @@ __device__ __noinline__ void build_cache(int p, const Scratch& S) {
     S.excl_c[n] = 0;
   }
   prof_sync(PH_cache_claims);
-  for (int e = tid; e < E; e += NT) {
-    bool ok = U8(tol_e)[(long long)p * E + e];
-    if (ok) ok = screen_row(ROW(ereq, e), keys_at(S.kc.e, e), bnd_at(S.kc.e, e), e, false);
-    S.ok_e[e] = ok;
-    S.cape[e] = pod_units(I32(eavail) + (long long)e * R, sh.preq);
-  }
+  for (int e = tid; e < E; e += NT) cache_existing(p, S, e);
   prof_sync(PH_cache_existing);
-  for (int t = 0; t < T; ++t) {
-    build_row<false>(F, ROW(treq, t), tmpl_keys(t), -1, true);
-    for (int r = tid; r < R; r += NT) F.total[r] = I32(tdaemon)[t * R + r] + sh.preq[r];
-    __syncthreads();
-    const bool any = type_filter<false>(F, 2, t);
-    int best = 0;
-    for (int i = tid; i < A.I; i += NT)
-      if (fi_bit(F.fi, i)) best = max(best, type_units(i, I32(tdaemon) + t * R, sh.preq));
-    best = block_reduce(best, RED_MAX);
-    if (tid == 0) {
-      S.ok_t[t] = any && F.row_compat && F.row_viable && (F.ftouched & ~F.fsegm) == 0 &&
-                  U8(tol_t)[(long long)p * T + t];
-      S.capt[t] = best;
-      keys_put(S.fkeys_t, t, F.fk, F.fbnd);
-    }
-    write_row<false>(row_of(S.final_t, t), F);
-    for (int w = tid; w < A.IW; w += NT) S.alive_t[t * A.IW + w] = (int)F.fi[w];
-    __syncthreads();
-  }
+  for (int t = 0; t < T; ++t) cache_template(p, S, t);
   prof_mark(PH_cache_templates);
 }

@@ -86,6 +86,7 @@
 #pragma once
 #include <cuda_runtime.h>
 #include <limits.h>
+#include <stddef.h>
 #include <stdint.h>
 
 #include "algebra.cuh"
@@ -93,7 +94,9 @@
 
 using namespace ktpu;
 
-#define NT 512
+#ifndef NT
+#define NT 512  // threads a CTA (the sweep libraries take 256, sweep_core.cuh)
+#endif
 #define NWARP (NT / 32)
 #define INF_I (1 << 30)
 #define FULL_MASK 0xffffffffu
@@ -112,24 +115,45 @@ enum { KIND_EXISTING = 0, KIND_CLAIM = 1, KIND_NEW = 2, KIND_FAIL = 3 };
 __constant__ StepArgs A;
 
 #ifdef KTPU_LANE_GRID
-// K7 scan_lanes: one CTA per lane. A holds lane 0's addresses; a field
-// that varies by lane (the state, the valid row, the outputs and the
-// scratch) has its lanes laid out one after another, `LS.f` elements
-// apart, and every access adds blockIdx.x lanes of that stride (0 for the
-// tables and the shared pod rows). The library without the define (K2,
-// K3) reads A as it is.
-struct LaneStrides {
-#define KTPU_DECL_STRIDE(name) long long name;
-  KTPU_STEP_PTR_FIELDS(KTPU_DECL_STRIDE)
-#undef KTPU_DECL_STRIDE
-};
-__constant__ LaneStrides LS;
-#define I32(f) ((int*)A.f + (long long)blockIdx.x * LS.f)
-#define U8(f) ((uint8_t*)A.f + (long long)blockIdx.x * LS.f)
+// K7 scan_lanes: one CTA per lane. The host resolves each lane's pointer to
+// every field of KTPU_LANE_PTR_FIELDS (its state, pod rows, outputs and
+// scratch) and uploads them, one row of KTPU_NLANE pointers a lane, into
+// the constant table LP beside A; CTA b reads field f at LP[b][LF_f], a
+// constant-cache load at a block-uniform address. Every other pointer
+// field (the tables all lanes share) is read from A, as K2 and K3 read it:
+// `lane_field` sorts the fields at compile time, so a table access costs
+// what it costs in K2. A launch of more than KTPU_MAX_LANES lanes runs as
+// consecutive launches of KTPU_MAX_LANES. The library without the define
+// (K2, K3) reads A as it is.
+#define KTPU_LANE_ENUM(name) LF_##name,
+enum { KTPU_LANE_PTR_FIELDS(KTPU_LANE_ENUM) KTPU_NLANE };
+#undef KTPU_LANE_ENUM
+#define KTPU_MAX_LANES 128
+__constant__ void* LP[KTPU_MAX_LANES][KTPU_NLANE];
+static_assert(sizeof(LP) + sizeof(StepArgs) <= 64 * 1024, "the lane table and A outgrow constant memory");
+
+// field f's row in LP, or -1 for a field all lanes share
+__host__ __device__ constexpr int lane_field(size_t off) {
+#define KTPU_LANE_CASE(name) \
+  if (off == offsetof(StepArgs, name)) return LF_##name;
+  KTPU_LANE_PTR_FIELDS(KTPU_LANE_CASE)
+#undef KTPU_LANE_CASE
+  return -1;
+}
+
+template <int L>
+__device__ __forceinline__ void* field_ptr(void* shared) {
+  if constexpr (L < 0)
+    return shared;
+  else
+    return LP[blockIdx.x][L];
+}
+#define FIELD(f) field_ptr<lane_field(offsetof(StepArgs, f))>(A.f)
 #else
-#define I32(f) ((int*)A.f)
-#define U8(f) ((uint8_t*)A.f)
+#define FIELD(f) (A.f)
 #endif
+#define I32(f) ((int*)FIELD(f))
+#define U8(f) ((uint8_t*)FIELD(f))
 #define ROW(p, r)                                                                              \
   Row {                                                                                        \
     I32(p##_mask) + (long long)(r)*A.TW, I32(p##_exmask) + (long long)(r)*A.TW,                \
@@ -255,17 +279,11 @@ struct Team<true> {
 };
 
 // ---------------------------------------------------------------------------
-// the per-phase clock breakdown (A.prof set; K7's lanes never profile):
-// thread 0 reads clock64() after the barrier that ends a phase and charges
-// the cycles since the previous mark to it. No decision reads it.
+// the per-phase clock breakdown (A.prof set; K7 profiles only a one-lane
+// launch): thread 0 reads clock64() after the barrier that ends a phase and
+// charges the cycles since the previous mark to it. No decision reads it.
 
-__device__ __forceinline__ bool prof_on() {
-#ifdef KTPU_LANE_GRID
-  return false;
-#else
-  return A.prof != nullptr;
-#endif
-}
+__device__ __forceinline__ bool prof_on() { return A.prof != nullptr; }
 
 __device__ __forceinline__ long long globaltimer() {
   long long t;

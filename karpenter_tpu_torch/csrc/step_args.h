@@ -40,6 +40,19 @@
   /* the per-phase clock breakdown (int64 [2 * KTPU_NPH + 2]; 0: off) */                     \
   X(prof)
 
+// The fields K7 scan_lanes resolves per lane (step.cuh `FIELD`): the state,
+// the pod batch, the outputs and the scratch block. The host hands one
+// pointer per lane and field (a field the lanes share gets lane 0's
+// pointer in every lane); every other pointer field is one table all lanes
+// read.
+#define KTPU_LANE_PTR_FIELDS(X)                                                              \
+  X(active) X(count) X(rank) X(tmpl) KTPU_REQS_FIELDS(X, creq) X(crequests) X(alive)         \
+  X(cmax_alloc) X(n_claims) KTPU_REQS_FIELDS(X, ereq) X(eavail) X(trem) X(v_cnt) X(h_cnt)    \
+  X(rescap) X(held) X(hp_used)                                                               \
+  KTPU_REQS_FIELDS(X, preq) X(prequests) X(typeok) X(tol_t) X(tol_e) X(topo_kind)            \
+  X(topo_gid) X(topo_sel) X(sel_v) X(sel_h) X(inv_h) X(own_h) X(valid) X(hp_own) X(hp_conf)  \
+  X(rrow) X(ntiers) X(kinds) X(slots) X(counters) X(cand) X(scratch)
+
 #define KTPU_STEP_INT_FIELDS(X)                                                              \
   X(P) X(N) X(E) X(T) X(I) X(IW) X(TW) X(K) X(R) X(O) X(Gv) X(VMAX) X(Gh) X(GhS) X(S) X(C)   \
   X(F) X(FA) X(HPW) X(NRES) X(NRESW) X(n_valid) X(L) X(NRX) X(relax) X(NOC) X(NBK) X(SMB)

@@ -10,8 +10,8 @@ every requeue round as ONE dispatch over all active lanes:
 - **The lane core** (`stack_lanes`, `fleet_dispatch`): each lane's State
   and PodX stacked on a leading lane axis, and one
   `tpu_kernel.solve_scan_lanes` call per round, which on the card is one
-  launch of K7 `scan_lanes` (K2's walk, one CTA per lane, a lane stride on
-  every State and PodX field).
+  launch of K7 `scan_lanes` (K2's walk, one CTA per lane, each lane's
+  State and PodX rows resolved once per launch).
 - **`FleetCoalescer`**: the batch window in front of `TorchScheduler`'s
   scan-path solve loop. The first lane in leads: it waits up to
   `window_seconds` for siblings (woken early when `max_lanes` arrive),

@@ -902,7 +902,7 @@ def solve_scan_lanes_plain(tb: Tables, st: State, xs: PodX, relax: bool = False)
     )
 
 
-def solve_scan_lanes(tb: Tables, st: State, xs: PodX, relax: bool = False):
+def solve_scan_lanes(tb: Tables, st: State, xs: PodX, relax: bool = False, prof: Optional[torch.Tensor] = None):
     """One scan-path requeue round for B stacked fleet lanes: the tables
     shared, each lane's own State and pod batch (every field of `st` and
     `xs` with a leading lane axis). Returns (state [B, ...], kinds [B, P],
@@ -910,8 +910,10 @@ def solve_scan_lanes(tb: Tables, st: State, xs: PodX, relax: bool = False):
     reference's `fleet_dispatch` tuple.
 
     CPU tensors take the plain version. CUDA tensors launch K7
-    `scan_lanes` with a lane stride on every State and PodX field, which
-    updates a copy of `st` in place.
+    `scan_lanes` with every State and PodX field resolved per lane
+    (`lane_pointers`), which updates a copy of `st` in place; a one-lane
+    launch takes a `prof` buffer (`prof_buffer("scan_lanes", ...)`) for
+    its per-phase clock breakdown, as `solve_scan` does.
 
     Replaces: karpenter_tpu/solver/fleet.py:164 `fleet_fn`
     (`jit(vmap(solve_scan, in_axes=(None, 0, 0)))`), dispatched by
@@ -921,7 +923,7 @@ def solve_scan_lanes(tb: Tables, st: State, xs: PodX, relax: bool = False):
     written); each lane is K2's dependent chain on its own SM."""
     if st.rank.device.type == "cpu":
         return solve_scan_lanes_plain(tb, st, xs, relax)
-    return _launch_lanes(tb, _clone_state(st), xs, PodX._fields, relax, "fleet_lanes")
+    return _launch_lanes(tb, _clone_state(st), xs, PodX._fields, relax, "fleet_lanes", prof)
 
 
 # ---------------------------------------------------------------------------
@@ -1265,22 +1267,97 @@ def _launch_scan_step(tb: Tables, st: State, xs: PodX, relax: bool, prof: Option
     return st, kinds, slots, counters[0] != 0, counters_odometer(counters, dev)
 
 
+# the fields K7 resolves per lane, in csrc/step_args.h KTPU_LANE_PTR_FIELDS
+# order: the state, the pod batch, the outputs and the scratch block
+STATE_PTR_FIELDS = (
+    ("active", "count", "rank", "tmpl") + tuple(f"creq_{f}" for f in Reqs._fields)
+    + ("crequests", "alive", "cmax_alloc", "n_claims") + tuple(f"ereq_{f}" for f in Reqs._fields)
+    + ("eavail", "trem", "v_cnt", "h_cnt", "rescap", "held", "hp_used")
+)
+PODX_PTR_FIELDS = tuple(f"preq_{f}" for f in Reqs._fields) + tuple(PODX_DTYPES)
+LANE_PTR_FIELDS = STATE_PTR_FIELDS + PODX_PTR_FIELDS + ("kinds", "slots", "counters", "cand", "scratch")
+
+
 @functools.lru_cache(maxsize=None)
 def _scan_lanes_library():
     lib, args_type = step_library("scan_lanes")
     lib.scan_lanes_launch.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
-    lib.scan_lanes_strides_size.restype = ctypes.c_int
+    lib.scan_lanes_lane_field_names.restype = ctypes.c_char_p
+    names = tuple(n for n in lib.scan_lanes_lane_field_names().decode().split(",") if n)
+    if names != LANE_PTR_FIELDS:
+        raise RuntimeError("scan_lanes: the lane fields disagree with the library")
     return lib, args_type
 
 
-def _launch_lanes(tb: Tables, st: State, xs: PodX, lane_fields, relax: bool, key: str):
+def lane_pointers(lanes: dict, shared: dict, B: int) -> list:
+    """K7's lane table, [B * len(LANE_PTR_FIELDS)] addresses in lane-major
+    order: for each lane b and each field of LANE_PTR_FIELDS, lane b's row
+    of `lanes[name]` (a contiguous tensor with a leading axis of B lanes),
+    else the address `shared[name]` that every lane reads (0 when the
+    launch does not read the field)."""
+    rows = {}
+    for name, t in lanes.items():
+        if t.shape[0] != B or not t.is_contiguous():
+            raise ValueError(f"scan_lanes: {name} is not a contiguous block of {B} lanes")
+        # an empty field has no rows: null in every lane, as torch gives it
+        rows[name] = (t.data_ptr(), t.stride(0) * t.element_size() if t.numel() else 0)
+    out = []
+    for b in range(B):
+        for name in LANE_PTR_FIELDS:
+            if name in rows:
+                base, step = rows[name]
+                out.append(base + b * step)
+            else:
+                out.append(shared.get(name, 0))
+    return out
+
+
+def lane_tensors(st: State, xs: PodX, lane_fields, relax: bool, outs: dict, key: str) -> dict:
+    """The [B, ...] tensor of every field K7 resolves per lane, by
+    LANE_PTR_FIELDS name: each State field, the PodX fields named in
+    `lane_fields` (rrow and ntiers only with `relax`) and the outputs and
+    scratch in `outs`; each checked for its lane count, dtype, device and
+    layout. A PodX field not named is shared by every lane."""
+    B = st.rank.shape[0]
+    dev = st.rank.device
+    lanes = {}
+
+    def put(name, t, dtype):
+        if t.shape[0] != B:
+            raise ValueError(f"{key}: {name} has {t.shape[0]} lanes, expected {B}")
+        checked_ptr(t, dtype, dev, name)
+        lanes[name] = t
+
+    i32, b8 = torch.int32, torch.bool
+    for name, dtype in (("active", b8), ("count", i32), ("rank", i32), ("tmpl", i32)):
+        put(name, getattr(st, name), dtype)
+    for prefix in ("creq", "ereq"):
+        for field, t, dtype in zip(Reqs._fields, getattr(st, prefix), REQS_DTYPES):
+            put(f"{prefix}_{field}", t, dtype)
+    for name, dtype in (
+        ("crequests", i32), ("alive", i32), ("cmax_alloc", i32), ("n_claims", i32), ("eavail", i32),
+        ("trem", i32), ("v_cnt", i32), ("h_cnt", i32), ("rescap", i32), ("held", i32), ("hp_used", i32),
+    ):
+        put(name, getattr(st, name), dtype)
+    for name in lane_fields:
+        if name == "preq":
+            for field, t, dtype in zip(Reqs._fields, xs.preq, REQS_DTYPES):
+                put(f"preq_{field}", t, dtype)
+        elif relax or name not in ("rrow", "ntiers"):
+            put(name, getattr(xs, name), PODX_DTYPES[name])
+    for name, t in outs.items():
+        put(name, t, t.dtype)
+    return lanes
+
+
+def _launch_lanes(tb: Tables, st: State, xs: PodX, lane_fields, relax: bool, key: str, prof=None):
     """Launch scan_lanes over st's lanes on `st` (every field with a
     leading lane axis, updated in place); `xs`'s fields named in
     `lane_fields` carry a leading lane axis too, the others are shared by
     every lane. Returns the solve_scan_lanes tuple and counts the launch
     under LAUNCHES[key] (key + "_relax" with the tier loop). The kernel
-    reads StepArgs at lane 0's addresses and a per-field lane stride
-    (csrc/step.cuh LaneStrides; 0 for a shared field)."""
+    reads the shared tables from StepArgs and each lane's state, pod rows,
+    outputs and scratch through the lane table (`lane_pointers`)."""
     lib, args_type = _scan_lanes_library()
     dev = st.rank.device
     B = st.rank.shape[0]
@@ -1293,52 +1370,27 @@ def _launch_lanes(tb: Tables, st: State, xs: PodX, lane_fields, relax: bool, key
     vals = step_arg_values(tb, lane0, xs0, dev)
     if relax:
         tier_arg_values(tb, xs0, vals, dev)
+    if prof is not None:
+        if B != 1:
+            raise ValueError(f"{key}: the clock breakdown takes a one-lane launch, not {B} lanes")
+        vals["prof"] = checked_prof(prof, "scan_lanes", dev)
     N = lane0.active.shape[0]
-    kinds = torch.empty((B, P), dtype=torch.int32, device=dev)
-    slots = torch.empty((B, P), dtype=torch.int32, device=dev)
-    counters = torch.zeros((B, N_COUNTERS), dtype=torch.int32, device=dev)
-    cand = torch.empty((B, N), dtype=torch.uint8, device=dev)
-    strides = {}  # field -> elements between lanes (0: shared by every lane)
-
-    def put_lane(name, t, dtype):
-        if t.shape[0] != B:
-            raise ValueError(f"{key}: {name} has {t.shape[0]} lanes, expected {B}")
-        vals[name] = checked_ptr(t, dtype, dev, name)
-        strides[name] = t[0].numel()
-
-    i32, b8 = torch.int32, torch.bool
-    for name, dtype in (("active", b8), ("count", i32), ("rank", i32), ("tmpl", i32)):
-        put_lane(name, getattr(st, name), dtype)
-    for prefix in ("creq", "ereq"):
-        for field, t, dtype in zip(Reqs._fields, getattr(st, prefix), REQS_DTYPES):
-            put_lane(f"{prefix}_{field}", t, dtype)
-    for name, dtype in (
-        ("crequests", i32), ("alive", i32), ("cmax_alloc", i32), ("n_claims", i32), ("eavail", i32),
-        ("trem", i32), ("v_cnt", i32), ("h_cnt", i32), ("rescap", i32), ("held", i32), ("hp_used", i32),
-    ):
-        put_lane(name, getattr(st, name), dtype)
-    for name in lane_fields:
-        if name == "preq":
-            for field, t, dtype in zip(Reqs._fields, xs.preq, REQS_DTYPES):
-                put_lane(f"preq_{field}", t, dtype)
-        elif relax or name not in ("rrow", "ntiers"):
-            put_lane(name, getattr(xs, name), PODX_DTYPES[name])
-    put_lane("kinds", kinds, i32)
-    put_lane("slots", slots, i32)
-    put_lane("counters", counters, i32)
-    put_lane("cand", cand, torch.uint8)
     # each lane's key masks of its claim slots and existing nodes
     per_lane = int(lib.scan_lanes_scratch_bytes(ctypes.byref(step_args("scan_lanes", args_type, vals))))
-    scratch = torch.empty((B, max(per_lane, 16)), dtype=torch.uint8, device=dev)
-    put_lane("scratch", scratch, torch.uint8)
+    outs = {
+        "kinds": torch.empty((B, P), dtype=torch.int32, device=dev),
+        "slots": torch.empty((B, P), dtype=torch.int32, device=dev),
+        "counters": torch.zeros((B, N_COUNTERS), dtype=torch.int32, device=dev),
+        "cand": torch.empty((B, N), dtype=torch.uint8, device=dev),
+        "scratch": torch.empty((B, max(per_lane, 16)), dtype=torch.uint8, device=dev),
+    }
+    table = lane_pointers(lane_tensors(st, xs, lane_fields, relax, outs, key), vals, B)
     args = step_args("scan_lanes", args_type, vals)
-    ptr_names = [f for f, t in args_type._fields_ if t is ctypes.c_void_p]
-    stride_type = type("LaneStrides", (ctypes.Structure,), {"_fields_": [(f, ctypes.c_longlong) for f in ptr_names]})
-    if ctypes.sizeof(stride_type) != lib.scan_lanes_strides_size():
-        raise RuntimeError("scan_lanes: LaneStrides layout disagrees with the library")
-    lane_strides = stride_type(**strides)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    code = lib.scan_lanes_launch(ctypes.byref(args), ctypes.byref(lane_strides), B, ctypes.c_void_p(stream))
+    code = lib.scan_lanes_launch(
+        ctypes.byref(args), (ctypes.c_void_p * len(table))(*table), B, ctypes.c_void_p(stream)
+    )
     _build.check_launch("scan_lanes", code)
+    kinds, slots, counters = outs["kinds"], outs["slots"], outs["counters"]
     LAUNCHES[key + "_relax" if relax else key] += 1
     return st, kinds, slots, counters[:, 0] != 0, counters_odometer(counters, dev)

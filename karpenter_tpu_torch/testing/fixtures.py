@@ -249,6 +249,39 @@ def make_self_spread_pods(count: int, cpu: str = "100m") -> list[Pod]:
     ]
 
 
+def make_follower_pods(count: int, cpu: str = "1") -> list[Pod]:
+    """Pods that must share a zone with make_self_spread_pods' pods (a
+    required zone affinity to app=fleet) and spread over zones themselves.
+    They ask more cpu, so FFD orders them first: in a solve's first round
+    no app=fleet pod is placed yet and each fails (they do not match their
+    own affinity, so nothing bootstraps), and the next round places them
+    beside the spread pods. Their self-selecting spread keeps the whole
+    problem on the scan path, so a fleet window's lanes requeue."""
+    labels = {"app": "follower"}
+    return [
+        pod(
+            name=f"follow-{i}",
+            labels=dict(labels),
+            requests={"cpu": cpu},
+            topology_spread_constraints=[
+                TopologySpreadConstraint(
+                    max_skew=1,
+                    topology_key=well_known.TOPOLOGY_ZONE_LABEL_KEY,
+                    when_unsatisfiable=WhenUnsatisfiable.DO_NOT_SCHEDULE,
+                    label_selector=LabelSelector(match_labels=dict(labels)),
+                )
+            ],
+            pod_requirements=[
+                PodAffinityTerm(
+                    topology_key=well_known.TOPOLOGY_ZONE_LABEL_KEY,
+                    label_selector=LabelSelector(match_labels={"app": "fleet"}),
+                )
+            ],
+        )
+        for i in range(count)
+    ]
+
+
 def make_pod_affinity_pods(count: int, key: str) -> list[Pod]:
     out = []
     for i in range(count):
@@ -358,6 +391,8 @@ def underutilized_world(
     n_pending: int = 0,
     pending_requests=None,
     rider_spread: Optional[int] = None,
+    heavy_every: Optional[int] = None,
+    heavy_requests=None,
 ):
     """An under-utilized fleet without the control plane: the counterpart
     of the reference's `underutilized_operator` (and its
@@ -374,7 +409,11 @@ def underutilized_world(
     the claims are marked consolidatable. `n_pending` unbound pods
     (pending_requests, default 250m / 256Mi) wait for the next solve.
     `rider_spread` gives every rider a zone topology spread with that
-    max skew (DoNotSchedule, over the riders).
+    max skew (DoNotSchedule, over the riders). With `heavy_every`, the node
+    of every seed i with i % heavy_every == 1 holds a bound pod of
+    heavy_requests (`heavy-<i>`, label fleet=heavy) instead of its rider:
+    a second pod class, which the sweeps order first when it asks more
+    cpu, and which no instance type may fit.
 
     Returns a convert.World (kube, cluster, clock, cloud)."""
     from karpenter_tpu_torch.api.objects import (
@@ -470,11 +509,12 @@ def underutilized_world(
             )
         ]
     for i in range(n_nodes):
+        heavy = heavy_every is not None and i % heavy_every == 1
         rider = pod(
-            name=f"rider-{i}",
-            labels={"fleet": "rider"},
-            requests=dict(rider_requests or {"cpu": "100m", "memory": "128Mi"}),
-            topology_spread_constraints=spread,
+            name=f"heavy-{i}" if heavy else f"rider-{i}",
+            labels={"fleet": "heavy" if heavy else "rider"},
+            requests=dict(heavy_requests if heavy else rider_requests or {"cpu": "100m", "memory": "128Mi"}),
+            topology_spread_constraints=[] if heavy else spread,
         )
         rider.node_name = node_of_seed[f"seed-{i}"]
         rider.phase = PodPhase.RUNNING

@@ -72,14 +72,35 @@ def _no_persistent_compile_cache():
     jaxsetup.ensure_compilation_cache()
 
 
-def _world(fx, types, cpu: str, n: int = 6, sizes=(2, 8), n_pref: int = 0):
+def _ref_followers(n: int) -> list:
+    """The reference twin of the port's `fixtures.make_follower_pods`."""
+    from karpenter_tpu.api import labels as wk
+    from karpenter_tpu.api.objects import LabelSelector, PodAffinityTerm, TopologySpreadConstraint, WhenUnsatisfiable
+
+    labels = {"app": "follower"}
+    spread = TopologySpreadConstraint(
+        max_skew=1, topology_key=wk.TOPOLOGY_ZONE_LABEL_KEY, when_unsatisfiable=WhenUnsatisfiable.DO_NOT_SCHEDULE,
+        label_selector=LabelSelector(match_labels=dict(labels)),
+    )
+    affinity = PodAffinityTerm(topology_key=wk.TOPOLOGY_ZONE_LABEL_KEY, label_selector=LabelSelector(match_labels={"app": "fleet"}))
+    return [
+        ref_fixtures.pod(name=f"follow-{i}", labels=dict(labels), requests={"cpu": "1"},
+                         topology_spread_constraints=[spread], pod_requirements=[affinity])
+        for i in range(n)
+    ]
+
+
+def _world(fx, types, cpu: str, n: int = 6, sizes=(2, 8), n_pref: int = 0, n_follow: int = 0):
     """One lane's problem, built by either package's fixtures: n
-    self-spread pods (the scan path's fixture) at `cpu`, and n_pref
-    preference pods (relaxation ladders) from one seed."""
+    self-spread pods (the scan path's fixture) at `cpu`, n_pref
+    preference pods (relaxation ladders) from one seed, and n_follow pods
+    that need a second round (`fixtures.make_follower_pods`)."""
     fx.reset_rng(5)
     its = types(sizes=list(sizes))
     pools = [fx.node_pool(name="default")]
     pods = fx.make_self_spread_pods(n, cpu) + fx.make_preference_pods(n_pref)
+    if n_follow:
+        pods += fixtures.make_follower_pods(n_follow) if fx is fixtures else _ref_followers(n_follow)
     return pools, {"default": its}, pods
 
 
@@ -236,6 +257,28 @@ def test_coalesced_window_matches_reference_solo(lanes, n_pref):
     assert fleet.FLEET_SOLVES["fallback"] == c0["fallback"]
     # one shared dispatch per round for the whole window, never per lane
     assert fleet.FLEET_DISPATCHES["fleet"] - d0 == max(rounds) >= 1
+
+
+def test_requeued_window_matches_reference_solo():
+    """A window whose lanes requeue: each lane's follower pods fail in the
+    first round (no app=fleet pod is placed yet) and land in the second.
+    Every lane is coalesced and equals its solo JAX solve (decisions and
+    odometer), with one shared dispatch per round over at least two."""
+    profiles = PROFILES[:3]
+    kw = dict(n=6, n_follow=2)
+    refs = {cpu: _ref_solo(cpu, **kw) for cpu in profiles}
+    assert all(r[1]["dispatches"] >= 2 for r in refs.values())
+    d0 = fleet.FLEET_DISPATCHES["fleet"]
+    coalescer = fleet.FleetCoalescer(window_seconds=10.0, max_lanes=len(profiles))
+    out = _drive_window(profiles, coalescer, **kw)
+    for cpu in profiles:
+        snap, sched = out[cpu]
+        assert snap == refs[cpu][0], cpu
+        assert not snap[1] and snap[0], cpu  # every follower placed
+        _assert_odometer(sched.last_odometer, refs[cpu][1])
+        assert sched.last_fleet["mode"] == "coalesced" and sched.last_fleet["rounds"] >= 2
+    assert coalescer.last_window["rounds"] >= 2
+    assert fleet.FLEET_DISPATCHES["fleet"] - d0 == coalescer.last_window["rounds"]
 
 
 # ---------------------------------------------------------------------------

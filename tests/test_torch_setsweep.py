@@ -12,6 +12,10 @@ helpers). Every comparison is exact:
 - the plain K8 (`set_sweep_plain`) equals the reference's
   `_set_sweep_kernel` on the reference context's inputs;
 - `SetProposer`, `savings_estimate` and `_prefix_len` are the reference's;
+- on the c0 fleet (`fixtures.underutilized_world(..., heavy_every=3)`,
+  chip_smoke.py's fleet whose lanes' first leftover class differs), the
+  plain K6 and K8 equal the reference's `_fast_sweep_kernel` and
+  `_set_sweep_kernel`, leftovers included;
 - every SweepUnsupported gate of `SetSweepContext.build` / `evaluate`
   fires on the same crafted case.
 """
@@ -42,7 +46,8 @@ from karpenter_tpu_torch.controllers.disruption import setsweep as pset
 from karpenter_tpu_torch.controllers.disruption import sweep as psweep
 from karpenter_tpu_torch.solver import tpu_problem as ptp
 from karpenter_tpu_torch.utils import resources as pres
-from test_torch_sweep import EDGE_FLEETS, MATRIX_FLEETS, fleet_op, fleet_sides, sides
+from karpenter_tpu_torch.testing import fixtures as pfixtures
+from test_torch_sweep import EDGE_FLEETS, MATRIX_FLEETS, _fleet_multiset, fleet_op, fleet_sides, port_sweep, ref_sweep, sides
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -162,6 +167,95 @@ def test_set_sweep_matches_reference(fleet):
     if fleet == "pinned":
         # the winning non-prefix set {c1, c2} is feasible on both sides
         assert pctx.evaluate(np.array([[False, True, True]]))[0]
+
+
+# ---------------------------------------------------------------------------
+# the c0 fleet: lanes whose first leftover class differs
+
+C0_RIDER = {"cpu": "700m", "memory": "512Mi"}
+C0_HEAVY = {"cpu": "1000", "memory": "1Gi"}
+
+
+def c0_op(n: int):
+    """`fixtures.underutilized_world(n, rider_requests=C0_RIDER,
+    heavy_every=3, heavy_requests=C0_HEAVY)` through the reference's control
+    plane: riders as large as the seeds (no node has room for a removed
+    one), and on every third node a bound pod that asks more cpu than any
+    type has in place of its rider. A lane that removes a heavy node
+    leaves the heavy class first, which no template fits; a lane that
+    removes only rider nodes leaves the rider class first."""
+    op = fixtures.underutilized_operator(n, seed=7, rider_requests=C0_RIDER, force_oracle=True)
+    for i in range(1, n, 3):
+        node_name = op.kube.get("Pod", f"rider-{i}").node_name
+        op.kube.delete("Pod", f"rider-{i}")
+        heavy = fixtures.pod(name=f"heavy-{i}", labels={"fleet": "heavy"}, requests=C0_HEAVY)
+        heavy.node_name = node_name
+        heavy.phase = PodPhase.RUNNING
+        op.kube.create("Pod", heavy)
+    op.clock.advance(30.0)
+    op.pod_events.reconcile_all()
+    op.claim_conditions.reconcile_all()
+    return op
+
+
+def _first_left(left) -> list:
+    """Each lane's first leftover class (0 when none, as the kernels take)."""
+    return [int(c) for c in (left > 0).to(torch.int32).argmax(dim=1).tolist()]
+
+
+def test_c0_fleet_kernels_match_reference(monkeypatch):
+    n = 9
+    op = c0_op(n)
+    w = pfixtures.underutilized_world(n, seed=7, rider_requests=C0_RIDER, heavy_every=3, heavy_requests=C0_HEAVY)
+    assert _fleet_multiset(w.kube) == _fleet_multiset(op.kube)  # one fleet, built by either side
+    ref, port = sides(op, limit=n)
+    t = lambda a: torch.from_numpy(np.array(a))
+
+    # K6: the verdicts on both sides, then the plain K6 on the reference's inputs
+    captured = []
+    real = jax.jit(rsweep._fast_sweep_kernel, static_argnames=("singleton",))
+
+    def spy(*args, singleton=False):
+        out = real(*args, singleton=singleton)
+        captured.append((jax.device_get(args), singleton, jax.device_get(out)))
+        return out
+
+    monkeypatch.setattr(rsweep, "_fast_sweep_cached", spy)
+    for singleton in (False, True):
+        want, want_steps = ref_sweep(ref, singleton)
+        got, got_steps = port_sweep(port, singleton)
+        assert psweep.last_sweep["path"] == "sweep_fast"
+        assert got == want and got_steps == want_steps
+    assert len(captured) == 2
+    for (tb, st, x, avail0, cand_idx, counts, sizes), singleton, (feas, steps) in captured:
+        got_feas, got_steps, left = psweep.fast_sweep_plain(
+            convert.tables(tb), convert.state(st), convert.pod_x(x), t(avail0), t(cand_idx), t(counts), t(sizes),
+            singleton=singleton, with_left=True,
+        )
+        assert np.array_equal(got_feas.numpy(), np.asarray(feas)) and got_steps == int(steps)
+        c0 = _first_left(left[: len(ref.cands)])
+        assert set(c0) == {0, 1}, (singleton, c0)  # the heavy class first in some lanes, the riders' in others
+        feas_c0 = [bool(f) for f, c in zip(np.asarray(feas), c0)]
+        # the heavy class fits no template, the riders' one does: the
+        # first leftover class decides
+        assert not any(f for f, c in zip(feas_c0, c0) if c == 0) and any(f for f, c in zip(feas_c0, c0) if c == 1)
+
+    # K8 on the proposer's first round
+    rctx, pctx = _contexts(ref, port)
+    batch = rset.SetProposer(ref.cands, seed=7).first_round()
+    _evaluate_both(rctx, pctx, batch)
+    Bp = rtp._pow2(len(batch), floor=rset.LANE_BUCKET_FLOOR)
+    member = np.zeros((Bp, int(rctx.percand_counts.shape[0])), np.int32)
+    member[: len(batch), : rctx.n_candidates] = batch
+    want_feas, want_steps = jax.device_get(rctx._dispatch(jax.numpy.asarray(member)))
+    got_feas, got_steps, left = pset.set_sweep_plain(
+        convert.tables(jax.device_get(rctx.tb)), convert.state(jax.device_get(rctx.base_st)),
+        convert.pod_x(jax.device_get(rctx.x_row)), t(rctx.avail0), t(rctx.slot_cand), t(member),
+        t(rctx.base_counts), t(rctx.percand_counts), t(rctx.sizes), with_left=True,
+    )
+    assert np.array_equal(got_feas.numpy(), np.asarray(want_feas)) and got_steps == int(want_steps)
+    c0 = _first_left(left[: len(batch)])
+    assert set(c0) == {0, 1}, c0
 
 
 # ---------------------------------------------------------------------------
