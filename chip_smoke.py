@@ -8,7 +8,8 @@ Run from the repository root on a machine with one NVIDIA card:
 It builds the eight CUDA kernels from csrc/ and holds each against its plain
 PyTorch version on the card, bit for bit:
 
-- K1 typeok_screen on the headline's class rows and the c6 mix's tier rows;
+- K1 typeok_screen on the headline's class rows, the c6 mix's tier rows,
+  the full-size screens world's class rows and a 2048-type catalog's;
 - K2 scan_step on three small problems and a 2048-pod prefix of the
   headline round (the whole round is timed too), and with the relax tier
   loop on three small tiered problems (one overflows mid-ladder) and the
@@ -17,7 +18,9 @@ PyTorch version on the card, bit for bit:
   and on the headline's two dispatches (up to the claim-slot overflow,
   then the rest after the state grows), and with the relax tier loop on
   two small tiered problems and the c6 mix's two dispatches;
-- K4 run_arrays on the headline round;
+- K4 run_arrays on both rounds of the headline and of the c6 mix, and on
+  seeded rounds of P in {1, 31, 32, 33, 1024, 1025, 16384, 65536}
+  positions (n = 0, a middle n, n = P, one run over every position);
 - K5 dedup_rows on the headline's final claim rows and on 16384 synthetic
   rows with many duplicates;
 - K6 fast_sweep (prefix and singleton lanes) and K8 set_sweep (1024
@@ -38,7 +41,9 @@ PyTorch version on the card, bit for bit:
   minValues; and existing-node windows) and on a 2048-type catalog whose
   type tables spill from shared to device memory.
 
-It prints the per-phase clock breakdown of K3 (the headline's and c6's two
+It prints the device time (profiler) and the wrapper's host time a call
+of K1, K4 and K5 beside an empty kernel's (the launch floor), and the
+per-phase clock breakdown of K3 (the headline's and c6's two
 dispatches), K2 (a 2048-pod headline prefix) and K7 at one lane beside K2
 on the same fleet lane, each profiled launch held bit for bit to the same
 launch without it, where each launch table lived (shared or device
@@ -154,6 +159,8 @@ LARGE_CATALOG_PODS = 512
 FLEET_JOIN_SECONDS = 300.0
 # the device functions of K6 and K8, as the profiler names them
 SWEEP_KERNELS = ("sweep_cache_kernel", "fast_sweep_lanes", "set_sweep_lanes")
+# K5's device functions
+K5_KERNELS = ("hash_kernel", "sort_shared_kernel", "sort_pass_kernel", "mark_kernel", "scan_kernel", "compact_kernel")
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 CORE_OPS_PER_S = 67e12  # H100 SXM non-tensor 32-bit rate (fp32 figure)
 
@@ -659,6 +666,122 @@ def device_ms(fn, reps: int, names: tuple) -> Optional[float]:
     return sum(split.values()) if split else None
 
 
+def host_ms(fn, reps: int, batches: int = 5) -> float:
+    """The host side of a call: the wall ms of `reps` calls with no sync,
+    per call, the least of `batches` such runs (the device catches up
+    between them, untimed): the shared host's other work only adds."""
+    import torch
+
+    fn()
+    best = float("inf")
+    for _ in range(batches):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        best = min(best, time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    return best * 1e3 / reps
+
+
+class K1Rows(NamedTuple):
+    """A K1 launch as TorchScheduler._tables makes it: the type tables,
+    the padded rows, the words a row and the padding's period."""
+
+    tb: object
+    rows: object
+    iw: int
+    n: int
+
+    def launch(self):
+        from karpenter_tpu_torch.solver import tpu as T
+
+        return T.typeok_screen(self.tb.ireq, self.tb.va, self.rows, self.iw, n_rows=self.n)
+
+    def plain(self):
+        from karpenter_tpu_torch.solver import tpu as T
+
+        return T.typeok_plain(self.tb.ireq, self.tb.va, self.rows, self.iw)
+
+
+def k1_rows(world: World, dev, tier: bool = False) -> K1Rows:
+    """A world's class rows (`_cr_padded`) or, with `tier`, its tier rows
+    (`_tier_rows`), as the solve screens them."""
+    from karpenter_tpu_torch.device import to_tensor
+    from karpenter_tpu_torch.ops.encode import Reqs
+    from karpenter_tpu_torch.solver.tpu_problem import encode_problem
+
+    sched, pods = scheduler_for(world, dev)
+    problem = encode_problem(sched.oracle, pods)
+    tb = sched._tables(problem)
+    iw = max(1, (problem.num_types + 31) // 32)
+    if tier:
+        return K1Rows(tb, sched._tier_rows(problem), iw, len(problem.rt_tier_reqs) * problem.num_tiers)
+    rows = Reqs(*(to_tensor(a[sched._cr_padded(problem)], dev) for a in problem.preq_c))
+    return K1Rows(tb, rows, iw, len(problem.rclass_creps))
+
+
+def k1_checked(label: str, k: K1Rows) -> int:
+    """K1 against its plain version on the card: the mismatched words."""
+    import torch
+
+    got, want = k.launch(), k.plain()
+    torch.cuda.synchronize()
+    bad = int((got != want).sum())
+    log(
+        f"K1 typeok_screen {label}: [{k.rows.mask.shape[0]}, {k.iw}] words, {k.n} distinct "
+        f"(TW={k.tb.va.full_mask.shape[0]}, K={k.tb.va.num_keys}, I={k.tb.ireq.mask.shape[0]}): "
+        f"{bad} mismatched words vs plain"
+    )
+    return bad
+
+
+def k1_bound_of(k: K1Rows) -> tuple[float, str]:
+    """K1's least time: the type fields it reads and the n distinct rows
+    read once, the [B, IW] words written once; n x I pairs of TW mask words
+    and 2 K bounds."""
+    I, TW, Kk = k.tb.ireq.mask.shape[0], k.tb.ireq.mask.shape[1], k.tb.va.num_keys
+    B = k.rows.mask.shape[0]
+    row_bytes = TW * 4 + Kk * (3 + 2 * 4)  # mask, other/notin/defined, gt/lt
+    return bound((I + k.n) * row_bytes + TW * 4 + B * k.iw * 4, k.n * I * (TW + 2 * Kk))
+
+
+K4_EDGE_P = (1, 31, 32, 33, 1024, 1025, 16384, 65536)
+
+
+def k4_edge_checks(dev) -> list:
+    """K4 against run_arrays_plain on seeded rounds at the edges of its
+    tiles and of the runs path's buckets (up to 65536 positions): at each
+    P, n = 0, a middle n (runs of a sorted class order, then padding) and
+    n = P, and one run over every position. Returns the (P, n, case)
+    that disagree."""
+    import numpy as np
+    import torch
+
+    from karpenter_tpu_torch.solver import tpu as T
+
+    rng = np.random.default_rng(4)
+    n_pods, n_cls = 70000, 50
+    cls = torch.from_numpy(np.sort(rng.integers(0, n_cls, n_pods)).astype(np.int32)).to(dev)
+    bulk_c = torch.from_numpy(rng.random(n_cls) < 0.6).to(dev)
+    aff_c = torch.from_numpy(rng.random(n_cls) < 0.3).to(dev)
+    bad = []
+    for P in K4_EDGE_P:
+        for n, case in ((0, "n=0"), (P // 2 + 1 if P > 1 else 1, "middle"), (P, "n=P"), (P, "one run")):
+            idx = np.zeros(P, np.int32)
+            if case == "one run":
+                idx[:] = 7
+            else:
+                idx[:n] = np.sort(rng.choice(n_pods, size=n, replace=False))
+            args = (cls, bulk_c, aff_c, torch.from_numpy(idx).to(dev), n)
+            got, want = T.run_arrays(*args), T.run_arrays_plain(*args)
+            if not all(torch.equal(a, b) for a, b in zip(got, want)):
+                bad.append((P, n, case))
+    torch.cuda.synchronize()
+    log(f"K4 run_arrays edges (P in {list(K4_EDGE_P)}; n = 0, middle, P, one run): mismatches={bad or 'none'}")
+    return bad
+
+
 def nbytes(*trees) -> int:
     import torch
 
@@ -928,15 +1051,22 @@ def full_size_phase(dev) -> Optional[dict]:
     (existing-node windows) through K3 against its plain version, its
     runs-path and forced-scan solves against the oracle. Then a catalog of
     LARGE_CATALOG_TYPES types, whose type tables do not all fit the shared
-    memory, through both kernels against their plain versions. Returns the
-    phase's numbers, or None when anything disagrees."""
+    memory, through both kernels against their plain versions. K1 is held
+    to its plain version on the screens world's and the catalog's class
+    rows. Returns the phase's numbers (with the catalog's K1 launch), or
+    None when anything disagrees."""
     from karpenter_tpu_torch.solver import tpu_kernel as K
     from karpenter_tpu_torch.solver import tpu_runs as KR
     from karpenter_tpu_torch.solver.oracle import Scheduler
     from karpenter_tpu_torch.solver.tpu_problem import _pow2
 
     t_phase = time.monotonic()
-    out = {}
+    # K1 on the screens world's class rows and the large catalog's
+    out = {"k1_large": k1_rows(headline_world(LARGE_CATALOG_PODS, build_universe(LARGE_CATALOG_TYPES)), dev)}
+    k1_bad = k1_checked(f"full-size screens world class rows ({FULL_PODS} pods)", k1_rows(full_world(True), dev))
+    k1_bad += k1_checked(f"{LARGE_CATALOG_TYPES}-type catalog class rows ({LARGE_CATALOG_PODS} pods)", out["k1_large"])
+    if k1_bad:
+        return None
     for label, screens in (("screens", True), ("bulk", False)):
         k3 = runs_checked(full_world(screens), dev, exact_only=screens, device_tables=screens)
         kinds = k3.pop("kinds")
@@ -1825,31 +1955,18 @@ def main() -> int:
     its = build_universe(HEADLINE_TYPES)
 
     # ---- 3. K1 typeok_screen vs its plain version, headline tables ----
-    sched, pods = scheduler_for(headline_world(HEADLINE_PODS, its), dev)
-    from karpenter_tpu_torch.device import to_tensor
-    from karpenter_tpu_torch.ops.encode import Reqs
-    from karpenter_tpu_torch.solver.tpu_problem import _pow2, encode_problem
+    from karpenter_tpu_torch.solver.tpu_problem import _pow2
 
     t0 = time.monotonic()
-    problem = encode_problem(sched.oracle, pods)
-    log(f"headline encode: {time.monotonic() - t0:.2f}s (host)")
-    tb = sched._tables(problem)
-    IW = max(1, (problem.num_types + 31) // 32)
-    rows = Reqs(*(to_tensor(a[sched._cr_padded(problem)], dev) for a in problem.preq_c))
-    got = T.typeok_screen(tb.ireq, tb.va, rows, IW)
-    want = T.typeok_plain(tb.ireq, tb.va, rows, IW)
-    torch.cuda.synchronize()
-    k1_mism = int((got != want).sum())
-    log(
-        f"K1 typeok_screen: [{rows.mask.shape[0]}, {IW}] words (TW={tb.va.full_mask.shape[0]}, "
-        f"K={tb.va.num_keys}, I={tb.ialloc.shape[0]}): {k1_mism} mismatched words vs plain"
-    )
+    k1h = k1_rows(headline_world(HEADLINE_PODS, its), dev)
+    log(f"headline encode and tables: {time.monotonic() - t0:.2f}s (host)")
+    k1_mism = k1_checked("headline class rows", k1h)
     if k1_mism:
         return 1
-    k1_ms = cuda_ms(lambda: T.typeok_screen(tb.ireq, tb.va, rows, IW), 200)
-    k1_plain_ms = cuda_ms(lambda: T.typeok_plain(tb.ireq, tb.va, rows, IW), 20)
-    B, I, TWn, Kn = rows.mask.shape[0], tb.ialloc.shape[0], tb.va.full_mask.shape[0], tb.va.num_keys
-    k1_bound, k1_by = bound(nbytes(tb.ireq, rows, tb.va.word2key) + B * IW * 4, B * I * (TWn + 2 * Kn))
+    k1_ms = cuda_ms(k1h.launch, 200)
+    k1_plain_ms = cuda_ms(k1h.plain, 20)
+    IW = k1h.iw
+    k1_bound, k1_by = k1_bound_of(k1h)
 
     # ---- 4. K2 scan_step vs its plain version, on the card ----
     k2_mism = 0
@@ -1987,17 +2104,24 @@ def main() -> int:
         int(got1[6].steps) * N1 * (R_h + IW) + int(got2[6].steps) * 2 * N1 * (R_h + IW),
     )
 
-    # ---- 6. K4 run_arrays vs its plain version, headline round ----
+    # ---- 6. K4 run_arrays vs its plain version: both headline rounds, the edges ----
     cls_d = rr.sched._dev_tables["cls"]
     bulk_d, aff_d = rr.sched._runflags_dev
     _, idx_h = rr.sched._pod_xs_with_idx(rr.problem, rr.order)
     k4_args = (cls_d, bulk_d, aff_d, idx_h, n)
-    k4_mism = sum(int(not torch.equal(a, b)) for a, b in zip(T.run_arrays(*k4_args), T.run_arrays_plain(*k4_args)))
+    k4_rounds = {"headline round 1": k4_args, "headline round 2": (cls_d, bulk_d, aff_d, idx2, len(batch))}
+    k4_mism = sum(
+        int(not torch.equal(a, b)) for args in k4_rounds.values() for a, b in zip(T.run_arrays(*args), T.run_arrays_plain(*args))
+    )
+    k4_mism += len(k4_edge_checks(dev))
     k4_ms = cuda_ms(lambda: T.run_arrays(*k4_args), 200)
     k4_plain_ms = cuda_ms(lambda: T.run_arrays_plain(*k4_args), 50)
     P_r = idx_h.shape[0]
     k4_bound, k4_by = bound(P_r * 4 + P_r * 4 + bulk_d.numel() + aff_d.numel() + P_r * (3 + 4), P_r * 8)
-    log(f"K4 run_arrays headline round (P={P_r}): kernel {k4_ms:.4f} ms, plain {k4_plain_ms:.4f} ms, mismatched arrays={k4_mism}")
+    log(
+        f"K4 run_arrays headline rounds (P={P_r}, {idx2.shape[0]}): kernel {k4_ms:.4f} ms, plain {k4_plain_ms:.4f} ms, "
+        f"mismatched arrays={k4_mism}"
+    )
     if k4_mism:
         return 1
 
@@ -2139,24 +2263,14 @@ def main() -> int:
 
     # ---- 10. the relax tier loop: K1 on tier rows, K2 and K3 with relax ----
     # K1 over the c6 mix's tier rows (each relaxable class x tier, padded)
-    sched6, pods6 = scheduler_for(c6_world(C6_PODS, its), dev)
-    problem6 = encode_problem(sched6.oracle, pods6)
-    tb6 = sched6._tables(problem6)
-    trows = sched6._tier_rows(problem6)
-    got = T.typeok_screen(tb6.ireq, tb6.va, trows, IW)
-    want = T.typeok_plain(tb6.ireq, tb6.va, trows, IW)
-    torch.cuda.synchronize()
-    k1t_mism = int((got != want).sum())
-    k1t_ms = cuda_ms(lambda: T.typeok_screen(tb6.ireq, tb6.va, trows, IW), 200)
-    k1t_plain_ms = cuda_ms(lambda: T.typeok_plain(tb6.ireq, tb6.va, trows, IW), 20)
-    Bt = trows.mask.shape[0]
-    k1t_bound, k1t_by = bound(nbytes(tb6.ireq, trows, tb6.va.word2key) + Bt * IW * 4, Bt * I * (TWn + 2 * Kn))
-    log(
-        f"K1 typeok_screen c6 tier rows: [{Bt}, {IW}] words ({len(problem6.rt_tier_reqs)} relaxable classes x "
-        f"{problem6.num_tiers} tiers): kernel {k1t_ms:.4f} ms, plain {k1t_plain_ms:.4f} ms, {k1t_mism} mismatched words"
-    )
+    k1t = k1_rows(c6_world(C6_PODS, its), dev, tier=True)
+    k1t_mism = k1_checked("c6 tier rows (relaxable classes x tiers)", k1t)
     if k1t_mism:
         return 1
+    k1t_ms = cuda_ms(k1t.launch, 200)
+    k1t_plain_ms = cuda_ms(k1t.plain, 20)
+    k1t_bound, k1t_by = k1_bound_of(k1t)
+    log(f"K1 typeok_screen c6 tier rows: kernel {k1t_ms:.4f} ms, plain {k1t_plain_ms:.4f} ms")
 
     # K2 with relax on small tiered problems: an overflow mid-ladder (2
     # slots), a tier that fails after the claim screen and verify loop
@@ -2267,6 +2381,18 @@ def main() -> int:
     xs62, idx62 = rr6.sched._pod_xs_with_idx(rr6.problem, batch6)
     rx62 = rr6.sched._run_x(xs62, idx62, len(batch6))
     cont6 = (rr6.tb, st62, rx62, seq62, got61[2], len(batch6), True)
+    # K4 on the c6 mix's two rounds
+    cls6, (bulk6, aff6) = rr6.sched._dev_tables["cls"], rr6.sched._runflags_dev
+    _, idx61 = rr6.sched._pod_xs_with_idx(rr6.problem, rr6.order)
+    k4_args6 = (cls6, bulk6, aff6, idx61, n6)
+    k4_rounds.update({"c6 round 1": k4_args6, "c6 round 2": (cls6, bulk6, aff6, idx62, len(batch6))})
+    k4c6_bad = [
+        label for label, args in k4_rounds.items() if label.startswith("c6")
+        and not all(torch.equal(a, b) for a, b in zip(T.run_arrays(*args), T.run_arrays_plain(*args)))
+    ]
+    log(f"K4 run_arrays c6 rounds (P={idx61.shape[0]}, {idx62.shape[0]}): mismatches={k4c6_bad or 'none'}")
+    if k4c6_bad:
+        return 1
     got62 = KR.solve_runs(*cont6)
     t0 = time.monotonic()
     want62 = KR.solve_runs_plain(*cont6)
@@ -2405,7 +2531,8 @@ def main() -> int:
 
     # ---- 11b. existing nodes, host ports, limits, reservations and
     # minValues at full size; a catalog past the shared-memory budget ----
-    if full_size_phase(dev) is None:
+    full = full_size_phase(dev)
+    if full is None:
         return 1
 
     # ---- 12. the consolidation sweeps (K6, K7, K8) ----
@@ -2418,7 +2545,22 @@ def main() -> int:
     if fleet_row is None:
         return 1
 
-    # ---- 14. the kernels line ----
+    # ---- 14. K1, K4 and K5 apart: device time (profiler) and the wrapper's
+    # host time a call, beside the launch floor (an empty kernel) ----
+    floor = {"device_ms": device_ms(lambda: T.empty_launch(dev), 200, ("empty_kernel",)),
+             "host_ms": host_ms(lambda: T.empty_launch(dev), 200)}
+    log(f"launch floor (empty kernel, a launch): {json.dumps(floor)}")
+    small = {
+        "typeok_screen": (k1h.launch, ("typeok_kernel",)),
+        "typeok_screen (tier rows)": (k1t.launch, ("typeok_kernel",)),
+        "typeok_screen (large catalog)": (full["k1_large"].launch, ("typeok_kernel",)),
+        "run_arrays": (lambda: T.run_arrays(*k4_args), ("run_arrays_kernel",)),
+        "dedup_rows": (lambda: T.dedup_rows(drows), K5_KERNELS),
+    }
+    apart = {k: {"device_ms": device_ms(fn, 200, names), "host_ms": host_ms(fn, 200)} for k, (fn, names) in small.items()}
+    log(f"device and host ms a call: {json.dumps(apart)}")
+
+    # ---- 15. the kernels line ----
     kernels = [
         row("typeok_screen", "typeok.cu", "karpenter_tpu/solver/tpu.py:61", launches["typeok_screen"], k1_mism,
             k1_ms, k1_plain_ms, k1_bound, k1_by),
@@ -2449,6 +2591,8 @@ def main() -> int:
             tier_hist={"preference_round": pref_hist, "c6": odo6["tier_hist"]},
         ),
     ] + sweep_rows + [fleet_row]
+    for r in kernels:
+        r.update(apart.get(r["name"], {}))
     log(f"chip_smoke: {time.monotonic() - t_start:.1f}s in all")
     print(json.dumps({"kernels": kernels}))
     print(smi)

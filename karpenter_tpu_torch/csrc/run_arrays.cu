@@ -3,78 +3,168 @@
 // Replaces karpenter_tpu/solver/tpu.py:155 `_run_arrays`: from the round's
 // pod index array and the per-class flags, is_head (first pod of its class
 // run; padding positions are all heads), bulk and aff (the class flags,
-// off for padding) and run_rem (pods from i to the end of its run).
-//
-// Design. One CTA of NT threads, each owning a contiguous chunk of the P
-// positions: head flags and the chunk's minimum head position, a suffix
-// minimum over the chunk minima (one thread; NT values), then each thread
-// walks its chunk backwards carrying the next head after i. run_rem[i] =
-// min(next head, P) - i, the reference's reverse cummin.
+// off for padding) and run_rem (pods from i to the end of its run: the next
+// head strictly after i, or P, minus i — the reference's reverse cummin).
 //
 // Bound on an H100: bytes (a few [P] arrays, tens of KB at the headline's
-// P = 16384), so the single launch's latency decides.
+// P = 16384), so the launch's latency decides: the dependent trips to
+// memory and the barriers.
+//
+// Design: one CTA of NT threads, consecutive threads on consecutive
+// positions, so that every load and store of a warp is coalesced.
+//   0. The per-class flags, bulk | aff << 1, go to shared memory; their
+//      loads fly while step 1 gathers.
+//   1. Each thread gathers the class of U positions at once (idx, then
+//      cls: U independent chains in flight, two trips to memory for the
+//      whole round up to U * NT positions), gets its predecessor's class
+//      with __shfl_up_sync (lane 0, at the warp's edge, gathers position
+//      i - 1's itself beside its own: no barrier), writes is_head, bulk
+//      and aff, and the warp's 32 head flags become one bit word in shared
+//      memory (__ballot_sync).
+//   2. next[q], the first word after word q that holds a head: a
+//      block-wide reverse min-scan over the words, each warp's in log2(32)
+//      shuffle steps, then one warp over the 32 warp totals; tiles of NT
+//      words are walked from the last to the first, carrying the minimum.
+//   3. run_rem[i] from the bit words alone: the next head inside i's word
+//      (__ffs of the bits above i), else the first bit of word next[q].
+// is_head is never read back from device memory, and nothing walks a
+// sequence serially.
 #include <cuda_runtime.h>
 #include <limits.h>
 #include <stdint.h>
 
 #define NT 1024
+#define U 16  // positions a thread gathers at once
 
 struct RunArraysArgs {
-  const int* cls;          // [NCLS] class of each pod
-  const uint8_t* bulk_c;   // [NC]
-  const uint8_t* aff_c;    // [NC]
-  const int* idx;          // [P] pod of each position
-  uint8_t* is_head;        // [P]
-  uint8_t* bulk;           // [P]
-  uint8_t* aff;            // [P]
-  int* run_rem;            // [P]
+  const int* cls;         // [NCLS] class of each pod
+  const uint8_t* bulk_c;  // [NC]
+  const uint8_t* aff_c;   // [NC]
+  const int* idx;         // [P] pod of each position
+  int* out;               // run_rem [P] int32, then is_head, bulk, aff [P] bytes each
   int P, n, NCLS, NC;
 };
 
 __device__ __forceinline__ int class_at(const RunArraysArgs& a, int i) {
-  const int pod = min(max(a.idx[i], 0), a.NCLS - 1);
-  return min(max(a.cls[pod], 0), a.NC - 1);
+  const int pod = min(max(__ldg(a.idx + i), 0), a.NCLS - 1);
+  return min(max(__ldg(a.cls + pod), 0), a.NC - 1);
 }
 
-__global__ void __launch_bounds__(NT, 1) run_arrays_kernel(RunArraysArgs a) {
-  __shared__ int chunk_min[NT];
-  const int tid = threadIdx.x, P = a.P;
-  const int per = (P + NT - 1) / NT;
-  const int lo = min(tid * per, P), hi = min(lo + per, P);
-  int mn = INT_MAX;
-  for (int i = lo; i < hi; ++i) {
-    const int ci = class_at(a, i);
-    const bool valid = i < a.n;
-    // position 0 compares with the last position (jnp.roll) but is a head anyway
-    const bool head = i == 0 || !valid || ci != class_at(a, i - 1);
-    a.is_head[i] = head;
-    a.bulk[i] = a.bulk_c[ci] && valid;
-    a.aff[i] = a.aff_c[ci] && valid;
-    if (head) mn = min(mn, i);
+__device__ __forceinline__ int flag_of(const RunArraysArgs& a, int c) {
+  return (__ldg(a.bulk_c + c) ? 1 : 0) | (__ldg(a.aff_c + c) ? 2 : 0);
+}
+
+// inclusive minimum over lanes lane..31 of the warp
+__device__ __forceinline__ int suffix_min(int v, int lane) {
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const int o = __shfl_down_sync(0xffffffffu, v, d);
+    if (lane + d < 32) v = min(v, o);
   }
-  chunk_min[tid] = mn;
-  __syncthreads();
-  if (tid == 0) {
-    // chunk_min[t] becomes the first head after chunk t
-    int after = INT_MAX;
-    for (int t = NT - 1; t >= 0; --t) {
-      const int m = chunk_min[t];
-      chunk_min[t] = after;
-      after = min(after, m);
+  return v;
+}
+
+// Dynamic shared memory: the head bits and next[] (a word each per 32
+// positions), then the NC class flags.
+__host__ __device__ inline size_t run_arrays_smem(int P, int NC) {
+  return (size_t)((P + 31) >> 5) * (sizeof(unsigned) + sizeof(int)) + (size_t)NC;
+}
+
+__global__ void __launch_bounds__(NT, 1) run_arrays_kernel(const RunArraysArgs a) {
+  extern __shared__ unsigned bits[];  // [NW] head bits a word of 32 positions, then next [NW], flags [NC]
+  __shared__ int warp_min[NT / 32], after_warp[NT / 32], carry_next;
+  const int P = a.P, NW = (P + 31) >> 5;
+  int* next = (int*)(bits + NW);
+  uint8_t* flags = (uint8_t*)(next + NW);
+  int* run_rem = a.out;
+  uint8_t* is_head = (uint8_t*)(a.out + P);
+  uint8_t* bulk = is_head + P;
+  uint8_t* aff = bulk + P;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+
+  // 0. the class flags: a thread's first one is loaded here and stored
+  // once step 1's gathers are in flight (classes past NT, rare, right away)
+  const int flag0 = tid < a.NC ? flag_of(a, tid) : 0;
+  for (int c = tid + NT; c < a.NC; c += NT) flags[c] = (uint8_t)flag_of(a, c);
+
+  // 1. classes, head flags and the class flags; the heads as bit words
+  for (int base = 0; base < P; base += NT * U) {
+    int c[U], prev[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int i = min(base + u * NT + tid, P - 1);
+      c[u] = class_at(a, i);
+      prev[u] = lane == 0 && i > 0 ? class_at(a, i - 1) : 0;
+    }
+    if (base == 0) {
+      if (tid < a.NC) flags[tid] = (uint8_t)flag0;
+      __syncthreads();  // the flags are staged
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int i = base + u * NT + tid;
+      const int up = __shfl_up_sync(0xffffffffu, c[u], 1);
+      const bool valid = i < a.n;
+      const bool head = i < P && (i == 0 || !valid || c[u] != (lane ? up : prev[u]));
+      const unsigned word = __ballot_sync(0xffffffffu, head);
+      if (i < P) {
+        const int f = valid ? flags[c[u]] : 0;
+        is_head[i] = head;
+        bulk[i] = f & 1;
+        aff[i] = f >> 1;
+        if (lane == 0) bits[i >> 5] = word;  // a warp's positions fill one aligned word
+      }
     }
   }
   __syncthreads();
-  int next = chunk_min[tid];
-  for (int i = hi - 1; i >= lo; --i) {
-    a.run_rem[i] = min(next, P) - i;
-    if (a.is_head[i]) next = i;
+
+  // 2. next[q]: the first word after q with a head (INT_MAX: none)
+  int carry = INT_MAX;  // the first such word at or past the current tile's end
+  for (int t0 = (NW - 1) / NT * NT; t0 >= 0; t0 -= NT) {
+    const int q = t0 + tid;
+    const int s = suffix_min(q < NW && bits[q] ? q : INT_MAX, lane);
+    if (lane == 0) warp_min[warp] = s;
+    __syncthreads();
+    if (warp == 0) {
+      const int ts = suffix_min(warp_min[lane], lane);
+      const int ex = __shfl_down_sync(0xffffffffu, ts, 1);
+      after_warp[lane] = min(lane == 31 ? INT_MAX : ex, carry);
+      if (lane == 0) carry_next = min(ts, carry);
+    }
+    __syncthreads();
+    const int nx = __shfl_down_sync(0xffffffffu, s, 1);
+    if (q < NW) next[q] = min(lane == 31 ? INT_MAX : nx, after_warp[warp]);
+    carry = carry_next;
+  }
+  __syncthreads();
+
+  // 3. run_rem: the next head strictly after i, or P
+  for (int i = tid; i < P; i += NT) {
+    const int q = i >> 5, b = i & 31;
+    const unsigned above = b == 31 ? 0u : bits[q] >> (b + 1);
+    int nh;
+    if (above) {
+      nh = i + __ffs(above);
+    } else {
+      const int q2 = next[q];
+      nh = q2 == INT_MAX ? P : (q2 << 5) + __ffs(bits[q2]) - 1;
+    }
+    run_rem[i] = min(nh, P) - i;
   }
 }
 
 extern "C" int run_arrays_args_size() { return (int)sizeof(RunArraysArgs); }
 
 extern "C" int run_arrays_launch(const RunArraysArgs* args, void* stream) {
-  if (args->P <= 0) return 0;
-  run_arrays_kernel<<<1, NT, 0, (cudaStream_t)stream>>>(*args);
+  const RunArraysArgs a = *args;
+  if (a.P <= 0) return 0;
+  if (a.NCLS < 1 || a.NC < 1) return (int)cudaErrorInvalidValue;
+  const size_t bytes = run_arrays_smem(a.P, a.NC);
+  if (bytes > 48 * 1024) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(run_arrays_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+    if (err != cudaSuccess) return (int)err;
+  }
+  run_arrays_kernel<<<1, NT, bytes, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }

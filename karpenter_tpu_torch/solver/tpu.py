@@ -85,62 +85,128 @@ LAUNCHES = {"typeok_screen": 0, "run_arrays": 0, "dedup_rows": 0}
 # Replaces karpenter_tpu/solver/tpu.py:61 `_typeok_chunk_impl`: [B, IW]
 # words, bit t set when requirement class b intersects instance type t.
 # Bound on an H100: bytes (type rows + class rows, a few hundred KB at the
-# headline shape), so launch latency dominates; one warp per (class, type
-# word) packs its word with __ballot_sync (csrc/typeok.cu).
+# headline shape), so launch latency dominates. A CTA stages one 32-type
+# word's types and a chunk of class rows in shared memory, builds their key
+# masks once, and a warp a row packs its word with __ballot_sync
+# (csrc/typeok.cu). Rows the callers pad by repetition are screened once.
 
 
-def typeok_plain(ireq: Reqs, va: VocabArrays, preq_rows: Reqs, iw: int) -> torch.Tensor:
-    """The plain version: pairwise class x type Intersects, packed."""
+def typeok_plain(ireq: Reqs, va: VocabArrays, preq_rows: Reqs, iw: int, n_rows: Optional[int] = None) -> torch.Tensor:
+    """The plain version: pairwise class x type Intersects, packed.
+    `n_rows` (the padding's period, see `typeok_screen`) is ignored."""
     a = Reqs(*(x[None] for x in ireq))  # [1, I, ...]
     b = Reqs(*(x[:, None] for x in preq_rows))  # [B, 1, ...]
     return pack(intersects_only(a, b, va), iw)  # [B, IW]
 
 
-_TYPEOK_FIELDS = ("mask", "exmask", "other", "notin", "defined", "gt", "lt", "minv")
+# the Reqs fields the screen reads, and their dtypes
+_TYPEOK_FIELDS = ("mask", "other", "notin", "defined", "gt", "lt")
+_TYPEOK_DTYPES = (torch.int32, torch.bool, torch.bool, torch.bool, torch.int32, torch.int32)
+_TYPEOK_SMEM_MAX = 48 * 1024  # bytes of shared memory a CTA (no opt-in)
 
 
-class _TypeokArgs(ctypes.Structure):
-    _fields_ = (
-        [("i" + f, ctypes.c_void_p) for f in _TYPEOK_FIELDS]
-        + [("p" + f, ctypes.c_void_p) for f in _TYPEOK_FIELDS]
-        + [("word2key", ctypes.c_void_p), ("out", ctypes.c_void_p)]
-        + [(n, ctypes.c_int) for n in ("B", "I", "TW", "K", "IW")]
-    )
+class _TypeokTypes(ctypes.Structure):
+    _fields_ = [(f, ctypes.c_void_p) for f in _TYPEOK_FIELDS + ("word2key",)] + [
+        (n, ctypes.c_int) for n in ("I", "TW", "K")
+    ]
+
+
+class _TypeokRows(ctypes.Structure):
+    _fields_ = [(f, ctypes.c_void_p) for f in _TYPEOK_FIELDS + ("out",)] + [
+        (n, ctypes.c_int) for n in ("B", "n", "IW", "rb", "cw")
+    ]
+
+
+def _typeok_smem(rb: int, cw: int, k: int) -> int:
+    """Shared-memory bytes of one CTA (csrc/typeok.cu `typeok_smem`): the
+    types' three key masks (u64 x 32 each), [cw][33] type words, [rb][cw]
+    row words, cw word keys, [K][33] type bounds twice, [rb][K] row bounds
+    twice and the types' three flag rows, [32 K] bytes each."""
+    return 3 * 32 * 8 + 4 * (cw * (33 + rb + 1) + k * (2 * 33 + 2 * rb)) + 3 * 32 * k
+
+
+@functools.lru_cache(maxsize=None)
+def typeok_tiling(n: int, tw: int, k: int) -> tuple[int, int]:
+    """(rb, cw): class rows a CTA (a warp each, up to the CTA's 8) and mask
+    words a shared-memory stage: all of TW where they fit the CTA's shared
+    memory, else the most that fit. The screen is latency-bound, so a CTA
+    takes as many rows as it has warps: fewer CTAs share an SM."""
+    rb = max(1, min(8, n))
+    room = (_TYPEOK_SMEM_MAX - _typeok_smem(rb, 0, k)) // (4 * (33 + rb + 1))
+    if room < 1:
+        raise ValueError(f"typeok_screen: {k} keys leave no shared memory for mask words")
+    return rb, max(1, min(tw, room))
 
 
 @functools.lru_cache(maxsize=None)
 def _typeok_lib():
     lib = _build.library("typeok")
-    lib.typeok_args_size.restype = ctypes.c_int
-    lib.typeok_screen_launch.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+    lib.typeok_types_size.restype = ctypes.c_int
+    lib.typeok_rows_size.restype = ctypes.c_int
+    lib.typeok_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int]
+    lib.typeok_smem_bytes.restype = ctypes.c_size_t
+    lib.typeok_screen_launch.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
     lib.typeok_screen_launch.restype = ctypes.c_int
-    if lib.typeok_args_size() != ctypes.sizeof(_TypeokArgs):
+    if (lib.typeok_types_size(), lib.typeok_rows_size()) != (ctypes.sizeof(_TypeokTypes), ctypes.sizeof(_TypeokRows)):
         raise RuntimeError("typeok_screen: argument layout disagrees with the library")
+    if any(lib.typeok_smem_bytes(*a) != _typeok_smem(*a) for a in ((1, 36, 16), (8, 108, 64), (3, 17, 13))):
+        raise RuntimeError("typeok_screen: shared-memory layout disagrees with the library")
     return lib
 
 
-def typeok_screen(ireq: Reqs, va: VocabArrays, preq_rows: Reqs, iw: int) -> torch.Tensor:
-    """[B, IW] int32 words. CPU tensors take the plain version; CUDA
-    tensors launch the kernel."""
-    dev = ireq.mask.device
-    if dev.type == "cpu":
-        return typeok_plain(ireq, va, preq_rows, iw)
-    B, TW = preq_rows.mask.shape
-    I = ireq.mask.shape[0]
+# the type half of the last launch, (ireq, va, _TypeokTypes, the tensors
+# it points at): `_tables` screens the class rows and the tier rows against
+# the same types, and the entry keeps those tensors alive while it is kept
+_TYPE_HALF: list = [None]
+
+
+def _typeok_types(ireq: Reqs, va: VocabArrays, dev: torch.device) -> _TypeokTypes:
+    hit = _TYPE_HALF[0]
+    if hit is not None and hit[0] is ireq and hit[1] is va:
+        return hit[2]
     Kk = va.num_keys
     if Kk > 64:
         raise ValueError(f"typeok_screen: {Kk} keys exceed the kernel's 64")
-    if iw * 32 < I:
-        raise ValueError(f"typeok_screen: {iw} words cannot hold {I} types")
-    w2k = va.word2key.to(torch.int32)
+    w2k = va.word2key if va.word2key.dtype == torch.int32 else va.word2key.to(torch.int32)
+    # the kernel copies the flag rows 4 bytes at a time: a view that does
+    # not start on a 4-byte boundary is copied once
+    fields = {f: getattr(ireq, f) for f in _TYPEOK_FIELDS}
+    for f in ("other", "notin", "defined"):
+        if fields[f].data_ptr() % 4:
+            fields[f] = fields[f].clone()
+    ptrs = {f: K.checked_ptr(fields[f], dt, dev, "i" + f) for f, dt in zip(_TYPEOK_FIELDS, _TYPEOK_DTYPES)}
+    half = _TypeokTypes(
+        word2key=K.checked_ptr(w2k, torch.int32, dev, "word2key"),
+        I=ireq.mask.shape[0], TW=ireq.mask.shape[1], K=Kk, **ptrs,
+    )
+    _TYPE_HALF[0] = (ireq, va, half, (w2k, fields))
+    return half
+
+
+def typeok_screen(ireq: Reqs, va: VocabArrays, preq_rows: Reqs, iw: int, n_rows: Optional[int] = None) -> torch.Tensor:
+    """[B, IW] int32 words. CPU tensors take the plain version; CUDA
+    tensors launch the kernel. `n_rows`: the caller's rows b >= n_rows
+    repeat row b mod n_rows, so only the first n_rows are screened and
+    each word is written to its repeats too (default: every row)."""
+    dev = ireq.mask.device
+    if dev.type == "cpu":
+        return typeok_plain(ireq, va, preq_rows, iw, n_rows)
+    B, TW = preq_rows.mask.shape
+    n = B if n_rows is None else n_rows
+    if iw * 32 < ireq.mask.shape[0]:
+        raise ValueError(f"typeok_screen: {iw} words cannot hold {ireq.mask.shape[0]} types")
+    if B and not 1 <= n <= B:
+        raise ValueError(f"typeok_screen: n_rows={n} for {B} rows")
+    types = _typeok_types(ireq, va, dev)
     out = torch.empty((B, iw), dtype=torch.int32, device=dev)
-    vals = {"word2key": K.checked_ptr(w2k, torch.int32, dev, "word2key"), "out": K.checked_ptr(out, torch.int32, dev, "out")}
-    for prefix, r in (("i", ireq), ("p", preq_rows)):
-        for f, t, dt in zip(_TYPEOK_FIELDS, r, K.REQS_DTYPES):
-            vals[prefix + f] = K.checked_ptr(t, dt, dev, prefix + f)
-    args = _TypeokArgs(B=B, I=I, TW=TW, K=Kk, IW=iw, **vals)
-    lib = _typeok_lib()
-    code = lib.typeok_screen_launch(ctypes.byref(args), ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
+    if B == 0:
+        return out
+    rb, cw = typeok_tiling(n, TW, types.K)
+    ptrs = {f: K.checked_ptr(getattr(preq_rows, f), dt, dev, "p" + f) for f, dt in zip(_TYPEOK_FIELDS, _TYPEOK_DTYPES)}
+    rows = _TypeokRows(out=out.data_ptr(), B=B, n=n, IW=iw, rb=rb, cw=cw, **ptrs)
+    code = _typeok_lib().typeok_screen_launch(
+        ctypes.byref(types), ctypes.byref(rows), ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
+    )
     _build.check_launch("typeok_screen", code)
     LAUNCHES["typeok_screen"] += 1
     return out
@@ -232,9 +298,10 @@ def _bulk_class_flags(p: EncodedProblem, gates_ok: bool) -> np.ndarray:
 # Replaces karpenter_tpu/solver/tpu.py:155 `_run_arrays`: the run driver
 # arrays of a round from its pod index array and the per-class flags. Bound
 # on an H100: bytes (a few [P] int arrays, tens of KB at the headline), so
-# launch latency decides; one CTA does the head flags, a reverse min-scan
-# for the next head (chunk per thread, then a scan over the chunks) and
-# run_rem in one launch (csrc/run_arrays.cu).
+# launch latency decides. One CTA, consecutive threads on consecutive
+# positions: the head flags as bit words in shared memory, a block-wide
+# reverse min-scan over the words from warp shuffles for the next head, and
+# run_rem from the bits (csrc/run_arrays.cu).
 
 _BIG = (1 << 31) - 1
 
@@ -256,7 +323,7 @@ def run_arrays_plain(cls_d, bulk_c, aff_c, idx, n: int):
 
 
 class _RunArraysArgs(ctypes.Structure):
-    _fields_ = [(n, ctypes.c_void_p) for n in ("cls", "bulk_c", "aff_c", "idx", "is_head", "bulk", "aff", "run_rem")] + [
+    _fields_ = [(n, ctypes.c_void_p) for n in ("cls", "bulk_c", "aff_c", "idx", "out")] + [
         (n, ctypes.c_int) for n in ("P", "n", "NCLS", "NC")
     ]
 
@@ -280,25 +347,31 @@ def run_arrays(cls_d, bulk_c, aff_c, idx, n: int):
     if dev.type == "cpu":
         return run_arrays_plain(cls_d, bulk_c, aff_c, idx, n)
     P = idx.shape[0]
-    is_head = torch.empty(P, dtype=torch.bool, device=dev)
-    bulk = torch.empty(P, dtype=torch.bool, device=dev)
-    aff = torch.empty(P, dtype=torch.bool, device=dev)
-    run_rem = torch.empty(P, dtype=torch.int32, device=dev)
-    ptrs = {}
-    for name, t, dt in (
-        ("cls", cls_d, torch.int32), ("bulk_c", bulk_c, torch.bool), ("aff_c", aff_c, torch.bool),
-        ("idx", idx, torch.int32), ("is_head", is_head, torch.bool), ("bulk", bulk, torch.bool),
-        ("aff", aff, torch.bool), ("run_rem", run_rem, torch.int32),
-    ):
-        ptrs[name] = K.checked_ptr(t, dt, dev, name)
     if not 0 <= n <= P or bulk_c.shape[0] != aff_c.shape[0]:
         raise ValueError(f"run_arrays: n={n}, P={P}, flags {bulk_c.shape[0]}/{aff_c.shape[0]}")
-    args = _RunArraysArgs(P=P, n=n, NCLS=cls_d.shape[0], NC=bulk_c.shape[0], **ptrs)
+    ptrs = {
+        name: K.checked_ptr(t, dt, dev, name)
+        for name, t, dt in (
+            ("cls", cls_d, torch.int32), ("bulk_c", bulk_c, torch.bool), ("aff_c", aff_c, torch.bool),
+            ("idx", idx, torch.int32),
+        )
+    }
+    out, arrays = _run_arrays_out(P, dev)
+    args = _RunArraysArgs(out=out.data_ptr(), P=P, n=n, NCLS=cls_d.shape[0], NC=bulk_c.shape[0], **ptrs)
     lib = _small_lib("run_arrays", _RunArraysArgs)
     code = lib.run_arrays_launch(ctypes.byref(args), ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
     _build.check_launch("run_arrays", code)
     LAUNCHES["run_arrays"] += 1
-    return is_head, bulk, aff, run_rem
+    return arrays
+
+
+def _run_arrays_out(P: int, dev: torch.device):
+    """(buffer, (is_head, bulk, aff, run_rem)): the kernel's four outputs
+    as views of one allocation, run_rem first (4-byte aligned), then the
+    three byte arrays; allocated as bool, so that only run_rem needs a
+    dtype view."""
+    out = torch.empty(7 * P, dtype=torch.bool, device=dev)
+    return out, (out[4 * P : 5 * P], out[5 * P : 6 * P], out[6 * P :], out[: 4 * P].view(torch.int32))
 
 
 # ---------------------------------------------------------------------------
@@ -397,6 +470,26 @@ def dedup_rows(rows: torch.Tensor):
     _build.check_launch("dedup_rows", code)
     LAUNCHES["dedup_rows"] += 1
     return n_uniq, inv, compact
+
+
+# ---------------------------------------------------------------------------
+# The launch floor (csrc/empty.cu): a kernel that does nothing, launched as
+# the wrappers above launch theirs. No solve runs it; chip_smoke.py and
+# tools/torch_compare.py time it beside K1, K4 and K5.
+
+
+@functools.lru_cache(maxsize=None)
+def _empty_lib():
+    lib = _build.library("empty")
+    lib.empty_launch.argtypes = [ctypes.c_void_p]
+    lib.empty_launch.restype = ctypes.c_int
+    return lib
+
+
+def empty_launch(dev: torch.device) -> None:
+    """Launch the empty kernel on `dev`'s current stream."""
+    code = _empty_lib().empty_launch(ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
+    _build.check_launch("empty", code)
 
 
 def decode_rows(st: K.State, n2: int) -> torch.Tensor:
@@ -646,7 +739,8 @@ class TorchScheduler:
 
     def _cr_padded(self, p: EncodedProblem) -> np.ndarray:
         """[NR_pad] class index per requirement class, bucket-padded by
-        repeating real rows (pad rows are never gathered)."""
+        repeating real rows (pad rows are never gathered): row b is row
+        b mod NR, the period `typeok_screen` screens once."""
         cr = np.asarray(p.rclass_creps, dtype=np.int64)
         if not buckets.enabled() or len(cr) == 0:
             return cr
@@ -662,11 +756,12 @@ class TorchScheduler:
         if len(cr) == 0:
             return torch.zeros((0, IW), dtype=torch.int32, device=self.device)
         rows = Reqs(*(to_tensor(a[cr], self.device) for a in p.preq_c))
-        return typeok_screen(ireq, va, rows, IW)
+        return typeok_screen(ireq, va, rows, IW, n_rows=len(p.rclass_creps))
 
     def _tier_rows(self, p: EncodedProblem) -> Optional[Reqs]:
         """The NRx*L tier rows of the relaxable requirement classes, padded
-        to a power of two by repeating rows (None with nothing to relax)."""
+        to a power of two by repeating rows (row b is row b mod NRx*L; None
+        with nothing to relax)."""
         if not p.rt_tier_reqs:
             return None
         NRx, L = len(p.rt_tier_reqs), p.num_tiers
@@ -684,7 +779,7 @@ class TorchScheduler:
             out = torch.zeros((1, 1, IW), dtype=torch.int32, device=self.device)
         else:
             NRx, L = len(p.rt_tier_reqs), p.num_tiers
-            out = typeok_screen(ireq, va, rows, IW)[: NRx * L].reshape(NRx, L, IW)
+            out = typeok_screen(ireq, va, rows, IW, n_rows=NRx * L)[: NRx * L].reshape(NRx, L, IW)
         if buckets.enabled():
             n_pad = buckets.bucket(out.shape[0], floor=1) - out.shape[0]
             if n_pad > 0:

@@ -142,22 +142,51 @@ def test_bulk_flags_match_reference(seed):
     assert np.array_equal(PT._bulk_class_flags(q, PT._bulk_gates(q)), want)
 
 
-def test_run_arrays_match_reference():
+@pytest.mark.parametrize(
+    "P,n,NC,layout",
+    [
+        (8, 8, 3, "runs"), (64, 41, 5, "runs"), (256, 200, 9, "runs"), (128, 1, 2, "runs"),
+        (1, 0, 2, "runs"), (1, 1, 2, "runs"),  # a single position, padding or a pod
+        (64, 0, 3, "runs"),  # every position padding
+        (96, 96, 4, "runs"),  # no padding: the last run ends at P
+        (100, 100, 3, "one run"),  # one run over every position
+        (33, 20, 4, "runs"), (1025, 700, 9, "runs"),  # P not a multiple of 32
+    ],
+)
+def test_run_arrays_match_reference(P, n, NC, layout):
     """Seeded class sequences with runs, singletons and pad positions."""
-    rng = np.random.default_rng(20)
-    for P, n, NC in ((8, 8, 3), (64, 41, 5), (256, 200, 9), (128, 1, 2)):
-        cls_d = rng.integers(0, NC, size=300).astype(np.int32)
-        cls_d.sort()  # runs of equal classes, as the FFD order makes them
-        idx = np.zeros(P, np.int32)
-        idx[:n] = np.sort(rng.choice(300, size=n, replace=False))
-        bulk_c = rng.random(NC) < 0.6
-        aff_c = rng.random(NC) < 0.3
-        want = jax.device_get(JT._run_arrays(cls_d, bulk_c, aff_c, idx, np.int32(n)))
-        got = PT.run_arrays_plain(
-            torch.from_numpy(cls_d), torch.from_numpy(bulk_c), torch.from_numpy(aff_c), torch.from_numpy(idx), n
-        )
-        for w, g in zip(want, got):
-            assert np.array_equal(np.asarray(w), g.numpy())
+    rng = np.random.default_rng(20 + P + n)
+    cls_d = rng.integers(0, NC, size=max(300, P)).astype(np.int32)
+    cls_d.sort()  # runs of equal classes, as the FFD order makes them
+    idx = np.zeros(P, np.int32)
+    if layout == "one run":
+        idx[:n] = 7
+    else:
+        idx[:n] = np.sort(rng.choice(cls_d.shape[0], size=n, replace=False))
+    bulk_c = rng.random(NC) < 0.6
+    aff_c = rng.random(NC) < 0.3
+    want = jax.device_get(JT._run_arrays(cls_d, bulk_c, aff_c, idx, np.int32(n)))
+    got = PT.run_arrays_plain(
+        torch.from_numpy(cls_d), torch.from_numpy(bulk_c), torch.from_numpy(aff_c), torch.from_numpy(idx), n
+    )
+    for w, g in zip(want, got):
+        assert np.array_equal(np.asarray(w), g.numpy())
+    if layout == "one run" and n == P:
+        assert np.array_equal(got[3].numpy(), P - np.arange(P))  # the run ends at P
+
+
+def test_run_arrays_outputs_share_one_buffer():
+    """The CUDA wrapper's four outputs are views of one buffer laid out as
+    csrc/run_arrays.cu writes it: run_rem (int32) first, then is_head, bulk
+    and aff (one byte each a position)."""
+    for P in (1, 33, 16384):
+        out, (is_head, bulk, aff, run_rem) = PT._run_arrays_out(P, torch.device("cpu"))
+        assert out.dtype == torch.bool and out.numel() == 7 * P
+        base = out.data_ptr()
+        assert run_rem.dtype == torch.int32 and run_rem.data_ptr() == base and run_rem.shape == (P,)
+        for j, t in enumerate((is_head, bulk, aff)):
+            assert t.dtype == torch.bool and t.shape == (P,) and t.is_contiguous()
+            assert t.data_ptr() == base + (4 + j) * P
 
 
 @pytest.mark.parametrize("seed", SEEDS)
