@@ -686,17 +686,16 @@ def host_ms(fn, reps: int, batches: int = 5) -> float:
 
 class K1Rows(NamedTuple):
     """A K1 launch as TorchScheduler._tables makes it: the type tables,
-    the padded rows, the words a row and the padding's period."""
+    the distinct rows it screens and the words a row."""
 
     tb: object
     rows: object
     iw: int
-    n: int
 
     def launch(self):
         from karpenter_tpu_torch.solver import tpu as T
 
-        return T.typeok_screen(self.tb.ireq, self.tb.va, self.rows, self.iw, n_rows=self.n)
+        return T.typeok_screen(self.tb.ireq, self.tb.va, self.rows, self.iw)
 
     def plain(self):
         from karpenter_tpu_torch.solver import tpu as T
@@ -705,20 +704,15 @@ class K1Rows(NamedTuple):
 
 
 def k1_rows(world: World, dev, tier: bool = False) -> K1Rows:
-    """A world's class rows (`_cr_padded`) or, with `tier`, its tier rows
+    """A world's class rows (`_class_rows`) or, with `tier`, its tier rows
     (`_tier_rows`), as the solve screens them."""
-    from karpenter_tpu_torch.device import to_tensor
-    from karpenter_tpu_torch.ops.encode import Reqs
     from karpenter_tpu_torch.solver.tpu_problem import encode_problem
 
     sched, pods = scheduler_for(world, dev)
     problem = encode_problem(sched.oracle, pods)
     tb = sched._tables(problem)
     iw = max(1, (problem.num_types + 31) // 32)
-    if tier:
-        return K1Rows(tb, sched._tier_rows(problem), iw, len(problem.rt_tier_reqs) * problem.num_tiers)
-    rows = Reqs(*(to_tensor(a[sched._cr_padded(problem)], dev) for a in problem.preq_c))
-    return K1Rows(tb, rows, iw, len(problem.rclass_creps))
+    return K1Rows(tb, sched._tier_rows(problem) if tier else sched._class_rows(problem), iw)
 
 
 def k1_checked(label: str, k: K1Rows) -> int:
@@ -729,7 +723,7 @@ def k1_checked(label: str, k: K1Rows) -> int:
     torch.cuda.synchronize()
     bad = int((got != want).sum())
     log(
-        f"K1 typeok_screen {label}: [{k.rows.mask.shape[0]}, {k.iw}] words, {k.n} distinct "
+        f"K1 typeok_screen {label}: [{k.rows.mask.shape[0]}, {k.iw}] words "
         f"(TW={k.tb.va.full_mask.shape[0]}, K={k.tb.va.num_keys}, I={k.tb.ireq.mask.shape[0]}): "
         f"{bad} mismatched words vs plain"
     )
@@ -737,48 +731,54 @@ def k1_checked(label: str, k: K1Rows) -> int:
 
 
 def k1_bound_of(k: K1Rows) -> tuple[float, str]:
-    """K1's least time: the type fields it reads and the n distinct rows
-    read once, the [B, IW] words written once; n x I pairs of TW mask words
-    and 2 K bounds."""
+    """K1's least time: the type fields and the B rows read once, the
+    [B, IW] words written once; B x I pairs of TW mask words and 2 K
+    bounds."""
     I, TW, Kk = k.tb.ireq.mask.shape[0], k.tb.ireq.mask.shape[1], k.tb.va.num_keys
     B = k.rows.mask.shape[0]
     row_bytes = TW * 4 + Kk * (3 + 2 * 4)  # mask, other/notin/defined, gt/lt
-    return bound((I + k.n) * row_bytes + TW * 4 + B * k.iw * 4, k.n * I * (TW + 2 * Kk))
+    return bound((I + B) * row_bytes + TW * 4 + B * k.iw * 4, B * I * (TW + 2 * Kk))
 
 
-K4_EDGE_P = (1, 31, 32, 33, 1024, 1025, 16384, 65536)
+K4_EDGE_P = (1, 31, 32, 33, 1024, 1025, 16384, 65536, 1 << 20)
+# rounds whose class flags exceed what K4 stages in shared memory
+# (csrc/run_arrays.cu FLAGS_SMEM): it reads them from device memory
+K4_WIDE_CLASSES, K4_WIDE_P = 40000, (33, 16384, 1 << 20)
 
 
 def k4_edge_checks(dev) -> list:
     """K4 against run_arrays_plain on seeded rounds at the edges of its
-    tiles and of the runs path's buckets (up to 65536 positions): at each
-    P, n = 0, a middle n (runs of a sorted class order, then padding) and
-    n = P, and one run over every position. Returns the (P, n, case)
-    that disagree."""
+    tiles and of the runs path's buckets (up to 2^20 positions, past the
+    largest bucket): at each P, n = 0, a middle n (runs of a sorted class
+    order, then padding) and n = P, and one run over every position; then
+    with more classes than K4 stages in shared memory. Returns the
+    (classes, P, n, case) that disagree."""
     import numpy as np
     import torch
 
     from karpenter_tpu_torch.solver import tpu as T
 
     rng = np.random.default_rng(4)
-    n_pods, n_cls = 70000, 50
-    cls = torch.from_numpy(np.sort(rng.integers(0, n_cls, n_pods)).astype(np.int32)).to(dev)
-    bulk_c = torch.from_numpy(rng.random(n_cls) < 0.6).to(dev)
-    aff_c = torch.from_numpy(rng.random(n_cls) < 0.3).to(dev)
+    n_pods = (1 << 20) + 4096
     bad = []
-    for P in K4_EDGE_P:
-        for n, case in ((0, "n=0"), (P // 2 + 1 if P > 1 else 1, "middle"), (P, "n=P"), (P, "one run")):
-            idx = np.zeros(P, np.int32)
-            if case == "one run":
-                idx[:] = 7
-            else:
-                idx[:n] = np.sort(rng.choice(n_pods, size=n, replace=False))
-            args = (cls, bulk_c, aff_c, torch.from_numpy(idx).to(dev), n)
-            got, want = T.run_arrays(*args), T.run_arrays_plain(*args)
-            if not all(torch.equal(a, b) for a, b in zip(got, want)):
-                bad.append((P, n, case))
+    for n_cls, sizes in ((50, K4_EDGE_P), (K4_WIDE_CLASSES, K4_WIDE_P)):
+        cls = torch.from_numpy(np.sort(rng.integers(0, n_cls, n_pods)).astype(np.int32)).to(dev)
+        bulk_c = torch.from_numpy(rng.random(n_cls) < 0.6).to(dev)
+        aff_c = torch.from_numpy(rng.random(n_cls) < 0.3).to(dev)
+        for P in sizes:
+            for n, case in ((0, "n=0"), (P // 2 + 1 if P > 1 else 1, "middle"), (P, "n=P"), (P, "one run")):
+                idx = np.zeros(P, np.int32)
+                if case == "one run":
+                    idx[:] = 7
+                else:
+                    idx[:n] = np.sort(rng.choice(n_pods, size=n, replace=False))
+                args = (cls, bulk_c, aff_c, torch.from_numpy(idx).to(dev), n)
+                got, want = T.run_arrays(*args), T.run_arrays_plain(*args)
+                if not all(torch.equal(a, b) for a, b in zip(got, want)):
+                    bad.append((n_cls, P, n, case))
     torch.cuda.synchronize()
-    log(f"K4 run_arrays edges (P in {list(K4_EDGE_P)}; n = 0, middle, P, one run): mismatches={bad or 'none'}")
+    log(f"K4 run_arrays edges (P in {list(K4_EDGE_P)}, and {list(K4_WIDE_P)} with {K4_WIDE_CLASSES} classes; "
+        f"n = 0, middle, P, one run): mismatches={bad or 'none'}")
     return bad
 
 
@@ -2262,7 +2262,7 @@ def main() -> int:
             return 1
 
     # ---- 10. the relax tier loop: K1 on tier rows, K2 and K3 with relax ----
-    # K1 over the c6 mix's tier rows (each relaxable class x tier, padded)
+    # K1 over the c6 mix's tier rows (each relaxable class x tier)
     k1t = k1_rows(c6_world(C6_PODS, its), dev, tier=True)
     k1t_mism = k1_checked("c6 tier rows (relaxable classes x tiers)", k1t)
     if k1t_mism:

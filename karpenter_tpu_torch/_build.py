@@ -48,6 +48,11 @@ def _nvcc() -> str:
     raise BuildError("nvcc not found (PATH or /usr/local/cuda/bin)")
 
 
+def nvcc_command(source: Path, out: Path) -> list:
+    """The command that builds one source into a shared library."""
+    return [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(out), str(source)]
+
+
 def _source_hash() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for f in sorted(CSRC.iterdir()):
@@ -87,7 +92,7 @@ def _build_all() -> dict:
             results[name] = {"path": str(lib), "seconds": 0.0, "log": ""}
             continue
         tmp = out_dir / f"lib{name}.{os.getpid()}.tmp.so"
-        cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        cmd = nvcc_command(CSRC / f"{name}.cu", tmp)
         starts[name] = time.monotonic()
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT), tmp, lib)
     failed = []

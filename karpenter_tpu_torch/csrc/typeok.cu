@@ -12,8 +12,8 @@
 //
 // Design. A CTA of NT threads takes one 32-type word of the output
 // (blockIdx.x) and a chunk of `rb` <= 8 class rows (blockIdx.y), one warp a
-// row, so the grid has IW x ceil(n / rb) CTAs (`typeok_tiling` in
-// solver/tpu.py). The type flag rows must start on a 4-byte boundary (the
+// row, so the grid has IW x ceil(B / rb) CTAs (`typeok_tiling` in
+// solver/tpu.py). The callers hand it their distinct rows only. The type flag rows must start on a 4-byte boundary (the
 // wrapper sees to it).
 //   1. Staging, one trip to memory: every thread starts its share of the
 //      CTA's copies into shared memory with cp.async, with no register in
@@ -32,9 +32,6 @@
 //   3. The pair test from shared memory: lane t of warp r folds the mask
 //      words of type t and row r into the per-key intersection, then the K
 //      bounds; __ballot_sync packs the word, so no bit is ever summed.
-//   4. Rows past n repeat row b mod n (the callers pad their buckets that
-//      way): a row is screened once and its word written to every row
-//      b' = b (mod n) below B.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -59,7 +56,7 @@ struct TypeokRows {  // the class rows of one call
   const int* gt;          // [B, K]
   const int* lt;
   int* out;               // [B, IW]
-  int B, n, IW;           // rows b >= n repeat row b mod n
+  int B, IW;
   int rb, cw;             // rows a CTA (<= NWARPS), mask words a stage
 };
 
@@ -114,6 +111,7 @@ __device__ __forceinline__ void stage_masks(const TypeokTypes& T, const TypeokRo
 
 __global__ void __launch_bounds__(NT) typeok_kernel(const TypeokTypes T, const TypeokRows R) {
   extern __shared__ u64 smem[];
+  // phase cut: entry (tools/typeok_phases.py returns here)
   const int rb = R.rb, cw = R.cw, K = T.K, TW = T.TW;
   u64* tkeys = smem;                       // [3][32]: other, defined, tolerance
   unsigned* tm = (unsigned*)(tkeys + 96);  // [cw][33]
@@ -129,7 +127,7 @@ __global__ void __launch_bounds__(NT) typeok_kernel(const TypeokTypes T, const T
   const int wt = blockIdx.x, i0 = wt * 32;
   const int b0 = blockIdx.y * rb;
   const int ntypes = min(32, T.I - i0);  // may be <= 0 past the last type
-  const int nrows = min(rb, R.n - b0);
+  const int nrows = min(rb, R.B - b0);
   const bool row_live = r < nrows;
   const long long brow = (long long)(b0 + r) * K;
 
@@ -176,6 +174,7 @@ __global__ void __launch_bounds__(NT) typeok_kernel(const TypeokTypes T, const T
   copies_done();
   __syncthreads();
 
+  // phase cut: staged (tools/typeok_phases.py returns here)
   // 2-3. the mask words, a stage of cw words at a time (one stage when TW
   // fits): the nonzero keys of the warp's four types and of its row (lanes
   // over the words), and the pair intersection (lanes over the types)
@@ -199,6 +198,7 @@ __global__ void __launch_bounds__(NT) typeok_kernel(const TypeokTypes T, const T
     __syncthreads();
   }
 
+  // phase cut: stages (tools/typeok_phases.py returns here)
   // 2. the key masks, once for the CTA: the warp's four types to shared
   // memory, its row's kept
 #pragma unroll
@@ -216,6 +216,7 @@ __global__ void __launch_bounds__(NT) typeok_kernel(const TypeokTypes T, const T
   }
   const u64 ptol = pn | (~po & ~or_lanes(pnz));
 
+  // phase cut: keys (tools/typeok_phases.py returns here)
   // 3. the bounds of (type lane, row r)
   u64 bounds = 0;
   if (row_live) {
@@ -226,6 +227,7 @@ __global__ void __launch_bounds__(NT) typeok_kernel(const TypeokTypes T, const T
       bounds |= (u64)(gt < lt) << k;
     }
   }
+  // phase cut: bounds (tools/typeok_phases.py returns here)
   __syncthreads();  // the types' key masks
   if (!row_live) return;  // no barrier follows
   const u64 to = tkeys[lane], td = tkeys[32 + lane], ttol = tkeys[64 + lane];
@@ -233,8 +235,7 @@ __global__ void __launch_bounds__(NT) typeok_kernel(const TypeokTypes T, const T
   const u64 low = K >= 64 ? ~0ull : ((1ull << K) - 1);
   const u64 conflict = td & pd & ~nonempty & ~(ttol & ptol) & low;
   const unsigned word = __ballot_sync(0xffffffffu, lane < ntypes && conflict == 0);
-  if (lane == 0)
-    for (long long b = b0 + r; b < R.B; b += R.n) R.out[b * R.IW + wt] = (int)word;
+  if (lane == 0) R.out[(long long)(b0 + r) * R.IW + wt] = (int)word;
 }
 
 extern "C" size_t typeok_smem_bytes(int rb, int cw, int K) { return typeok_smem(rb, cw, K); }
@@ -243,10 +244,10 @@ extern "C" int typeok_screen_launch(const TypeokTypes* types, const TypeokRows* 
   const TypeokTypes T = *types;
   const TypeokRows R = *rows;
   if (R.B == 0 || R.IW == 0) return 0;
-  if (R.n < 1 || R.n > R.B || R.rb < 1 || R.rb > NWARPS || R.cw < 1 || T.K < 0 || T.K > 64 ||
+  if (R.rb < 1 || R.rb > NWARPS || R.cw < 1 || T.K < 0 || T.K > 64 ||
       (long long)R.IW * 32 < T.I)
     return (int)cudaErrorInvalidValue;
-  const long long chunks = ((long long)R.n + R.rb - 1) / R.rb;
+  const long long chunks = ((long long)R.B + R.rb - 1) / R.rb;
   const size_t bytes = typeok_smem(R.rb, R.cw, T.K);
   if (chunks > 65535 || bytes > 48 * 1024) return (int)cudaErrorInvalidValue;
   if (((uintptr_t)T.other | (uintptr_t)T.notin | (uintptr_t)T.defined) & 3) return (int)cudaErrorMisalignedAddress;

@@ -40,7 +40,8 @@ import collections
 import ctypes
 import functools
 import time as time_mod
-from typing import Optional
+import weakref
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -88,12 +89,11 @@ LAUNCHES = {"typeok_screen": 0, "run_arrays": 0, "dedup_rows": 0}
 # headline shape), so launch latency dominates. A CTA stages one 32-type
 # word's types and a chunk of class rows in shared memory, builds their key
 # masks once, and a warp a row packs its word with __ballot_sync
-# (csrc/typeok.cu). Rows the callers pad by repetition are screened once.
+# (csrc/typeok.cu). The callers hand it their distinct rows only.
 
 
-def typeok_plain(ireq: Reqs, va: VocabArrays, preq_rows: Reqs, iw: int, n_rows: Optional[int] = None) -> torch.Tensor:
-    """The plain version: pairwise class x type Intersects, packed.
-    `n_rows` (the padding's period, see `typeok_screen`) is ignored."""
+def typeok_plain(ireq: Reqs, va: VocabArrays, preq_rows: Reqs, iw: int) -> torch.Tensor:
+    """The plain version: pairwise class x type Intersects, packed."""
     a = Reqs(*(x[None] for x in ireq))  # [1, I, ...]
     b = Reqs(*(x[:, None] for x in preq_rows))  # [B, 1, ...]
     return pack(intersects_only(a, b, va), iw)  # [B, IW]
@@ -113,7 +113,7 @@ class _TypeokTypes(ctypes.Structure):
 
 class _TypeokRows(ctypes.Structure):
     _fields_ = [(f, ctypes.c_void_p) for f in _TYPEOK_FIELDS + ("out",)] + [
-        (n, ctypes.c_int) for n in ("B", "n", "IW", "rb", "cw")
+        (n, ctypes.c_int) for n in ("B", "IW", "rb", "cw")
     ]
 
 
@@ -127,10 +127,11 @@ def _typeok_smem(rb: int, cw: int, k: int) -> int:
 
 @functools.lru_cache(maxsize=None)
 def typeok_tiling(n: int, tw: int, k: int) -> tuple[int, int]:
-    """(rb, cw): class rows a CTA (a warp each, up to the CTA's 8) and mask
-    words a shared-memory stage: all of TW where they fit the CTA's shared
-    memory, else the most that fit. The screen is latency-bound, so a CTA
-    takes as many rows as it has warps: fewer CTAs share an SM."""
+    """(rb, cw) for n class rows: rows a CTA (a warp each, up to the CTA's
+    8) and mask words a shared-memory stage: all of TW where they fit the
+    CTA's shared memory, else the most that fit. The screen is
+    latency-bound, so a CTA takes as many rows as it has warps: fewer CTAs
+    share an SM."""
     rb = max(1, min(8, n))
     room = (_TYPEOK_SMEM_MAX - _typeok_smem(rb, 0, k)) // (4 * (33 + rb + 1))
     if room < 1:
@@ -154,16 +155,33 @@ def _typeok_lib():
     return lib
 
 
-# the type half of the last launch, (ireq, va, _TypeokTypes, the tensors
-# it points at): `_tables` screens the class rows and the tier rows against
-# the same types, and the entry keeps those tensors alive while it is kept
-_TYPE_HALF: list = [None]
+class _TypeHalf(NamedTuple):
+    """K1's type half: the launch argument and the tensors it points at
+    that are not the caller's (the int32 word2key, aligned copies of flag
+    rows). Whoever holds it keeps those alive until its launch is queued."""
+
+    args: _TypeokTypes
+    owned: tuple
 
 
-def _typeok_types(ireq: Reqs, va: VocabArrays, dev: torch.device) -> _TypeokTypes:
-    hit = _TYPE_HALF[0]
-    if hit is not None and hit[0] is ireq and hit[1] is va:
-        return hit[2]
+def _typeok_sources(ireq: Reqs, va: VocabArrays) -> tuple:
+    return tuple(getattr(ireq, f) for f in _TYPEOK_FIELDS) + (va.word2key,)
+
+
+_TYPE_HALVES: dict = {}
+
+
+def _typeok_types(ireq: Reqs, va: VocabArrays, dev: torch.device) -> _TypeHalf:
+    """The type half of (ireq, va), built at their first launch and reused
+    while those very tensors live (`_tables` screens the class rows and the
+    tier rows against the same types). Each type table has its own entry,
+    which holds no reference to its sources and goes when the types' mask
+    is freed."""
+    src = _typeok_sources(ireq, va)
+    key = tuple(map(id, src))
+    hit = _TYPE_HALVES.get(key)
+    if hit is not None and all(r() is t for r, t in zip(hit[0], src)):
+        return hit[1]
     Kk = va.num_keys
     if Kk > 64:
         raise ValueError(f"typeok_screen: {Kk} keys exceed the kernel's 64")
@@ -175,37 +193,34 @@ def _typeok_types(ireq: Reqs, va: VocabArrays, dev: torch.device) -> _TypeokType
         if fields[f].data_ptr() % 4:
             fields[f] = fields[f].clone()
     ptrs = {f: K.checked_ptr(fields[f], dt, dev, "i" + f) for f, dt in zip(_TYPEOK_FIELDS, _TYPEOK_DTYPES)}
-    half = _TypeokTypes(
+    args = _TypeokTypes(
         word2key=K.checked_ptr(w2k, torch.int32, dev, "word2key"),
         I=ireq.mask.shape[0], TW=ireq.mask.shape[1], K=Kk, **ptrs,
     )
-    _TYPE_HALF[0] = (ireq, va, half, (w2k, fields))
+    half = _TypeHalf(args, tuple(t for t in (w2k, *fields.values()) if not any(t is s for s in src)))
+    _TYPE_HALVES[key] = (tuple(weakref.ref(t) for t in src), half)
+    weakref.finalize(src[0], _TYPE_HALVES.pop, key, None)
     return half
 
 
-def typeok_screen(ireq: Reqs, va: VocabArrays, preq_rows: Reqs, iw: int, n_rows: Optional[int] = None) -> torch.Tensor:
+def typeok_screen(ireq: Reqs, va: VocabArrays, preq_rows: Reqs, iw: int) -> torch.Tensor:
     """[B, IW] int32 words. CPU tensors take the plain version; CUDA
-    tensors launch the kernel. `n_rows`: the caller's rows b >= n_rows
-    repeat row b mod n_rows, so only the first n_rows are screened and
-    each word is written to its repeats too (default: every row)."""
+    tensors launch the kernel."""
     dev = ireq.mask.device
     if dev.type == "cpu":
-        return typeok_plain(ireq, va, preq_rows, iw, n_rows)
+        return typeok_plain(ireq, va, preq_rows, iw)
     B, TW = preq_rows.mask.shape
-    n = B if n_rows is None else n_rows
     if iw * 32 < ireq.mask.shape[0]:
         raise ValueError(f"typeok_screen: {iw} words cannot hold {ireq.mask.shape[0]} types")
-    if B and not 1 <= n <= B:
-        raise ValueError(f"typeok_screen: n_rows={n} for {B} rows")
-    types = _typeok_types(ireq, va, dev)
+    half = _typeok_types(ireq, va, dev)  # held until the launch is queued
     out = torch.empty((B, iw), dtype=torch.int32, device=dev)
     if B == 0:
         return out
-    rb, cw = typeok_tiling(n, TW, types.K)
+    rb, cw = typeok_tiling(B, TW, half.args.K)
     ptrs = {f: K.checked_ptr(getattr(preq_rows, f), dt, dev, "p" + f) for f, dt in zip(_TYPEOK_FIELDS, _TYPEOK_DTYPES)}
-    rows = _TypeokRows(out=out.data_ptr(), B=B, n=n, IW=iw, rb=rb, cw=cw, **ptrs)
+    rows = _TypeokRows(out=out.data_ptr(), B=B, IW=iw, rb=rb, cw=cw, **ptrs)
     code = _typeok_lib().typeok_screen_launch(
-        ctypes.byref(types), ctypes.byref(rows), ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
+        ctypes.byref(half.args), ctypes.byref(rows), ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
     )
     _build.check_launch("typeok_screen", code)
     LAUNCHES["typeok_screen"] += 1
@@ -739,34 +754,38 @@ class TorchScheduler:
 
     def _cr_padded(self, p: EncodedProblem) -> np.ndarray:
         """[NR_pad] class index per requirement class, bucket-padded by
-        repeating real rows (pad rows are never gathered): row b is row
-        b mod NR, the period `typeok_screen` screens once."""
+        repeating real rows (pad rows are never gathered)."""
         cr = np.asarray(p.rclass_creps, dtype=np.int64)
         if not buckets.enabled() or len(cr) == 0:
             return cr
         return cr[np.arange(buckets.bucket(len(cr))) % len(cr)]
 
+    def _class_rows(self, p: EncodedProblem) -> Reqs:
+        """The NR requirement classes' rows, one a class: what
+        `_pod_typeok` screens."""
+        cr = np.asarray(p.rclass_creps, dtype=np.int64)
+        return Reqs(*(to_tensor(a[cr], self.device) for a in p.preq_c))
+
     def _pod_typeok(self, p: EncodedProblem, ireq: Reqs, va: VocabArrays) -> torch.Tensor:
         """[NR_pad, IW] words — per requirement class, the instance types
         whose requirements intersect the class's (the pairwise screen; the
         step stays exact for three-way intersections, offerings and
-        minValues)."""
+        minValues). The NR classes are screened once and the bucket's pad
+        rows repeat them, as `_cr_padded` does."""
         IW = max(1, (p.num_types + 31) // 32)
-        cr = self._cr_padded(p)
-        if len(cr) == 0:
+        NR, NR_pad = len(p.rclass_creps), len(self._cr_padded(p))
+        if NR == 0:
             return torch.zeros((0, IW), dtype=torch.int32, device=self.device)
-        rows = Reqs(*(to_tensor(a[cr], self.device) for a in p.preq_c))
-        return typeok_screen(ireq, va, rows, IW, n_rows=len(p.rclass_creps))
+        out = typeok_screen(ireq, va, self._class_rows(p), IW)
+        return out if NR_pad == NR else out.repeat(-(-NR_pad // NR), 1)[:NR_pad]
 
     def _tier_rows(self, p: EncodedProblem) -> Optional[Reqs]:
-        """The NRx*L tier rows of the relaxable requirement classes, padded
-        to a power of two by repeating rows (row b is row b mod NRx*L; None
+        """The NRx*L tier rows of the relaxable requirement classes (None
         with nothing to relax)."""
         if not p.rt_tier_reqs:
             return None
-        NRx, L = len(p.rt_tier_reqs), p.num_tiers
-        idx = np.arange(_pow2(NRx * L)) % (NRx * L)
-        return Reqs(*(to_tensor(a.reshape((NRx * L,) + a.shape[2:])[idx], self.device) for a in p.rt_preq))
+        n = len(p.rt_tier_reqs) * p.num_tiers
+        return Reqs(*(to_tensor(a.reshape((n,) + a.shape[2:]), self.device) for a in p.rt_preq))
 
     def _tier_typeok(self, p: EncodedProblem, ireq: Reqs, va: VocabArrays) -> torch.Tensor:
         """[NRx_pad, L, IW] words — per relaxable requirement class and
@@ -779,7 +798,7 @@ class TorchScheduler:
             out = torch.zeros((1, 1, IW), dtype=torch.int32, device=self.device)
         else:
             NRx, L = len(p.rt_tier_reqs), p.num_tiers
-            out = typeok_screen(ireq, va, rows, IW, n_rows=NRx * L)[: NRx * L].reshape(NRx, L, IW)
+            out = typeok_screen(ireq, va, rows, IW).reshape(NRx, L, IW)
         if buckets.enabled():
             n_pad = buckets.bucket(out.shape[0], floor=1) - out.shape[0]
             if n_pad > 0:

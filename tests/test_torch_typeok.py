@@ -8,16 +8,19 @@ CPU the wrapper takes the plain version, so these tests hold:
   kernel must keep: a type count that is not a multiple of 32 (a partial
   last word), a vocabulary at and near the kernel's 64-key limit, and
   class rows padded by repetition (each padded row's words equal its
-  source row's);
-- the period the kernel screens once: both callers pad row b as row
-  b mod n (`_cr_padded` with n the requirement classes, `_tier_rows` with
-  n the relaxable classes x tiers);
+  source row's, so a screen of the distinct rows, repeated, is the same);
+- the callers screen their distinct rows only: `_pod_typeok` screens
+  `_class_rows` and repeats the words as `_cr_padded` repeats the rows,
+  `_tier_rows` holds the relaxable classes x tiers unpadded;
 - the launch's host-side sizing: `typeok_tiling` (class rows a CTA, mask
   words a shared-memory stage) and `_typeok_smem`, the bytes the CUDA
-  source lays out; and the type half's flag rows, which the kernel copies
-  4 bytes at a time, start on a 4-byte boundary even from a view that
-  does not.
+  source lays out; and the cached type half: its flag rows, which the
+  kernel copies 4 bytes at a time, start on a 4-byte boundary even from a
+  view that does not, it owns every copy it points at, each type table
+  keeps its own entry, and the entry goes with its types.
 """
+
+import gc
 
 import jax.numpy as jnp
 import numpy as np
@@ -116,9 +119,9 @@ def test_typeok_plain_near_the_key_limit(n_keys):
 
 def test_typeok_plain_periodic_rows():
     """Five class rows padded to 16 by repetition (row b is row b mod 5):
-    each padded row's words equal its source row's, as the kernel writes
-    them when it screens the five once (n_rows=5; the CPU takes the plain
-    version, which ignores it)."""
+    each padded row's words equal its source row's, so the screen of the
+    five, repeated (what `_pod_typeok` does), is the reference's screen of
+    the sixteen."""
     vocab, keys = _wide_vocab(12)
     rng = np.random.RandomState(9)
     types = encode_requirements(vocab, _random_rows(rng, keys, 45, 0.3))
@@ -127,10 +130,11 @@ def test_typeok_plain_periodic_rows():
     (jt, jva), (tt, tva) = _both(vocab, types)
     (jc, _), (tc, _) = _both(vocab, padded)
     want = _words(_typeok_chunk_impl(jt, jva, jc, 2))
-    got = PT.typeok_screen(tt, tva, tc, 2, n_rows=5)
-    assert np.array_equal(want, got.numpy())
-    assert np.array_equal(got.numpy(), got.numpy()[np.arange(16) % 5])
-    assert got[:5].ne(0).any()
+    (_, _), (t5, _) = _both(vocab, classes)
+    five = PT.typeok_screen(tt, tva, t5, 2)
+    assert np.array_equal(want, five.repeat(4, 1)[:16].numpy())
+    assert np.array_equal(want, PT.typeok_screen(tt, tva, tc, 2).numpy())
+    assert five.ne(0).any()
 
 
 def _port_problem(case: fuzz.FuzzCase):
@@ -142,22 +146,31 @@ def _port_problem(case: fuzz.FuzzCase):
 
 @pytest.mark.parametrize("seed", [7000, 7034, 7057])
 def test_callers_pad_rows_with_the_period_they_pass(seed):
-    """`_cr_padded` repeats the requirement classes and `_tier_rows` the
-    relaxable classes x tiers with exactly the period each passes to the
-    kernel as n_rows, and the screen of the padded rows keeps it."""
+    """The callers hand the screen their distinct rows: `_class_rows` one
+    a requirement class and `_tier_rows` one a relaxable class x tier; the
+    class screen's words are repeated as `_cr_padded` repeats the rows
+    (period n, the requirement classes), and equal the screen of the
+    padded rows."""
     sched, p = _port_problem(fuzz.generate_case(seed))
     cr = sched._cr_padded(p)
     n = len(p.rclass_creps)
     assert len(cr) > n  # the bucket pads
     assert np.array_equal(cr, cr[np.arange(len(cr)) % n])
-    rows = sched._tier_rows(p)
+    rows = sched._class_rows(p)
+    assert rows.mask.shape[0] == n
+    for f, a in zip(rows, p.preq_c):
+        assert np.array_equal(f.numpy(), D.to_tensor(a[cr[:n]], "cpu").numpy())
+    tiers = sched._tier_rows(p)
     m = len(p.rt_tier_reqs) * p.num_tiers
-    assert rows.mask.shape[0] > m
-    for f in rows:
-        assert torch.equal(f, f[torch.arange(f.shape[0]) % m])
+    assert tiers.mask.shape[0] == m
     tb = sched._tables(p)
+    assert sched._typeok.shape[0] == len(cr)
     assert torch.equal(sched._typeok, sched._typeok[torch.arange(len(cr)) % n])
-    assert tb.rt_typeok.shape[0] >= len(p.rt_tier_reqs)
+    padded = TReqs(*(D.to_tensor(a[cr], "cpu") for a in p.preq_c))
+    IW = sched._typeok.shape[1]
+    assert torch.equal(sched._typeok, PT.typeok_plain(tb.ireq, tb.va, padded, IW))
+    NRx, L = len(p.rt_tier_reqs), p.num_tiers
+    assert torch.equal(tb.rt_typeok[:NRx], PT.typeok_plain(tb.ireq, tb.va, tiers, IW).reshape(NRx, L, IW))
 
 
 def test_typeok_tiling_fills_the_ctas_and_the_shared_memory():
@@ -203,10 +216,37 @@ def test_type_half_aligns_the_flag_rows():
     })
     assert all(getattr(off, f).data_ptr() % 4 and getattr(off, f).is_contiguous() for f in ("other", "notin", "defined"))
     half = PT._typeok_types(off, tva, dev)
+    owned = {t.data_ptr(): t for t in half.owned}
     for f in ("other", "notin", "defined"):
-        assert getattr(half, f) % 4 == 0
-        assert torch.equal(PT._TYPE_HALF[0][3][1][f], getattr(off, f))
+        ptr = getattr(half.args, f)
+        assert ptr % 4 == 0
+        assert torch.equal(owned[ptr], getattr(off, f))
     assert PT._typeok_types(off, tva, dev) is half
     aligned = PT._typeok_types(tt, tva, dev)
-    assert aligned is not half and aligned.other == tt.other.data_ptr()
-    assert (aligned.I, aligned.TW, aligned.K) == (40, tt.mask.shape[1], 13)
+    assert aligned is not half and aligned.args.other == tt.other.data_ptr()
+    assert (aligned.args.I, aligned.args.TW, aligned.args.K) == (40, tt.mask.shape[1], 13)
+
+
+def test_type_half_owns_its_copies_and_goes_with_its_types():
+    """The type half owns the int32 word2key it points at (the vocabulary
+    holds int64), and holds none of its sources; two type tables keep two
+    entries (a screen of one never evicts the other's, as concurrent fleet
+    lanes need), and an entry goes when its types are freed."""
+    vocab, keys = _wide_vocab(9)
+    rng = np.random.RandomState(4)
+    (_, _), (ta, tva) = _both(vocab, encode_requirements(vocab, _random_rows(rng, keys, 20, 0.3)))
+    (_, _), (tb, _) = _both(vocab, encode_requirements(vocab, _random_rows(rng, keys, 33, 0.3)))
+    dev = torch.device("cpu")
+    assert tva.word2key.dtype == torch.int64
+    ha = PT._typeok_types(ta, tva, dev)
+    (w2k,) = [t for t in ha.owned if t.data_ptr() == ha.args.word2key]
+    assert w2k.dtype == torch.int32 and torch.equal(w2k, tva.word2key.to(torch.int32))
+    sources = PT._typeok_sources(ta, tva)
+    assert not any(o is s for o in ha.owned for s in sources)
+    hb = PT._typeok_types(tb, tva, dev)
+    assert hb is not ha and PT._typeok_types(ta, tva, dev) is ha
+    n = len(PT._TYPE_HALVES)
+    del ta, sources
+    gc.collect()
+    assert len(PT._TYPE_HALVES) == n - 1
+    assert PT._typeok_types(tb, tva, dev) is hb

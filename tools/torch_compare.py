@@ -24,7 +24,8 @@ torch.profiler trace, summed per kernel name, per call:
   cache kernel and its lane kernel; K8 on the c4 fleet again with every
   launch table in device memory (`tpu_kernel.SMEM_CAP = 0`);
 - K1 `typeok_screen` on the headline's class rows, the c6 mix's tier rows
-  and the class rows of a 2048-type catalog; K4 `run_arrays` on the
+  and the class rows of a 2048-type catalog (the rows each checkout's
+  solve screens); K4 `run_arrays` on the
   headline's and the c6 mix's first round; K5 `dedup_rows` on the
   headline's final claim rows. For these three the worker also times the
   wrapper's host side: the wall time of 200 calls with no sync, divided
@@ -163,7 +164,6 @@ def small_kernel_items(dev, small: bool, groups: set) -> list:
     n_types, pods, big_types, big_pods = (40, 50, 96, 30) if small else (
         CS.HEADLINE_TYPES, CS.HEADLINE_PODS, CS.LARGE_CATALOG_TYPES, CS.LARGE_CATALOG_PODS)
     its = CS.build_universe(n_types)
-    has_period = "n_rows" in inspect.signature(T.typeok_screen).parameters
     items = []
     t0 = time.monotonic()
     if "K1" in groups:
@@ -176,14 +176,16 @@ def small_kernel_items(dev, small: bool, groups: set) -> list:
             problem = encode_problem(sched.oracle, wpods)
             tb = sched._tables(problem)
             IW = max(1, (problem.num_types + 31) // 32)
+            # the rows the checkout's solve screens: its distinct class rows
+            # where it has `_class_rows`, else the bucket-padded ones
             if tier:
-                rows, n = sched._tier_rows(problem), len(problem.rt_tier_reqs) * problem.num_tiers
+                rows = sched._tier_rows(problem)
+            elif hasattr(sched, "_class_rows"):
+                rows = sched._class_rows(problem)
             else:
-                cr = sched._cr_padded(problem)
-                rows, n = Reqs(*(to_tensor(a[cr], dev) for a in problem.preq_c)), len(problem.rclass_creps)
-            kw = {"n_rows": n} if has_period else {}
-            items.append((f"{label} [{rows.mask.shape[0]}x{IW}]",
-                          lambda tb=tb, rows=rows, IW=IW, kw=kw: T.typeok_screen(tb.ireq, tb.va, rows, IW, **kw),
+                rows = Reqs(*(to_tensor(a[sched._cr_padded(problem)], dev) for a in problem.preq_c))
+            log(f"{label}: [{rows.mask.shape[0]}, {IW}] words")  # the two checkouts' row counts may differ
+            items.append((label, lambda tb=tb, rows=rows, IW=IW: T.typeok_screen(tb.ireq, tb.va, rows, IW),
                           200, ("typeok_kernel",), True))
     if groups & {"K4", "K5"}:
         for label, world in (("headline", CS.headline_world(pods, its)), ("c6", CS.c6_world(pods, its))):

@@ -18,10 +18,12 @@ catalog. The variants:
 - `bounds`: after the bounds, before the last barrier;
 - `full`: the kernel as it is.
 
-A phase's cost is its variant's time less the one before. A variant whose
-cut point the source lacks is left out. Each variant is built with the
-checkout's nvcc flags into `build/typeok_phases/`; the printout has their
-ptxas lines. Without a CUDA device it exits 2.
+A phase's cost is its variant's time less the one before. Each cut
+point is a `// phase cut: <variant>` line of the source; a source that
+lacks one, or has it twice, is refused. Each variant is built with the
+checkout's nvcc command (`_build.nvcc_command`) into
+`build/typeok_phases/`; the printout has their ptxas lines. Without a
+CUDA device it exits 2.
 """
 
 from __future__ import annotations
@@ -35,23 +37,26 @@ from pathlib import Path
 
 HERE = Path(__file__).resolve().parent.parent
 
-# (variant, the line it returns before, what it keeps alive)
+# (variant, what it keeps alive): the variant returns at the source's
+# `// phase cut: <variant>` line
 CUTS = (
-    ("staged", "  // 2-3. the mask words", "if (po == 0x12345 && pn == 7) R.out[0] = 1;"),
-    ("stages", "  // 2. the key masks, once",
-     "if (seg == 0x9e3779b97f4a7c15ull && tnz[0] == 3 && tnz[3] == 9 && pnz == 5) R.out[0] = 7;"),
-    ("keys", "  // 3. the bounds of", "if (seg == 0x9e3779b97f4a7c15ull && ptol == 5) R.out[0] = 7;"),
-    ("bounds", "  __syncthreads();  // the types' key masks",
-     "if (seg == 0x9e3779b97f4a7c15ull && ptol == 5 && bounds == 3) R.out[0] = 7;"),
+    ("entry", ""),
+    ("staged", "if (po == 0x12345 && pn == 7) R.out[0] = 1;"),
+    ("stages", "if (seg == 0x9e3779b97f4a7c15ull && tnz[0] == 3 && tnz[3] == 9 && pnz == 5) R.out[0] = 7;"),
+    ("keys", "if (seg == 0x9e3779b97f4a7c15ull && ptol == 5) R.out[0] = 7;"),
+    ("bounds", "if (seg == 0x9e3779b97f4a7c15ull && ptol == 5 && bounds == 3) R.out[0] = 7;"),
 )
-ENTRY = "  extern __shared__ u64 smem[];\n"
 
 
 def variants(src: str) -> dict:
-    out = {"entry": src.replace(ENTRY, ENTRY + "  if (R.B >= 0) return;\n", 1)} if src.count(ENTRY) == 1 else {}
-    for name, at, keep in CUTS:
-        if src.count(at) == 1:
-            out[name] = src.replace(at, f"  {keep}\n  return;\n{at}", 1)
+    """{variant: source}, the kernel as it is last ("full"). Raises when a
+    cut point is missing or not unique."""
+    out = {}
+    for name, keep in CUTS:
+        at = f"  // phase cut: {name} "
+        if src.count(at) != 1:
+            raise ValueError(f"typeok_phases: the source has {src.count(at)} '{at.strip()}' lines, not one")
+        out[name] = src.replace(at, f"  {keep}\n  return;\n{at}", 1)
     out["full"] = src
     return out
 
@@ -76,8 +81,7 @@ def main() -> int:
     procs = {}
     for name, text in variants(Path(args.source).read_text()).items():
         (work / f"{name}.cu").write_text(text)
-        cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC), "-o", str(work / f"lib{name}.so"),
-               str(work / f"{name}.cu")]
+        cmd = _build.nvcc_command(work / f"{name}.cu", work / f"lib{name}.so")
         procs[name] = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
     libs = {}
     for name, proc in procs.items():
@@ -105,16 +109,16 @@ def main() -> int:
     result = {"card": smi, "source": args.source, "shapes": {}}
     for label, k in shapes.items():
         ireq = k.tb.ireq
-        types = T._typeok_types(ireq, k.tb.va, ireq.mask.device)
+        half = T._typeok_types(ireq, k.tb.va, ireq.mask.device)
         B, TW = k.rows.mask.shape
-        rb, cw = T.typeok_tiling(k.n, TW, types.K)
+        rb, cw = T.typeok_tiling(B, TW, half.args.K)
         out = torch.empty((B, k.iw), dtype=torch.int32, device=dev)
         ptrs = {f: getattr(k.rows, f).data_ptr() for f in T._TYPEOK_FIELDS}
-        rows = T._TypeokRows(out=out.data_ptr(), B=B, n=k.n, IW=k.iw, rb=rb, cw=cw, **ptrs)
+        rows = T._TypeokRows(out=out.data_ptr(), B=B, IW=k.iw, rb=rb, cw=cw, **ptrs)
         times = {}
         for name, lib in libs.items():
             def launch(lib=lib):
-                code = lib.typeok_screen_launch(ctypes.byref(types), ctypes.byref(rows),
+                code = lib.typeok_screen_launch(ctypes.byref(half.args), ctypes.byref(rows),
                                                 ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
                 _build.check_launch(f"typeok variant {name}", code)
 
@@ -124,8 +128,8 @@ def main() -> int:
                 if ms is not None:
                     break
             times[name] = ms
-        result["shapes"][label] = {"n": k.n, "B": B, "IW": k.iw, "TW": TW, "rb": rb, "cw": cw, "device_ms": times}
-        print(f"{label} (n={k.n} of B={B}, IW={k.iw}, TW={TW}, rb={rb}, cw={cw}): device ms {json.dumps(times)}",
+        result["shapes"][label] = {"B": B, "IW": k.iw, "TW": TW, "rb": rb, "cw": cw, "device_ms": times}
+        print(f"{label} (B={B}, IW={k.iw}, TW={TW}, rb={rb}, cw={cw}): device ms {json.dumps(times)}",
               flush=True)
     Path(args.out).parent.mkdir(parents=True, exist_ok=True)
     Path(args.out).write_text(json.dumps(result, indent=1))
