@@ -21,8 +21,12 @@ PyTorch version on the card, bit for bit:
 - K4 run_arrays on both rounds of the headline and of the c6 mix, and on
   seeded rounds of P in {1, 31, 32, 33, 1024, 1025, 16384, 65536}
   positions (n = 0, a middle n, n = P, one run over every position);
-- K5 dedup_rows on the headline's final claim rows and on 16384 synthetic
-  rows with many duplicates;
+- K5 dedup_rows, as the decode calls it (`dedup_decode_state`, the claim
+  columns read in place), on the headline's and the c6 mix's final claim
+  state, on 16384 synthetic rows with many duplicates and on seeded
+  column sets of n in {1, 2, 63, 8192, 8193, 2^17} rows at the
+  headline's widths and 2^20 rows of 8 words, all rows equal and all
+  distinct (`k5_edge_checks`);
 - K6 fast_sweep (prefix and singleton lanes) and K8 set_sweep (1024
   removal sets), verdicts and per-lane leftovers, also with every table
   and lane in device memory, on a 2000-node under-utilized fleet (the
@@ -42,7 +46,9 @@ PyTorch version on the card, bit for bit:
   type tables spill from shared to device memory.
 
 It prints the device time (profiler) and the wrapper's host time a call
-of K1, K4 and K5 beside an empty kernel's (the launch floor), and the
+of K1, K4 and K5 beside an empty kernel's (the launch floor), K5's as
+the whole decode call with the kernels it launches (one, up to 8192
+rows) and its per-phase clock breakdown, and the
 per-phase clock breakdown of K3 (the headline's and c6's two
 dispatches), K2 (a 2048-pod headline prefix) and K7 at one lane beside K2
 on the same fleet lane, each profiled launch held bit for bit to the same
@@ -159,14 +165,37 @@ LARGE_CATALOG_PODS = 512
 FLEET_JOIN_SECONDS = 300.0
 # the device functions of K6 and K8, as the profiler names them
 SWEEP_KERNELS = ("sweep_cache_kernel", "fast_sweep_lanes", "set_sweep_lanes")
-# K5's device functions
-K5_KERNELS = ("hash_kernel", "sort_shared_kernel", "sort_pass_kernel", "mark_kernel", "scan_kernel", "compact_kernel")
+# K5's edge checks (k5_edge_checks): (label, rows, widths of the nine
+# claim columns in the dedup layout, which rows); the headline's widths
+# are TW=36, K=16, IW=16 (C=184)
+K5_HEADLINE_WIDTHS = (36, 36, 16, 16, 16, 16, 16, 16, 16)
+K5_EDGES = (
+    ("n=1", 1, K5_HEADLINE_WIDTHS, "pool"),
+    ("n=2", 2, K5_HEADLINE_WIDTHS, "pool"),
+    ("n=63", 63, K5_HEADLINE_WIDTHS, "pool"),
+    ("n=1000, 40 distinct rows", 1000, K5_HEADLINE_WIDTHS, "few"),
+    ("n=2048, 40 distinct rows", 2048, K5_HEADLINE_WIDTHS, "few"),
+    ("n=2048, C=376", 2048, (108, 108, 16, 16, 16, 16, 16, 16, 64), "pool"),
+    ("n=8192", 8192, K5_HEADLINE_WIDTHS, "pool"),
+    ("n=8193", 8193, K5_HEADLINE_WIDTHS, "pool"),
+    ("n=2^17", 1 << 17, K5_HEADLINE_WIDTHS, "pool"),
+    ("n=2^20, C=8", 1 << 20, (2, 0, 1, 1, 0, 2, 0, 0, 2), "pool"),
+    ("all equal, n=2048", 2048, K5_HEADLINE_WIDTHS, "equal"),
+    ("all distinct, n=2048", 2048, K5_HEADLINE_WIDTHS, "distinct"),
+    ("all equal, n=8193", 8193, K5_HEADLINE_WIDTHS, "equal"),
+    ("all distinct, n=8192", 8192, K5_HEADLINE_WIDTHS, "distinct"),
+)
+K5_BOOL = (False, False, True, True, True, False, False, False, False)  # other, notin, defined
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 CORE_OPS_PER_S = 67e12  # H100 SXM non-tensor 32-bit rate (fp32 figure)
 
 
+_T0 = time.monotonic()
+
+
 def log(msg: str) -> None:
-    print(msg, flush=True)
+    """A line of the run's log, after the seconds since the script started."""
+    print(f"[{time.monotonic() - _T0:7.1f}s] {msg}", flush=True)
 
 
 def build_universe(n_types: int):
@@ -642,7 +671,22 @@ def device_split(fn, reps: int, names: tuple) -> dict:
     `names`, from a torch.profiler trace of `reps` calls ({} when the trace
     shows them no device time). Unlike cuda_ms, the host work between
     launches does not count."""
+    trace = device_trace(fn, reps)
+    out = {n: sum(ms for key, (ms, _) in trace.items() if n in key) for n in names}
+    return {n: ms for n, ms in out.items() if ms}
+
+
+def device_ms(fn, reps: int, names: tuple) -> Optional[float]:
+    """device_split's times summed (None when the trace shows none)."""
+    split = device_split(fn, reps, names)
+    return sum(split.values()) if split else None
+
+
+def device_trace(fn, reps: int) -> dict:
+    """{device kernel: [ms a call, launches a call]} of every device event
+    of a torch.profiler trace of `reps` calls, after one warm-up call."""
     import torch
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -653,17 +697,11 @@ def device_split(fn, reps: int, names: tuple) -> dict:
         torch.cuda.synchronize()
     out = {}
     for e in prof.key_averages():
-        us = getattr(e, "device_time_total", 0) or getattr(e, "cuda_time_total", 0)
-        for n in names:
-            if n in e.key and us:
-                out[n] = out.get(n, 0.0) + us / 1e3 / reps
+        if e.device_type == DeviceType.CUDA:
+            us = getattr(e, "device_time_total", 0) or getattr(e, "cuda_time_total", 0)
+            ms, k = out.get(e.key, (0.0, 0.0))
+            out[e.key] = (ms + us / 1e3 / reps, k + e.count / reps)
     return out
-
-
-def device_ms(fn, reps: int, names: tuple) -> Optional[float]:
-    """device_split's times summed (None when the trace shows none)."""
-    split = device_split(fn, reps, names)
-    return sum(split.values()) if split else None
 
 
 def host_ms(fn, reps: int, batches: int = 5) -> float:
@@ -852,6 +890,48 @@ def dedup_mismatches(got, want) -> list[str]:
     import torch
 
     return [name for name, a, b in zip(("n_uniq", "inv", "compact"), got, want) if not torch.equal(a, b)]
+
+
+def k5_columns(dev, n: int, widths: tuple, kind: str, seed: int) -> list:
+    """Nine claim columns of n rows in the dedup layout (int32, three of
+    them bool), made on the host from a seed: rows drawn from a pool of
+    n // 8 (kind "pool") or of 40 ("few", as the headline's final state
+    has tens), one row repeated ("equal") or every row its own
+    ("distinct": the first int column holds the row's index)."""
+    import torch
+
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    pool = {"pool": max(2, n // 8), "few": 40, "equal": 1, "distinct": n}[kind]
+    pick = torch.randint(0, pool, (n,), generator=gen) if kind in ("pool", "few") else torch.arange(n) % pool
+    cols = []
+    for w, is_bool in zip(widths, K5_BOOL):
+        if is_bool:
+            base = torch.randint(0, 2, (pool, w), generator=gen).bool()
+        else:
+            base = torch.randint(-(1 << 31), (1 << 31) - 1, (pool, w), generator=gen, dtype=torch.int64).to(torch.int32)
+        cols.append(base[pick])
+    if kind == "distinct":
+        first = next(k for k, w in enumerate(widths) if w and not K5_BOOL[k])
+        cols[first][:, 0] = torch.arange(n, dtype=torch.int32)
+    return [c.to(dev) for c in cols]
+
+
+def k5_edge_checks(dev) -> list:
+    """K5 against its plain version on every K5_EDGES column set: the
+    mismatched outputs."""
+    import torch
+
+    from karpenter_tpu_torch.solver import tpu as T
+
+    bad, uniq = [], {}
+    for seed, (label, n, widths, kind) in enumerate(K5_EDGES):
+        cols = k5_columns(dev, n, widths, kind, seed)
+        got, want = T.dedup_columns(cols, n), T.dedup_columns_plain(cols, n)
+        torch.cuda.synchronize()
+        bad += [f"{label}: {b}" for b in dedup_mismatches(got, want)]
+        uniq[label] = int(want[0])
+    log(f"K5 dedup_rows edges (uniques): {json.dumps(uniq)}; mismatches={bad or 'none'}")
+    return bad
 
 
 def phase_breakdown(world, dev) -> dict:
@@ -1390,7 +1470,26 @@ def fast_fleet_checks(dev, w, cands, tag: str, seed: int, rows_out: list, profil
     return not bad
 
 
-def sweep_phase(dev) -> Optional[list]:
+def sweep_worlds() -> list:
+    """The sweep phase's four 2000-node fleets, in the order it takes them:
+    the c4 shape, the leftover fleet, the c0 fleet and the spread fleet
+    (host work only: main builds them while nvcc runs)."""
+    from karpenter_tpu_torch.testing.fixtures import underutilized_world
+
+    return [
+        underutilized_world(SWEEP_NODES, seed=7, n_pending=SWEEP_PENDING),
+        underutilized_world(
+            SWEEP_NODES, seed=7, rider_requests=LEFTOVER_RIDER, n_pending=SWEEP_PENDING,
+            pending_requests=LEFTOVER_PENDING,
+        ),
+        underutilized_world(
+            SWEEP_NODES, seed=7, rider_requests=LEFTOVER_RIDER, heavy_every=C0_EVERY, heavy_requests=C0_HEAVY
+        ),
+        underutilized_world(SWEEP_NODES, seed=7, rider_spread=RIDER_SPREAD),
+    ]
+
+
+def sweep_phase(dev, worlds: Optional[list] = None) -> Optional[list]:
     """The consolidation sweeps on the card: the fast path (K6, prefix and
     singleton lanes) and the removal-set sweep (K8) at the c4 shape, where
     every lane places all its pods on existing nodes, and on a leftover
@@ -1399,49 +1498,41 @@ def sweep_phase(dev) -> Optional[list]:
     spread fleet. Each main path with its launch counts reset just before
     and read just after, each kernel held bit for bit against its plain
     version on the same inputs, verdicts held against the sequential
-    referee. Returns the kernels-line rows, or None when a check failed."""
+    referee. The fleets are `worlds` (sweep_worlds(), built here when None).
+    Returns the kernels-line rows, or None when a check failed."""
     import torch
 
     from karpenter_tpu_torch.controllers.disruption import sweep as S
     from karpenter_tpu_torch.solver import tpu_kernel as K
-    from karpenter_tpu_torch.testing.fixtures import underutilized_world
 
     t_phase = time.monotonic()
     rows_out = []
     profiled = []  # (row index, call, reps, kernel names) for device_ms
-    t0 = time.monotonic()
-    w = underutilized_world(SWEEP_NODES, seed=7, n_pending=SWEEP_PENDING)
+    worlds = list(worlds or sweep_worlds())
+    w = worlds.pop(0)
     cands = sweep_candidates(w, SWEEP_CANDIDATES)
-    log(f"sweep world: {SWEEP_NODES} nodes, {len(cands)} candidates, {SWEEP_PENDING} pending pods "
-        f"({time.monotonic() - t0:.1f}s host)")
+    log(f"sweep world: {SWEEP_NODES} nodes, {len(cands)} candidates, {SWEEP_PENDING} pending pods")
     if not fast_fleet_checks(dev, w, cands, "", 7, rows_out, profiled):
         return None
-    t0 = time.monotonic()
-    w = underutilized_world(
-        SWEEP_NODES, seed=7, rider_requests=LEFTOVER_RIDER, n_pending=SWEEP_PENDING, pending_requests=LEFTOVER_PENDING
-    )
+    w = worlds.pop(0)
     cands = sweep_candidates(w, SWEEP_CANDIDATES)
     log(f"leftover world: {SWEEP_NODES} nodes with riders of {LEFTOVER_RIDER}, {len(cands)} candidates, "
-        f"{SWEEP_PENDING} pending pods of {LEFTOVER_PENDING} ({time.monotonic() - t0:.1f}s host)")
+        f"{SWEEP_PENDING} pending pods of {LEFTOVER_PENDING}")
     if not fast_fleet_checks(dev, w, cands, LEFTOVER_TAG, 17, rows_out, profiled):
         return None
-    t0 = time.monotonic()
-    w = underutilized_world(
-        SWEEP_NODES, seed=7, rider_requests=LEFTOVER_RIDER, heavy_every=C0_EVERY, heavy_requests=C0_HEAVY
-    )
+    w = worlds.pop(0)
     cands = sweep_candidates(w, SWEEP_CANDIDATES)
     log(f"c0 world: {SWEEP_NODES} nodes with riders of {LEFTOVER_RIDER}, every {C0_EVERY}rd holding {C0_HEAVY} "
-        f"instead, {len(cands)} candidates ({time.monotonic() - t0:.1f}s host)")
+        f"instead, {len(cands)} candidates")
     if not fast_fleet_checks(dev, w, cands, C0_TAG, 27, rows_out, profiled, C0_REFEREE_SEEDED, c0_differs=True):
         return None
     del w, cands
 
     # ---- the full-state lane path (K7) ----
-    t0 = time.monotonic()
-    w2 = underutilized_world(SWEEP_NODES, seed=7, rider_spread=RIDER_SPREAD)
+    w2 = worlds.pop(0)
     cands2 = sweep_candidates(w2, LANE_CANDIDATES)
     log(f"lane world: {SWEEP_NODES} nodes, riders with a zone spread (max skew {RIDER_SPREAD}), "
-        f"{len(cands2)} candidates ({time.monotonic() - t0:.1f}s host)")
+        f"{len(cands2)} candidates")
     k7_ms, k7_plain_ms, k7_mism, k7_launch, nb, ops = 0.0, 0.0, 0, 0, 0, 0
     for singleton in (False, True):
         reset_launches()
@@ -1936,9 +2027,25 @@ def main() -> int:
         return 1
     t_start = time.monotonic()
 
-    # ---- 1. build ----
+    # ---- 1. build, and meanwhile the sweep phase's fleets on the host ----
+    import threading
+
     t0 = time.monotonic()
-    built = _build.build_all()
+    built, build_error = {}, []
+
+    def build():
+        try:
+            built.update(_build.build_all())
+        except Exception as e:  # re-raised below, in the main thread
+            build_error.append(e)
+
+    build_thread = threading.Thread(target=build)
+    build_thread.start()
+    fleets = sweep_worlds()
+    log(f"sweep fleets built on the host while nvcc runs: {time.monotonic() - t0:.1f}s")
+    build_thread.join()
+    if build_error:
+        raise build_error[0]
     log(f"build: {time.monotonic() - t0:.1f}s wall for {len(built)} libraries (parallel nvcc)")
     for name, info in built.items():
         log(f"  {name}: {info['seconds']:.1f}s")
@@ -2125,30 +2232,38 @@ def main() -> int:
     if k4_mism:
         return 1
 
-    # ---- 7. K5 dedup_rows vs its plain version ----
+    # ---- 7. K5 dedup_rows vs its plain version: the headline's final
+    # claim state as the decode hands it over, synthetic rows, the edges ----
     st_final = got2[0]
     n_cl = int(st_final.n_claims)
     n2 = min(_pow2(max(n_cl, 1), floor=64), st_final.active.shape[0])
-    drows = T.decode_rows(st_final, n2)
-    k5_got, k5_want = T.dedup_rows(drows), T.dedup_rows_plain(drows)
+    dcols = T.decode_columns(st_final)
+    k5_got, k5_want = T.dedup_decode_state(st_final, n2), T.dedup_columns_plain(dcols, n2)
     torch.cuda.synchronize()
     k5_bad = dedup_mismatches(k5_got, k5_want)
     gen = torch.Generator(device="cpu").manual_seed(5)
+    drows = T.decode_rows(st_final, n2)  # the packed rows: torch.unique's input
     pool = torch.randint(-(1 << 31), (1 << 31) - 1, (512, drows.shape[1]), generator=gen, dtype=torch.int64)
     synth = pool[torch.randint(0, 512, (16384,), generator=gen)].to(torch.int32).to(dev)
     k5_big_got, k5_big_want = T.dedup_rows(synth), T.dedup_rows_plain(synth)
     torch.cuda.synchronize()
     k5_bad += [f"synthetic {b}" for b in dedup_mismatches(k5_big_got, k5_big_want)]
-    k5_ms = cuda_ms(lambda: T.dedup_rows(drows), 50)
-    k5_plain_ms = cuda_ms(lambda: T.dedup_rows_plain(drows), 10)
-    k5_lib_ms = cuda_ms(lambda: torch.unique(drows, dim=0, return_inverse=True), 10)
-    k5_big_ms = cuda_ms(lambda: T.dedup_rows(synth), 10)
+    k5_bad += k5_edge_checks(dev)
+    # the per-phase clock breakdown, the profiled launch held to the plain version
+    k5_prof = torch.zeros(len(T.DEDUP_PHASES) + 1, dtype=torch.int64, device=dev)
+    k5_bad += [f"profiled {b}" for b in dedup_mismatches(T.dedup_columns(dcols, n2, prof=k5_prof), k5_want)]
+    k5_phases = T.dedup_breakdown(k5_prof)
+    k5_ms = cuda_ms(lambda: T.dedup_decode_state(st_final, n2), 50)
+    k5_plain_ms = cuda_ms(lambda: T.dedup_columns_plain(dcols, n2), 3)
+    k5_lib_ms = cuda_ms(lambda: torch.unique(drows, dim=0, return_inverse=True), 3)
+    k5_big_ms = cuda_ms(lambda: T.dedup_rows(synth), 3)
     C_d = drows.shape[1]
     k5_bound, k5_by = bound(2 * n2 * C_d * 4 + n2 * 4 + 4, 4 * n2 * C_d)
     log(
         f"K5 dedup_rows headline final state (n2={n2}, C={C_d}, claims={n_cl}, uniques={int(k5_got[0])}): "
         f"kernel {k5_ms:.4f} ms, plain {k5_plain_ms:.4f} ms, torch.unique {k5_lib_ms:.4f} ms; "
-        f"synthetic 16384 rows (uniques={int(k5_big_got[0])}): kernel {k5_big_ms:.4f} ms; mismatches={k5_bad or 'none'}"
+        f"synthetic 16384 rows (uniques={int(k5_big_got[0])}): kernel {k5_big_ms:.4f} ms; "
+        f"clock breakdown (cycles, CTA 0): {json.dumps(k5_phases)}; mismatches={k5_bad or 'none'}"
     )
     if k5_bad:
         return 1
@@ -2411,6 +2526,14 @@ def main() -> int:
     if bad or not bool(got61[5]):
         return 1
     R6 = rr6.tb.ialloc.shape[1]
+    # K5 on the c6 mix's final claim state
+    st6 = got62[0]
+    n26 = min(_pow2(max(int(st6.n_claims), 1), floor=64), st6.active.shape[0])
+    k5c6_bad = dedup_mismatches(T.dedup_decode_state(st6, n26), T.dedup_columns_plain(T.decode_columns(st6), n26))
+    torch.cuda.synchronize()
+    log(f"K5 dedup_rows c6 final state (n2={n26}): mismatches={k5c6_bad or 'none'}")
+    if k5c6_bad:
+        return 1
 
     # ---- 10b. the per-phase clock breakdown of K3 and K2 ----
     # each profiled launch is held bit for bit to the same launch without it
@@ -2536,7 +2659,8 @@ def main() -> int:
         return 1
 
     # ---- 12. the consolidation sweeps (K6, K7, K8) ----
-    sweep_rows = sweep_phase(dev)
+    sweep_rows = sweep_phase(dev, fleets)
+    del fleets
     if sweep_rows is None:
         return 1
 
@@ -2555,9 +2679,20 @@ def main() -> int:
         "typeok_screen (tier rows)": (k1t.launch, ("typeok_kernel",)),
         "typeok_screen (large catalog)": (full["k1_large"].launch, ("typeok_kernel",)),
         "run_arrays": (lambda: T.run_arrays(*k4_args), ("run_arrays_kernel",)),
-        "dedup_rows": (lambda: T.dedup_rows(drows), K5_KERNELS),
     }
     apart = {k: {"device_ms": device_ms(fn, 200, names), "host_ms": host_ms(fn, 200)} for k, (fn, names) in small.items()}
+    # K5 as the decode calls it: every device kernel of the call
+    def k5_call():
+        return T.dedup_decode_state(st_final, n2)
+
+    k5_trace = device_trace(k5_call, 200)
+    # up to 8192 rows the decode's dedup is one kernel launch and nothing
+    # else (a trace may miss a few of the 200 launches: time a launch)
+    if k5_trace and (len(k5_trace) != 1 or next(iter(k5_trace.values()))[1] > 1):
+        log(f"K5: the decode's dedup launched more than one kernel: {json.dumps(k5_trace)}")
+        return 1
+    apart["dedup_rows"] = {"device_ms": next(ms / k for ms, k in k5_trace.values()) if k5_trace else None,
+                           "host_ms": host_ms(k5_call, 200), "device_kernels": k5_trace}
     log(f"device and host ms a call: {json.dumps(apart)}")
 
     # ---- 15. the kernels line ----

@@ -398,17 +398,26 @@ def _run_arrays_out(P: int, dev: torch.device):
 # independent 32-bit row hashes (then by row index: JAX's stable lexsort),
 # compared in full with their predecessor, and compacted; hash collisions
 # only leave equal rows apart (a duplicate "unique"), never merge distinct
-# rows. Bound on an H100: bytes (the [n2, C] rows read once, the compact
-# copy and inverse written once: about 3 MB at the headline's n2=2048,
-# C=184), in practice the sort's dependent passes. One warp hashes and
-# compares each row; the (h1, h2, index) keys sort by a bitonic network in
-# shared memory up to 8192 rows and in global memory, one launch per pass,
-# above (csrc/dedup_rows.cu). It never calls torch.sort or torch.unique.
+# rows. The kernel reads the rows as the claim state holds them, up to
+# nine int32 or bool column blocks side by side (the reference packs them
+# first, inside the same jitted program). Bound on an H100: bytes (the
+# [n2, C] rows read once, the compact copy and inverse written once: about
+# 3 MB at the headline's n2=2048, C=184), in practice a chain of dependent
+# phases. Up to 8192 rows it is one launch of a thread-block cluster of up
+# to 16 CTAs that shares its phases through distributed shared memory,
+# keeps each CTA's rows in its shared memory where they fit and zeroes
+# `compact` by bulk copies of the tensor memory accelerator; above, bitonic
+# passes over device memory (csrc/dedup_rows.cu). It never calls torch.sort
+# or torch.unique.
 
 _MASK32 = 0xFFFFFFFF
 # the dedup fetch costs an extra round trip; below this bucket the plain
 # slice is cheaper (tests lower it to drive the dedup path on small problems)
 _DEDUP_DECODE_MIN = 2048
+_DEDUP_MAX_COLS = 9
+# the one-launch path's phases, between the clock64 marks of its CTA 0
+# (dedup_columns(..., prof=)): a phase ends at the mark after it
+DEDUP_PHASES = ("fill", "hash", "local_rank", "barrier_1", "merge", "barrier_2", "mark", "barrier_3", "scan", "scatter")
 
 
 def _mulmod32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -449,42 +458,93 @@ def dedup_rows_plain(rows: torch.Tensor):
     return (dest[-1] + 1).to(torch.int32), inv, compact
 
 
+def _packed(cols, n: int) -> torch.Tensor:
+    """[n, C] int32: the first n rows of the columns side by side, bools
+    widened to 0/1."""
+    return torch.cat([c[:n].to(torch.int32) for c in cols], dim=1)
+
+
+def dedup_columns_plain(cols, n: int):
+    """The plain version of dedup_columns: dedup_rows_plain of the packed
+    rows."""
+    return dedup_rows_plain(_packed(cols, n))
+
+
+class _DedupCol(ctypes.Structure):
+    _fields_ = [("ptr", ctypes.c_void_p)] + [(f, ctypes.c_int) for f in ("width", "offset", "is_bool")]
+
+
 class _DedupArgs(ctypes.Structure):
-    _fields_ = [(n, ctypes.c_void_p) for n in ("rows", "compact", "inv", "n_uniq", "keys", "order", "flags")] + [
-        (n, ctypes.c_int) for n in ("n", "C", "L")
-    ]
+    _fields_ = (
+        [("cols", _DedupCol * _DEDUP_MAX_COLS)]
+        + [(f, ctypes.c_int) for f in ("ncols", "n", "C")]
+        + [(f, ctypes.c_void_p) for f in ("compact", "inv", "n_uniq", "scratch", "prof")]
+    )
 
 
-def dedup_rows(rows: torch.Tensor):
-    """dedup_rows_plain's contract. CPU tensors take the plain version;
-    CUDA tensors launch the kernel."""
-    dev = rows.device
-    if dev.type == "cpu":
-        return dedup_rows_plain(rows)
-    n, C = rows.shape
-    if n < 1:
-        raise ValueError("dedup_rows: no rows")
-    L = _pow2(n, floor=1)
-    compact = torch.zeros_like(rows)
-    inv = torch.empty(n, dtype=torch.int32, device=dev)
-    n_uniq = torch.empty((), dtype=torch.int32, device=dev)
-    keys = torch.empty(L, dtype=torch.int64, device=dev)
-    order = torch.empty(L, dtype=torch.int32, device=dev)
-    flags = torch.empty(n, dtype=torch.int32, device=dev)
-    ptrs = {
-        name: K.checked_ptr(t, dt, dev, name)
-        for name, t, dt in (
-            ("rows", rows, torch.int32), ("compact", compact, torch.int32), ("inv", inv, torch.int32),
-            ("n_uniq", n_uniq, torch.int32), ("keys", keys, torch.int64), ("order", order, torch.int32),
-            ("flags", flags, torch.int32),
-        )
-    }
-    args = _DedupArgs(n=n, C=C, L=L, **ptrs)
+@functools.lru_cache(maxsize=None)
+def _dedup_lib():
     lib = _small_lib("dedup_rows", _DedupArgs)
+    lib.dedup_rows_scratch_bytes.argtypes = [ctypes.c_int]
+    lib.dedup_rows_scratch_bytes.restype = ctypes.c_size_t
+    return lib
+
+
+def dedup_columns(cols, n: int, prof: Optional[torch.Tensor] = None):
+    """dedup_rows_plain's contract for the rows [n, C] that the first n
+    rows of `cols` (up to nine [>= n, w] int32 or bool tensors, contiguous)
+    make side by side, bools as 0/1. CPU tensors take the plain version;
+    CUDA tensors launch the kernel, which reads the columns in place.
+    Up to 8192 rows the launch is one kernel and `prof` (an int64 [11] on
+    the device, or None) takes its CTA 0's clock64 at each phase mark
+    (`dedup_breakdown`)."""
+    dev = cols[0].device
+    if dev.type == "cpu":
+        return dedup_columns_plain(cols, n)
+    if not 1 <= len(cols) <= _DEDUP_MAX_COLS or n < 1:
+        raise ValueError(f"dedup_columns: {len(cols)} columns, n={n}")
+    if prof is not None and prof.numel() <= len(DEDUP_PHASES):
+        raise ValueError(f"dedup_columns: prof holds {prof.numel()} marks, the kernel writes {len(DEDUP_PHASES) + 1}")
+    table = (_DedupCol * _DEDUP_MAX_COLS)()
+    C = 0
+    for c, t in enumerate(cols):
+        if t.dim() != 2 or t.shape[0] < n:
+            raise ValueError(f"dedup_columns: column {c} has shape {tuple(t.shape)}, expected [>= {n}, w]")
+        is_bool = t.dtype == torch.bool
+        if n * t.shape[1] * (1 if is_bool else 4) >= 1 << 32:
+            raise ValueError(f"dedup_columns: column {c}'s first {n} rows pass 4 GiB (the kernel's offsets are 32-bit)")
+        ptr = K.checked_ptr(t, torch.bool if is_bool else torch.int32, dev, f"cols[{c}]")
+        table[c] = _DedupCol(ptr, t.shape[1], C, int(is_bool))
+        C += t.shape[1]
+    # the three outputs as views of one allocation, compact first (16-byte aligned)
+    out = torch.empty(n * C + n + 1, dtype=torch.int32, device=dev)
+    compact, inv, n_uniq = out[: n * C].view(n, C), out[n * C : n * C + n], out[n * C + n]
+    lib = _dedup_lib()
+    nbytes = lib.dedup_rows_scratch_bytes(n)  # none up to 8192 rows
+    scratch = torch.empty(nbytes, dtype=torch.uint8, device=dev) if nbytes else None
+    args = _DedupArgs(
+        cols=table, ncols=len(cols), n=n, C=C, compact=compact.data_ptr(), inv=inv.data_ptr(),
+        n_uniq=n_uniq.data_ptr(), scratch=scratch.data_ptr() if nbytes else None,
+        prof=K.checked_ptr(prof, torch.int64, dev, "prof") if prof is not None else None,
+    )
     code = lib.dedup_rows_launch(ctypes.byref(args), ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
     _build.check_launch("dedup_rows", code)
     LAUNCHES["dedup_rows"] += 1
     return n_uniq, inv, compact
+
+
+def dedup_breakdown(prof: torch.Tensor) -> dict:
+    """{phase: cycles} of a one-launch dedup_columns(..., prof=) run on its
+    CTA 0 (DEDUP_PHASES), and "total"."""
+    marks = prof.tolist()
+    out = {p: marks[i + 1] - marks[i] for i, p in enumerate(DEDUP_PHASES)}
+    out["total"] = marks[-1] - marks[0]
+    return out
+
+
+def dedup_rows(rows: torch.Tensor):
+    """dedup_rows_plain's contract; CUDA tensors launch the kernel."""
+    return dedup_columns([rows], rows.shape[0])
 
 
 # ---------------------------------------------------------------------------
@@ -507,19 +567,24 @@ def empty_launch(dev: torch.device) -> None:
     _build.check_launch("empty", code)
 
 
+def decode_columns(st: K.State) -> list:
+    """The claim state's columns in the reference's dedup layout: the
+    requirement row's eight fields, then the surviving types (C = 2 TW +
+    6 K + IW)."""
+    return [*st.creq, st.alive]
+
+
 def decode_rows(st: K.State, n2: int) -> torch.Tensor:
     """[n2, C] int32: each live claim slot's requirement row and surviving
-    types packed side by side (the reference's dedup layout, C = 2 TW +
-    6 K + IW)."""
-    r = st.creq
-    cols = [r.mask, r.exmask, r.other, r.notin, r.defined, r.gt, r.lt, r.minv, st.alive]
-    return torch.cat([c[:n2].to(torch.int32) for c in cols], dim=1)
+    types packed side by side."""
+    return _packed(decode_columns(st), n2)
 
 
 def dedup_decode_state(st: K.State, n2: int):
-    """(n_uniq, inv, compact) of the first n2 claim rows; compact stays on
-    the device until the caller knows n_uniq (`_slice_rows`)."""
-    return dedup_rows(decode_rows(st, n2))
+    """(n_uniq, inv, compact) of the first n2 claim rows, read where the
+    state holds them; compact stays on the device until the caller knows
+    n_uniq (`_slice_rows`)."""
+    return dedup_columns(decode_columns(st), n2)
 
 
 # ---------------------------------------------------------------------------

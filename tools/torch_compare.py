@@ -26,8 +26,11 @@ torch.profiler trace, summed per kernel name, per call:
 - K1 `typeok_screen` on the headline's class rows, the c6 mix's tier rows
   and the class rows of a 2048-type catalog (the rows each checkout's
   solve screens); K4 `run_arrays` on the
-  headline's and the c6 mix's first round; K5 `dedup_rows` on the
-  headline's final claim rows. For these three the worker also times the
+  headline's and the c6 mix's first round; K5 as the decode calls it,
+  `dedup_decode_state` on the headline's final claim state, summed over
+  every device kernel the call launches (a checkout that packs the claim
+  columns or zeroes the output first pays for those kernels too), with
+  the count of device kernels a call. For these three the worker also times the
   wrapper's host side: the wall time of 200 calls with no sync, divided
   by 200, the least of five such runs (`host`). Where the checkout has
   the empty kernel (`csrc/empty.cu`), the worker times it the same two
@@ -90,9 +93,12 @@ def host_ms(fn, reps: int, batches: int = 5) -> float:
 def device_split(fn, reps: int, names: tuple, dev, host: bool = False) -> dict:
     """Per-call device ms of each kernel whose name contains one of
     `names`, from a torch.profiler trace of `reps` calls after one
-    warm-up, and with `host` the wrapper's host ms a call (`host_ms`). On
-    the CPU: {"host_ms": ...} instead."""
+    warm-up, and with `host` the wrapper's host ms a call (`host_ms`).
+    With no `names`, every device event of the trace by its own name,
+    their sum ("all device kernels") and their count a call ("kernels a
+    call"). On the CPU: {"host_ms": ...} instead."""
     import torch
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -109,6 +115,10 @@ def device_split(fn, reps: int, names: tuple, dev, host: bool = False) -> dict:
         torch.cuda.synchronize()
     for e in prof.key_averages():
         us = getattr(e, "device_time_total", 0) or getattr(e, "cuda_time_total", 0)
+        if not names and e.device_type == DeviceType.CUDA:
+            out[e.key] = out.get(e.key, 0.0) + us / 1e3 / reps
+            out["all device kernels"] = out.get("all device kernels", 0.0) + us / 1e3 / reps
+            out["kernels a call"] = out.get("kernels a call", 0.0) + e.count / reps
         for n in names:
             if n in e.key and us:
                 out[n] = out.get(n, 0.0) + us / 1e3 / reps
@@ -127,7 +137,6 @@ def device_tables(fn):
 
 
 KERNELS = ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K8")
-K5_KERNELS = ("hash_kernel", "sort_shared_kernel", "sort_pass_kernel", "mark_kernel", "scan_kernel", "compact_kernel")
 
 
 def headline_dispatches(rr, dev) -> tuple[list, object]:
@@ -198,9 +207,8 @@ def small_kernel_items(dev, small: bool, groups: set) -> list:
             if "K5" in groups and label == "headline":
                 _, st_final = headline_dispatches(rr, dev)
                 n2 = min(_pow2(max(int(st_final.n_claims), 1), floor=64), st_final.active.shape[0])
-                drows = T.decode_rows(st_final, n2)
-                items.append((f"K5 headline final rows [{n2}x{drows.shape[1]}]", lambda d=drows: T.dedup_rows(d), 200,
-                              K5_KERNELS, True))
+                items.append((f"K5 dedup_decode_state, headline final state [n2={n2}]",
+                               lambda s=st_final, n2=n2: T.dedup_decode_state(s, n2), 200, (), True))
     if hasattr(T, "empty_launch") and dev.type == "cuda":
         items.append(("floor (empty kernel)", lambda: T.empty_launch(dev), 200, ("empty_kernel",), True))
     log(f"K1/K4/K5 inputs: {time.monotonic() - t0:.1f}s")
