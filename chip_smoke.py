@@ -63,7 +63,15 @@ pods, whose decisions must equal the runs path's; the c6 realistic mix
 (bench.py `pods_realistic(10000)`: 98% diverse, a 2% tail of preference
 pods) through the runs path with the tier loop, whose odometer must equal
 the JAX package's; and the 1000-pod preference round through the scan path
-with the tier loop; then the consolidation sweeps: prefix_feasibility and
+with the tier loop; then the provisioning entry point: Provisioner.reconcile()
+on a SimKube cluster whose pending pods are the c6 mix plus 100 pods with a
+PVC each of a zonal StorageClass (the supported pods on K1, K3, K4 and K5, the
+100 continued on the oracle, each on a claim in the StorageClass's zone; no
+`tpu_error`; the median of 3 reconciles in pods/s with its host phases), the
+same cluster at 2000 + 40 pods against the oracle's decisions for the same
+partition, and solve_in_process on requests-only batches of 16 to 4096 pods
+on the card and on the oracle, whose medians give the small-batch crossover;
+then the consolidation sweeps: prefix_feasibility and
 singleton_feasibility on the three fleets (the fast path and the full-state
 lane path) and SetSweepContext.evaluate, their verdicts held against the port's
 sequential referee (helpers.simulate_scheduling on the oracle); then fleet
@@ -72,7 +80,9 @@ pods each, a window of 4 lanes with preference ladders and a window of 4
 lanes whose follower pods requeue into a second round, through
 TorchScheduler(fleet=FleetCoalescer), every lane coalesced (one K7 launch
 per round) and equal to its solo solve through K2, and an overflowing lane
-that leaves its window. It checks decisions against the port's oracle on
+that leaves its window; last, a solve with every free byte of the card held
+must raise out of TorchHybridScheduler.solve, not be re-solved on the
+oracle by the last-resort guard. It checks decisions against the port's oracle on
 twelve problems, and prints:
 
 - the card's name and power limit (nvidia-smi),
@@ -145,7 +155,9 @@ FLEET_WINDOWS = (2, 5, 8)  # lanes per window, relax off
 FLEET_RELAX_LANES = 4  # a window whose lanes add the same preference pods
 FLEET_PREF_PODS = 200
 FLEET_PREF_SEED = 7
-FLEET_CHECK_POSITIONS = 256  # FFD positions of each lane K7 is held to its plain version on
+# FFD positions of each lane K7 is held to its plain version on (the plain
+# version with relax on takes about a third of a second a position)
+FLEET_CHECK_POSITIONS = 128
 FLEET_CHECK_LANES = 8
 FLEET_WIDE_POSITIONS = 64  # positions of the launch past K7's lane table
 FLEET_ORACLE_LANES = (0, 7)  # lanes of the widest window held against the oracle
@@ -163,6 +175,13 @@ FULL_NODES = 300
 LARGE_CATALOG_TYPES = 2048
 LARGE_CATALOG_PODS = 512
 FLEET_JOIN_SECONDS = 300.0
+# the provisioning entry point (entry_point_phase): a SimKube cluster whose
+# pending pods are the c6 mix plus a StatefulSet-style tail, pods with the
+# mix's requests and a PVC each of a zonal StorageClass (the oracle's part)
+ENTRY_PVC_PODS = 100
+ENTRY_ZONE = "test-zone-b"
+DECISIONS_PODS = (2000, 40)  # c6 pods, PVC pods: the card's Provisioner against the oracle
+CROSSOVER_SIZES = (16, 64, 256, 1024, 4096)  # make_generic_pods(n) through solve_in_process
 # the device functions of K6 and K8, as the profiler names them
 SWEEP_KERNELS = ("sweep_cache_kernel", "fast_sweep_lanes", "set_sweep_lanes")
 # K5's edge checks (k5_edge_checks): (label, rows, widths of the nine
@@ -231,17 +250,24 @@ def headline_world(n_pods: int, its) -> World:
     return World(pools, ibp, pods, None, None, Topology(pools, ibp, pods))
 
 
-def c6_world(n_pods: int, its) -> World:
+def c6_pods(n_pods: int) -> list:
     """bench.py's c6 realistic mix: the headline's diverse mix for 98% of
     the pods, then a tail of preference pods (each climbs a 4-tier
-    ladder), against the headline's instance types."""
-    from karpenter_tpu_torch.solver.topology import Topology
+    ladder)."""
     from karpenter_tpu_torch.testing import fixtures
 
     fixtures.reset_rng(42)
-    pools = [fixtures.node_pool(name="default")]
     pods = fixtures.make_diverse_pods(int(n_pods * 0.98))
-    pods += fixtures.make_preference_pods(n_pods - len(pods))
+    return pods + fixtures.make_preference_pods(n_pods - len(pods))
+
+
+def c6_world(n_pods: int, its) -> World:
+    """The c6 realistic mix against the headline's instance types."""
+    from karpenter_tpu_torch.solver.topology import Topology
+    from karpenter_tpu_torch.testing import fixtures
+
+    pods = c6_pods(n_pods)
+    pools = [fixtures.node_pool(name="default")]
     ibp = {p.name: its for p in pools}
     return World(pools, ibp, pods, None, None, Topology(pools, ibp, pods))
 
@@ -2002,6 +2028,337 @@ def fleet_phase(dev, its) -> Optional[dict]:
     return out
 
 
+def entry_cluster(n_pods: int, n_pvc: int, its, dev, force_oracle: bool = False):
+    """A port SimKube with one default NodePool and a KWOK provider holding
+    `its`; pending: the c6 mix at n_pods, then n_pvc pods with the mix's
+    requests, each with its own PVC of a StorageClass in ENTRY_ZONE. Returns
+    the Provisioner (Options(tpu_min_pods=0) on `dev`, or the oracle's)."""
+    from karpenter_tpu_torch.api.objects import PersistentVolumeClaim, StorageClass
+    from karpenter_tpu_torch.cloudprovider.kwok import KwokCloudProvider
+    from karpenter_tpu_torch.controllers.kube import FakeClock, SimKube
+    from karpenter_tpu_torch.controllers.provisioning import Provisioner
+    from karpenter_tpu_torch.controllers.state import Cluster, wire_informers
+    from karpenter_tpu_torch.options import Options
+    from karpenter_tpu_torch.testing import fixtures
+
+    clock = FakeClock()
+    kube = SimKube(clock)
+    cluster = Cluster(clock)
+    wire_informers(kube, cluster)
+    cloud = KwokCloudProvider(kube, clock, instance_types=its)
+    pods = c6_pods(n_pods)
+    for i, p in enumerate(pods):  # the mix's families reuse names; the store keys on them
+        p.metadata.name = f"c6-{i}"
+    kube.create("NodePool", fixtures.node_pool(name="default"))
+    sc = StorageClass()
+    sc.metadata.name = "zonal"
+    sc.zones = [ENTRY_ZONE]
+    kube.create("StorageClass", sc)
+    for i in range(n_pvc):
+        pvc = PersistentVolumeClaim(storage_class_name="zonal")
+        pvc.metadata.name = f"data-{i}"
+        kube.create("PersistentVolumeClaim", pvc)
+        p = fixtures.pod(name=f"stateful-{i}")
+        p.requests = dict(pods[i].requests)
+        p.volume_claims = [pvc.metadata.name]
+        pods.append(p)
+    for p in pods:
+        kube.create("Pod", p)
+    return Provisioner(kube, cluster, cloud, clock, Options(tpu_min_pods=0), force_oracle=force_oracle,
+                       device=None if force_oracle else dev)
+
+
+def tpu_errors() -> float:
+    """The guard's count: kernel solves that raised and were re-solved on a
+    pristine oracle (any is a failure of the run)."""
+    from karpenter_tpu_torch.solver.hybrid import SOLVE_FALLBACKS
+
+    return SOLVE_FALLBACKS.value({"reason": "tpu_error"})
+
+
+def solve_partitioned_oracle(pools, ibp, pods, views, daemonset_pods, options, cluster):
+    """The referee of a kernel route: the oracle's decisions for
+    TorchHybridScheduler's partition. The pods the kernels take
+    (`pod_unsupported_reason` None) are solved first on the port's oracle,
+    then the rest continue on the same oracle, as the hybrid continues
+    them after the kernels. An oracle-only solve interleaves the two sets
+    in FFD order instead, so where both are present its decisions may
+    legally differ (the JAX package's hybrid differs from its oracle the
+    same way)."""
+    from karpenter_tpu_torch.solver.oracle import Scheduler
+    from karpenter_tpu_torch.solver.topology import Topology
+    from karpenter_tpu_torch.solver.tpu_problem import pod_unsupported_reason
+
+    topology = Topology(pools, ibp, pods, cluster=cluster, state_node_views=views,
+                        ignore_preferences=options.ignore_preferences)
+    oracle = Scheduler(pools, ibp, topology, views, daemonset_pods, options)
+    supported = [pod_unsupported_reason(p, options.ignore_preferences) is None for p in pods]
+    first = oracle.solve([p for p, ok in zip(pods, supported) if ok])
+    rest = oracle.solve([p for p, ok in zip(pods, supported) if not ok])
+    rest.pod_errors.update(first.pod_errors)
+    rest.timed_out = rest.timed_out or first.timed_out
+    return rest
+
+
+def partition_view(r, pods) -> tuple:
+    """A solve's claims with the stateful (PVC) pods set apart: each claim
+    keyed by its nodepool and its other pods' sorted names, valued by its
+    instance types and requests (None where it holds a stateful pod); the
+    stateful pods' claims' zones; the failed pods. Where the oracle
+    continues a stateful pod among claims that fit it equally depends on
+    the claims' order, which the kernels' decode and the oracle leave
+    differently."""
+    from karpenter_tpu_torch.api import labels as well_known
+
+    name = {p.uid: p.name for p in pods}
+    claims, zones = {}, {}
+    for c in r.new_node_claims:
+        names = sorted(name[p.uid] for p in c.pods)
+        stateful = [n for n in names if n.startswith("stateful-")]
+        key = (tuple(n for n in names if n not in stateful), c.template.nodepool_name)
+        if key[0]:  # a claim of stateful pods alone is keyed by nothing the two sides share
+            claims[key] = None if stateful else (
+                tuple(sorted(it.name for it in c.instance_type_options)), tuple(sorted(c.requests.items())))
+        zone = tuple(sorted(c.requirements.get(well_known.TOPOLOGY_ZONE_LABEL_KEY).values))
+        zones.update((n, zone) for n in stateful)
+    return claims, zones, tuple(sorted(name[u] for u in r.pod_errors))
+
+
+def partition_mismatches(got, want) -> list[str]:
+    """Where two partition views disagree: the claims' pod sets, the
+    instance types and requests of claims that hold no stateful pod on
+    either side, which stateful pods were placed, the failed pods."""
+    bad = []
+    if set(got[0]) != set(want[0]):
+        bad.append(f"claims ({len(set(got[0]) ^ set(want[0]))} pod sets differ)")
+    diff = [k for k in set(got[0]) & set(want[0]) if None not in (got[0][k], want[0][k]) and got[0][k] != want[0][k]]
+    if diff:
+        bad.append(f"instance types or requests of {len(diff)} claims")
+    if set(got[1]) != set(want[1]):
+        bad.append("stateful pods placed")
+    if got[2] != want[2]:
+        bad.append("failed pods")
+    return bad
+
+
+def entry_point_phase(dev, its) -> Optional[dict]:
+    """The provisioning entry point at full width: Provisioner.reconcile ->
+    schedule -> solve_in_process -> TorchHybridScheduler.solve (the c6 mix
+    on K1, K3, K4 and K5, the PVC tail continued on the oracle) ->
+    create_node_claims. None on any failed check."""
+    import torch
+
+    from karpenter_tpu_torch.api import labels as well_known
+    from karpenter_tpu_torch.solver import tpu as T
+    from karpenter_tpu_torch.solver import tpu_kernel as K
+    from karpenter_tpu_torch.solver import tpu_runs as KR
+
+    t_phase = time.monotonic()
+    n_total = C6_PODS + ENTRY_PVC_PODS
+
+    def reconcile(prov):
+        t0 = time.monotonic()
+        result = prov.reconcile(ignore_batcher=True)
+        torch.cuda.synchronize()
+        return result, time.monotonic() - t0
+
+    t0 = time.monotonic()
+    prov = entry_cluster(C6_PODS, ENTRY_PVC_PODS, its, dev)
+    log(f"entry point: cluster of {n_total} pending pods built in {time.monotonic() - t0:.1f}s (host)")
+    reconcile(prov)  # warm-up
+    prov = entry_cluster(C6_PODS, ENTRY_PVC_PODS, its, dev)
+    reset_launches()
+    result, dt = reconcile(prov)
+    launches = {k: v for counts in (T.LAUNCHES, K.LAUNCHES, KR.LAUNCHES) for k, v in counts.items() if v}
+    h = prov.last_scheduler
+    res = result.results
+    claims = [c for c in res.new_node_claims if c.pods]
+    placed = sum(len(c.pods) for c in claims) + sum(len(n.pods) for n in res.existing_nodes)
+    continued = f"{ENTRY_PVC_PODS} pod(s) continued on the oracle: pod volume claims"
+    pvc_zones = {
+        p.name: sorted(c.requirements.get(well_known.TOPOLOGY_ZONE_LABEL_KEY).values)
+        for c in claims for p in c.pods if p.name.startswith("stateful-")
+    }
+    log(
+        f"entry point reconcile on {torch.cuda.get_device_name(0)}: {n_total} pods in {dt:.3f}s = "
+        f"{n_total / dt:.1f} pods/s; solver={prov.last_solver_used} kind={h.fallback_kind} "
+        f"reason={h.fallback_reason!r} claims={len(claims)} created={len(result.created_claims)} "
+        f"placed={placed} errors={len(res.pod_errors)} launches={launches} tpu_error={tpu_errors()}"
+    )
+    bad = []
+    if prov.last_solver_used != "tpu" or h.fallback_kind != "partition_continuation" or h.fallback_reason != continued:
+        bad.append("route")
+    if placed + len(res.pod_errors) != n_total or len(result.created_claims) != len(claims):
+        bad.append("placements or claims")
+    if len(pvc_zones) != ENTRY_PVC_PODS or any(z != [ENTRY_ZONE] for z in pvc_zones.values()):
+        bad.append(f"PVC pods' zones ({len(pvc_zones)} placed)")
+    if min(launches.get(k, 0) for k in ("typeok_screen", "run_arrays", "dedup_rows")) < 1 or not (
+        launches.get("run_step", 0) + launches.get("run_step_relax", 0)
+    ):
+        bad.append("kernel launches")
+    if tpu_errors():
+        bad.append("tpu_error")
+    # the Provisioner's pod order (`kube.list`) is the mix's, so the kernel
+    # odometer is the JAX package's for the c6 mix
+    odo = {k: h.tpu.last_odometer[k] for k in C6_JAX_ODOMETER}
+    odo_diff = {k: (odo[k], v) for k, v in C6_JAX_ODOMETER.items() if odo[k] != v}
+    log(f"entry point odometer: {json.dumps(odo)}; vs the JAX package's c6: "
+        f"{'equal' if not odo_diff else f'DIFFERENT {odo_diff}'}")
+    if odo_diff:
+        bad.append("odometer")
+    times = [dt]
+    phases = [dict(prov.last_phases)]
+    for _ in range(2):
+        prov = entry_cluster(C6_PODS, ENTRY_PVC_PODS, its, dev)
+        _, dt = reconcile(prov)
+        times.append(dt)
+        phases.append(dict(prov.last_phases))
+    med = sorted(times)[1]
+    log(f"entry point reconcile seconds (n=3): {[round(x, 4) for x in times]}; median {med:.4f}s = "
+        f"{n_total / med:.1f} pods/s")
+    log("entry point host phases (s), the median run: "
+        + json.dumps({k: round(v, 4) for k, v in phases[times.index(med)].items()}))
+    if tpu_errors():
+        bad.append("tpu_error")
+    log(f"entry point phase: {time.monotonic() - t_phase:.1f}s; {'failed: ' + ', '.join(bad) if bad else 'ok'}")
+    return None if bad else {"pods": n_total, "median_s": med, "pods_per_s": n_total / med, "launches": launches}
+
+
+def decisions_phase(dev, its) -> bool:
+    """The card's Provisioner on DECISIONS_PODS against the oracle's
+    decisions for the same partition (`solve_partitioned_oracle` on a twin
+    cluster's solve inputs): equal claims (`partition_view`), every
+    stateful pod in ENTRY_ZONE, and a NodeClaim for every non-empty claim.
+    An oracle-only Provisioner interleaves the stateful pods in FFD order,
+    so it may legally decide differently (the reference's does too)."""
+    import torch
+
+    t_phase = time.monotonic()
+    n, n_pvc = DECISIONS_PODS
+    prov = entry_cluster(n, n_pvc, its, dev)
+    t0 = time.monotonic()
+    result = prov.reconcile(ignore_batcher=True)
+    torch.cuda.synchronize()
+    card_s = time.monotonic() - t0
+    card = partition_view(result.results, prov.kube.list("Pod"))
+    n_claims = sum(1 for c in result.results.new_node_claims if c.pods)
+    twin = entry_cluster(n, n_pvc, its, dev, force_oracle=True)
+    t0 = time.monotonic()
+    want = partition_view(solve_partitioned_oracle(*twin.scheduler_inputs(twin.get_pending_pods())),
+                          twin.kube.list("Pod"))
+    orc_s = time.monotonic() - t0
+    bad = partition_mismatches(card, want)
+    same = not bad
+    h = prov.last_scheduler
+    ok = same and prov.last_solver_used == "tpu" and h.fallback_kind == "partition_continuation"
+    ok = ok and len(result.created_claims) == n_claims and len(card[1]) == n_pvc
+    ok = ok and all(z == (ENTRY_ZONE,) for z in card[1].values()) and not tpu_errors()
+    log(f"decisions, {n} c6 + {n_pvc} PVC pods: card Provisioner ({prov.last_solver_used}, {h.fallback_kind}, "
+        f"{card_s:.2f}s, {len(result.created_claims)} NodeClaims) vs the oracle on its partition ({orc_s:.2f}s): "
+        f"{len(card[0])} vs {len(want[0])} claims, {'equal' if same else f'DIFFERENT: {bad}'}; "
+        f"phase {time.monotonic() - t_phase:.1f}s")
+    return ok
+
+
+def crossover_phase(dev, its) -> Optional[dict]:
+    """solve_in_process on make_generic_pods(n) (requests only) with
+    tpu_min_pods=0 on the card against force_oracle=True, per n in
+    CROSSOVER_SIZES: one warm-up and 3 timed solves a side, equal
+    decisions. The crossover is the smallest n from which the card's median
+    beats the oracle's at n and every larger n (0 from the first)."""
+    import torch
+
+    from karpenter_tpu_torch.solver import solve_in_process
+    from karpenter_tpu_torch.solver.oracle import SchedulerOptions
+    from karpenter_tpu_torch.testing import fixtures
+
+    t_phase = time.monotonic()
+    pools = [fixtures.node_pool(name="default")]
+    ibp = {pools[0].name: its}
+    table = []
+    for n in CROSSOVER_SIZES:
+        medians, snaps = {}, {}
+        for side, force in (("card", False), ("oracle", True)):
+            times = []
+            for rep in range(4):
+                fixtures.reset_rng(42)
+                pods = fixtures.make_generic_pods(n)
+                t0 = time.monotonic()
+                res, sched = solve_in_process(pools, ibp, pods, options=SchedulerOptions(tpu_min_pods=0),
+                                              force_oracle=force, device=dev)
+                torch.cuda.synchronize()
+                if rep:
+                    times.append(time.monotonic() - t0)
+                if sched.used_tpu is force:
+                    log(f"crossover n={n}: the {side} side took the other route ({sched.fallback_kind})")
+                    return None
+            medians[side] = sorted(times)[1]
+            snaps[side] = results_snapshot(res, pods)
+        same = snaps["card"] == snaps["oracle"]
+        table.append({"n": n, "card_s": medians["card"], "oracle_s": medians["oracle"], "equal": same})
+        log(f"crossover n={n}: card {medians['card']:.4f}s, oracle {medians['oracle']:.4f}s (medians of 3), "
+            f"decisions {'equal' if same else 'DIFFERENT'}")
+        if not same:
+            return None
+    wins = [r["card_s"] < r["oracle_s"] for r in table]
+    first = next((i for i in range(len(table)) if all(wins[i:])), None)
+    crossover = None if first is None else (0 if first == 0 else table[first]["n"])
+    log(f"small-batch crossover: {crossover} (card faster from this n on; None: not within {CROSSOVER_SIZES}); "
+        f"phase {time.monotonic() - t_phase:.1f}s")
+    if tpu_errors():
+        return None
+    return {"sizes": table, "crossover": crossover}
+
+
+def device_failure_check(dev, its) -> bool:
+    """A failure of the card inside a solve propagates out of
+    TorchHybridScheduler.solve instead of being re-solved on the oracle:
+    with the scheduler built and then every free byte of the card held,
+    a solve of 1024 requests-only pods (tpu_min_pods=0) must raise a
+    device failure (torch's out-of-memory, or a kernel's DeviceError) and
+    count no tpu_error. The memory is released after."""
+    import torch
+
+    from karpenter_tpu_torch.solver import TorchHybridScheduler
+    from karpenter_tpu_torch.solver.hybrid import device_failure
+    from karpenter_tpu_torch.solver.oracle import SchedulerOptions
+    from karpenter_tpu_torch.solver.topology import Topology
+    from karpenter_tpu_torch.testing import fixtures
+
+    fixtures.reset_rng(42)
+    pods = fixtures.make_generic_pods(1024)
+    pools = [fixtures.node_pool(name="default")]
+    ibp = {pools[0].name: its}
+    h = TorchHybridScheduler(pools, ibp, Topology(pools, ibp, pods), options=SchedulerOptions(tpu_min_pods=0),
+                             device=dev)
+    before = tpu_errors()
+    torch.cuda.synchronize()
+    hold, raised = [], None
+    try:
+        # from large blocks down to the caching allocator's smallest, so
+        # no free fragment is left for the solve
+        for size in (1 << 30, 1 << 24, 1 << 21, 1 << 16, 512):
+            while True:
+                try:
+                    hold.append(torch.empty(size, dtype=torch.uint8, device=dev))
+                except torch.OutOfMemoryError:
+                    break
+        held = sum(t.numel() for t in hold)
+        try:
+            h.solve(pods)
+        except Exception as e:  # noqa: BLE001 - the check is that it raises
+            raised = e
+    finally:
+        hold.clear()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+    ok = raised is not None and device_failure(raised) and tpu_errors() == before and h.used_tpu is None
+    log(f"device failure inside a solve ({held / 2**30:.2f} GiB of the card held): "
+        f"{'raised ' + type(raised).__name__ if raised is not None else 'returned, route ' + str(h.fallback_kind)}; "
+        f"tpu_error {tpu_errors() - before:+g}; {'ok' if ok else 'FAILED: the guard hid the card'}")
+    return ok
+
+
 def main() -> int:
     try:
         import torch
@@ -2647,6 +3004,15 @@ def main() -> int:
         if not same:
             return 1
 
+    # ---- 11a. the provisioning entry point: Provisioner.reconcile at full
+    # width, its decisions against the oracle's, the small-batch crossover ----
+    entry = entry_point_phase(dev, its)
+    if entry is None or not decisions_phase(dev, its):
+        return 1
+    crossover = crossover_phase(dev, its)
+    if crossover is None:
+        return 1
+
     # ---- 11b. existing nodes, host ports, limits, reservations and
     # minValues at full size; a catalog past the shared-memory budget ----
     full = full_size_phase(dev)
@@ -2690,6 +3056,11 @@ def main() -> int:
     apart["dedup_rows"] = {"device_ms": next(ms / k for ms, k in k5_trace.values()),
                            "host_ms": host_ms(k5_call, 200), "device_kernels": k5_trace}
     log(f"device and host ms a call: {json.dumps(apart)}")
+
+    # ---- 14b. a failure of the card inside a solve is not hidden by the
+    # hybrid scheduler's last-resort guard (last: it fills the card) ----
+    if not device_failure_check(dev, its):
+        return 1
 
     # ---- 15. the kernels line ----
     kernels = [

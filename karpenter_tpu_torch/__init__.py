@@ -8,6 +8,8 @@ scheduling, cloudprovider, encode, oracle) are kept as copies.
 
 Layout:
   api/, utils/, scheduling/, cloudprovider/             host copies
+  metrics.py, logging.py, events.py, options.py         host copies (options:
+                                                        the card's crossover)
   testing/                                              fixtures (host copies and
                                                         underutilized_world)
   ops/vocab.py, ops/encode.py                           host encoding copies
@@ -17,11 +19,19 @@ Layout:
                                                         its lane grid (K7)
   solver/tpu_runs.py                                    the run kernel (K3)
   solver/tpu.py                                         TorchScheduler (K1, K4, K5)
-  solver/fleet.py, solver/epochs.py                     fleet lanes (K7 with a lane
-                                                        stride on every pod field)
-                                                        and their window key
-  controllers/kube.py, state.py, provisioning.py        API store, cluster cache
+  solver/hybrid.py                                      TorchHybridScheduler and
+                                                        solve_in_process: the
+                                                        kernels, the oracle for
+                                                        the rest
+  solver/fleet.py, solver/epochs.py                     fleet lanes (K7 reading
+                                                        each lane through a lane
+                                                        table) and their window
+                                                        key
+  controllers/kube.py, state.py                         API store, cluster cache
                                                         (host copies)
+  controllers/provisioning.py                           Batcher, VolumeTopology,
+                                                        the Provisioner
+  controllers/nodepool_aux.py                           the requirement validator
   controllers/disruption/                               candidates, the referee,
                                                         sweep.py (K6, K7),
                                                         setsweep.py (K8)

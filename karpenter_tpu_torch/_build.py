@@ -6,8 +6,8 @@ PyTorch headers, so a build takes seconds). Libraries land in
 `build/karpenter_tpu_torch/<hash>/` at the repository root, keyed by a hash
 of every source in `csrc/` and the flags, so an edit rebuilds and an
 unchanged tree reuses the build. All sources compile in parallel, one
-`nvcc` each. A failed build raises with the compiler's output; nothing
-falls back. A module lock makes the first use build once when several
+`nvcc` each. A failed build, load or launch raises `DeviceError` (a
+build with the compiler's output); nothing falls back. A module lock makes the first use build once when several
 threads (a fleet window's lanes) reach their first kernel together.
 """
 
@@ -34,7 +34,13 @@ NVCC_FLAGS = (
 )
 
 
-class BuildError(RuntimeError):
+class DeviceError(RuntimeError):
+    """The card failed: a kernel did not build, load or launch. The hybrid
+    scheduler's last-resort guard lets it through instead of re-solving on
+    the oracle."""
+
+
+class BuildError(DeviceError):
     """nvcc is missing or refused a source."""
 
 
@@ -121,10 +127,14 @@ def library(name: str) -> ctypes.CDLL:
 
 @functools.lru_cache(maxsize=None)
 def _library(name: str) -> ctypes.CDLL:
-    return ctypes.CDLL(build_all()[name]["path"])
+    path = build_all()[name]["path"]
+    try:
+        return ctypes.CDLL(path)
+    except OSError as e:
+        raise DeviceError(f"{name}: cannot load {path}: {e}") from e
 
 
 def check_launch(name: str, code: int) -> None:
     """Raise on a nonzero cudaError_t returned by a launch function."""
     if code != 0:
-        raise RuntimeError(f"{name}: CUDA launch failed with cudaError_t {code}")
+        raise DeviceError(f"{name}: CUDA launch failed with cudaError_t {code}")

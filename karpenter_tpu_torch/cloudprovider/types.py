@@ -149,9 +149,15 @@ class InstanceType:
 class InstanceTypes(list):
     """Decorated list of InstanceType (types.go:221-334)."""
 
-    def order_by_price(self, reqs: Requirements) -> "InstanceTypes":
+    def order_by_price(self, reqs: Requirements, prices: Optional[dict] = None) -> "InstanceTypes":
         """Sort by cheapest available+compatible offering price
-        (types.go:221 OrderByPrice). Stable, in-place like the reference."""
+        (types.go:221 OrderByPrice). Stable, in-place like the reference.
+
+        `prices` (optional, a dict the caller owns while the instance types
+        live) memoizes launch prices across calls: a type's price depends
+        on `reqs` only through the keys its offerings constrain, so calls
+        whose requirements agree on those keys share it. The Provisioner
+        passes one for all the claims of a round."""
 
         def launch_price(it: InstanceType) -> float:
             return min(
@@ -164,7 +170,31 @@ class InstanceTypes(list):
                 default=MAX_FLOAT,
             )
 
-        self.sort(key=launch_price)
+        if prices is None:
+            self.sort(key=launch_price)
+            return self
+        sigs: dict[str, tuple] = {}
+
+        def sig(key: str):
+            if key not in sigs:
+                r = reqs.get(key) if reqs.has(key) else None
+                sigs[key] = None if r is None else (
+                    r.complement, frozenset(r.values), r.greater_than, r.less_than, r.min_values
+                )
+            return sigs[key]
+
+        def memo_price(it: InstanceType) -> float:
+            entry = prices.get(id(it))
+            if entry is None:
+                keys = sorted({k for o in it.offerings for k in o.requirements})
+                entry = prices[id(it)] = (it, keys, {})  # the type is held, so its id stays its own
+            _, keys, by_sig = entry
+            at = tuple(sig(k) for k in keys)
+            if at not in by_sig:
+                by_sig[at] = launch_price(it)
+            return by_sig[at]
+
+        self.sort(key=memo_price)
         return self
 
     def compatible(self, reqs: Requirements) -> "InstanceTypes":

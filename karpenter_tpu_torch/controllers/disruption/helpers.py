@@ -3,9 +3,8 @@
 
 A copy of the reference's `controllers/disruption/helpers.py`
 (helpers.go:52-143 SimulateScheduling, :174 GetCandidates, types.go:73-134
-the candidate filters). The disruption budgets and the hybrid routing of
-`simulate_scheduling` come with the control-plane slice: until then the
-simulation runs on the port's sequential oracle only.
+the candidate filters). The disruption budgets come with the consolidation
+controllers' slice.
 """
 
 from __future__ import annotations
@@ -18,14 +17,12 @@ from karpenter_tpu_torch.api.objects import Pod
 from karpenter_tpu_torch.cloudprovider.types import MAX_FLOAT
 from karpenter_tpu_torch.controllers.disruption.types import Candidate, disruption_cost
 from karpenter_tpu_torch.controllers.state import Cluster, cluster_source, is_reschedulable
+from karpenter_tpu_torch.options import Options
 from karpenter_tpu_torch.scheduling import Requirements
-from karpenter_tpu_torch.solver.oracle import Results, Scheduler, SchedulerOptions
+from karpenter_tpu_torch.solver.hybrid import TorchHybridScheduler
+from karpenter_tpu_torch.solver.oracle import Results, SchedulerOptions
 from karpenter_tpu_torch.solver.topology import Topology
 from karpenter_tpu_torch.utils.pdb import PDBLimits
-
-# the Solve budget when no options are given (provisioner.go:366, the
-# reference's Options.solve_timeout_seconds default)
-DEFAULT_SOLVE_TIMEOUT_SECONDS = 60.0
 
 
 @dataclass
@@ -48,24 +45,19 @@ def simulate_scheduling(
     cluster: Cluster,
     cloud_provider,
     candidates: list[Candidate],
-    options=None,
+    options: Optional[Options] = None,
     force_oracle: bool = False,
+    device=None,
 ) -> SimResults:
     """helpers.go:52 SimulateScheduling: solve the cluster as if the
     candidates were gone — their reschedulable pods plus all pending pods
     against every *other* node.
 
-    Only `force_oracle=True` is ported: the simulation runs on the port's
-    sequential oracle (`solver.oracle.Scheduler`), which is the referee of
-    the consolidation sweeps. The reference's default routes through
-    `HybridScheduler`, which comes with the hybrid slice; until then
-    `force_oracle=False` raises NotImplementedError rather than take
-    another path. `options` is read for `solve_timeout_seconds` only."""
-    if not force_oracle:
-        raise NotImplementedError(
-            "simulate_scheduling: hybrid routing is not ported yet; pass force_oracle=True"
-        )
-    timeout = getattr(options, "solve_timeout_seconds", DEFAULT_SOLVE_TIMEOUT_SECONDS)
+    The solve goes through `TorchHybridScheduler` on `device` (None = the
+    card, "cpu" for the plain versions); `force_oracle=True` runs the
+    port's sequential oracle alone, the referee of the consolidation
+    sweeps."""
+    opts = options or Options()
     candidate_names = {c.name for c in candidates}
 
     # deleting nodes' pods + candidates' pods + pending pods (helpers.go:84)
@@ -104,16 +96,21 @@ def simulate_scheduling(
         cluster=cluster_source(kube, cluster, frozenset(candidate_names)),
         state_node_views=views,
     )
-    scheduler = Scheduler(
+    scheduler = TorchHybridScheduler(
         node_pools,
         its_by_pool,
         topology,
         views,
         daemonset_pods,
-        SchedulerOptions(timeout_seconds=timeout),
+        SchedulerOptions(
+            timeout_seconds=opts.solve_timeout_seconds,
+            tpu_min_pods=opts.tpu_min_pods,
+        ),
+        force_oracle=force_oracle,
+        device=device,
     )
     results = scheduler.solve(pods)
-    return SimResults(results=results, pods=pods, used_tpu=False)
+    return SimResults(results=results, pods=pods, used_tpu=bool(scheduler.used_tpu))
 
 
 # ---------------------------------------------------------------------------

@@ -251,13 +251,16 @@ class NodeClaimTemplate:
         self.requirements.add(*Requirements.from_labels(self.labels).values())
         self.instance_type_options: InstanceTypes = InstanceTypes()
 
-    def to_node_claim(self, requirements: Requirements, instance_types: InstanceTypes) -> api.NodeClaim:
+    def to_node_claim(
+        self, requirements: Requirements, instance_types: InstanceTypes, prices: Optional[dict] = None
+    ) -> api.NodeClaim:
         """Produce the launchable NodeClaim: price-ordered instance types
         truncated to MAX_INSTANCE_TYPES injected as an In requirement
-        (nodeclaimtemplate.go:79 ToNodeClaim)."""
+        (nodeclaimtemplate.go:79 ToNodeClaim); `prices` is
+        InstanceTypes.order_by_price's memo."""
         reqs = requirements.copy()
         if not self.is_static:
-            ordered = InstanceTypes(instance_types).order_by_price(reqs)[:MAX_INSTANCE_TYPES]
+            ordered = InstanceTypes(instance_types).order_by_price(reqs, prices)[:MAX_INSTANCE_TYPES]
             reqs.add(
                 Requirement(
                     well_known.INSTANCE_TYPE_LABEL_KEY,
@@ -458,8 +461,8 @@ class SchedulingNodeClaim:
                 )
             )
 
-    def to_node_claim(self) -> api.NodeClaim:
-        nc = self.template.to_node_claim(self.requirements, self.instance_type_options)
+    def to_node_claim(self, prices: Optional[dict] = None) -> api.NodeClaim:
+        nc = self.template.to_node_claim(self.requirements, self.instance_type_options, prices)
         nc.resources_requests = dict(self.requests)
         nc.metadata.annotations[well_known.NODECLAIM_MIN_VALUES_RELAXED_ANNOTATION_KEY] = (
             "true"

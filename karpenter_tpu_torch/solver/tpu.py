@@ -149,9 +149,9 @@ def _typeok_lib():
     lib.typeok_screen_launch.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
     lib.typeok_screen_launch.restype = ctypes.c_int
     if (lib.typeok_types_size(), lib.typeok_rows_size()) != (ctypes.sizeof(_TypeokTypes), ctypes.sizeof(_TypeokRows)):
-        raise RuntimeError("typeok_screen: argument layout disagrees with the library")
+        raise _build.DeviceError("typeok_screen: argument layout disagrees with the library")
     if any(lib.typeok_smem_bytes(*a) != _typeok_smem(*a) for a in ((1, 36, 16), (8, 108, 64), (3, 17, 13))):
-        raise RuntimeError("typeok_screen: shared-memory layout disagrees with the library")
+        raise _build.DeviceError("typeok_screen: shared-memory layout disagrees with the library")
     return lib
 
 
@@ -351,7 +351,7 @@ def _small_lib(name: str, args_type):
     launch.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
     launch.restype = ctypes.c_int
     if getattr(lib, f"{name}_args_size")() != ctypes.sizeof(args_type):
-        raise RuntimeError(f"{name}: argument layout disagrees with the library")
+        raise _build.DeviceError(f"{name}: argument layout disagrees with the library")
     return lib
 
 

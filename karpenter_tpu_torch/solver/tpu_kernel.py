@@ -960,7 +960,7 @@ def step_library(name: str):
     fields += [(n, ctypes.c_int) for n in ints.split(",") if n]
     args_type = type("StepArgs", (ctypes.Structure,), {"_fields_": fields})
     if ctypes.sizeof(args_type) != getattr(lib, f"{name}_args_size")():
-        raise RuntimeError(f"{name}: StepArgs layout disagrees with the library")
+        raise _build.DeviceError(f"{name}: StepArgs layout disagrees with the library")
     return lib, args_type
 
 
@@ -1226,7 +1226,7 @@ def step_args(name: str, args_type, vals: dict):
     fields = [f for f, _ in args_type._fields_]
     unknown = set(given) - set(fields)
     if unknown:
-        raise RuntimeError(f"{name}: argument fields out of step with the library: {sorted(unknown)}")
+        raise _build.DeviceError(f"{name}: argument fields out of step with the library: {sorted(unknown)}")
     return args_type(**{f: given.get(f, 0) for f in fields})
 
 
@@ -1285,7 +1285,7 @@ def _scan_lanes_library():
     lib.scan_lanes_lane_field_names.restype = ctypes.c_char_p
     names = tuple(n for n in lib.scan_lanes_lane_field_names().decode().split(",") if n)
     if names != LANE_PTR_FIELDS:
-        raise RuntimeError("scan_lanes: the lane fields disagree with the library")
+        raise _build.DeviceError("scan_lanes: the lane fields disagree with the library")
     return lib, args_type
 
 

@@ -18,7 +18,8 @@ the same cluster. Every comparison is exact:
   (`scan_lanes_plain`) equal the reference's `_fast_sweep_kernel` and
   `vmap(solve_scan)` on the inputs the reference built;
 - (d) the port's referee, `helpers.simulate_scheduling(force_oracle=True)`,
-  gives the reference's results snapshot per prefix;
+  gives the reference's results snapshot per prefix, and its default path
+  (the kernels through TorchHybridScheduler) the reference's default path's;
 - (e) `fixtures.underutilized_world` builds the reference operator's fleet;
 - (f) every SweepUnsupported gate the reference raises on a crafted case
   is raised by the port.
@@ -39,12 +40,14 @@ from karpenter_tpu.api.codec import to_jsonable
 from karpenter_tpu.controllers.disruption import sweep as rsweep
 from karpenter_tpu.controllers.disruption.consolidation import MultiNodeConsolidation
 from karpenter_tpu.controllers.disruption.helpers import simulate_scheduling as r_simulate
+from karpenter_tpu.options import Options as ROptions
 from karpenter_tpu.testing import fixtures, fuzz
 from karpenter_tpu.utils import resources as rres
 from karpenter_tpu_torch import convert
 from karpenter_tpu_torch.api import objects as pobjects
 from karpenter_tpu_torch.controllers.disruption import sweep as psweep
 from karpenter_tpu_torch.controllers.disruption.helpers import simulate_scheduling as p_simulate
+from karpenter_tpu_torch.options import Options as POptions
 from karpenter_tpu_torch.solver import tpu_kernel as PK
 from karpenter_tpu_torch.testing import fixtures as pfixtures
 from karpenter_tpu_torch.utils import resources as pres
@@ -342,8 +345,13 @@ def test_referee_matches_reference_per_prefix():
         assert fuzz.results_snapshot(got.results, got.pods) == fuzz.results_snapshot(want.results, want.pods), k
         assert got.all_pods_scheduled() == want.all_pods_scheduled()
         assert len(got.non_empty_new_claims()) == len(want.non_empty_new_claims())
-    with pytest.raises(NotImplementedError, match="force_oracle"):
-        p_simulate(port.kube, port.cluster, port.cloud, port.cands[:1], force_oracle=False)
+    # the default path (tests/test_disruption.py:1131): TorchHybridScheduler
+    # on the kernels, with the crossover set to 0 on both sides
+    for k in (1, len(ref.cands)):
+        want = r_simulate(ref.kube, ref.cluster, ref.cloud, ref.cands[:k], ROptions(tpu_min_pods=0))
+        got = p_simulate(port.kube, port.cluster, port.cloud, port.cands[:k], POptions(tpu_min_pods=0), device="cpu")
+        assert got.used_tpu is want.used_tpu is True, k
+        assert fuzz.results_snapshot(got.results, got.pods) == fuzz.results_snapshot(want.results, want.pods), k
 
 
 # ---------------------------------------------------------------------------
