@@ -131,8 +131,14 @@ SET_LANES = 1024
 # 64 lanes x 64 union pods is the reference's 4096 limit
 LANE_CANDIDATES = 64
 RIDER_SPREAD = 4
+# positions of the spread fleet's 64 at which K7 is held to its plain
+# version (the plain version takes about half a second a position)
+LANE_CHECK_POSITIONS = 32
 REFEREE_SEEDED = 16  # seeded lanes of each kind held against the referee
 PAST_EDGE = 4  # spread-fleet prefix lanes held past the last verdict change
+# a spread fleet small enough that the referee holds every prefix lane of
+# LANE_CANDIDATES (each lane's referee call grows with the fleet)
+SPREAD_CHECK_NODES = 200
 # the leftover fleet: riders as large as the seeds fill every node, so each
 # lane's riders and the pending pods (which fit no node) are left over for
 # one new claim: the largest KWOK type hosts them up to prefix lane 21
@@ -156,8 +162,8 @@ FLEET_RELAX_LANES = 4  # a window whose lanes add the same preference pods
 FLEET_PREF_PODS = 200
 FLEET_PREF_SEED = 7
 # FFD positions of each lane K7 is held to its plain version on (the plain
-# version with relax on takes about a third of a second a position)
-FLEET_CHECK_POSITIONS = 128
+# version with relax on takes about half a second a position)
+FLEET_CHECK_POSITIONS = 64
 FLEET_CHECK_LANES = 8
 FLEET_WIDE_POSITIONS = 64  # positions of the launch past K7's lane table
 FLEET_ORACLE_LANES = (0, 7)  # lanes of the widest window held against the oracle
@@ -182,6 +188,20 @@ ENTRY_PVC_PODS = 100
 ENTRY_ZONE = "test-zone-b"
 DECISIONS_PODS = (2000, 40)  # c6 pods, PVC pods: the card's Provisioner against the oracle
 CROSSOVER_SIZES = (16, 64, 256, 1024, 4096)  # make_generic_pods(n) through solve_in_process
+# the consolidation controllers (consolidation_phase) run on the sweep
+# phase's c4 fleet; each kernels-line row gains its launches on that path.
+# SingleNodeConsolidation sweeps its candidates as singleton lanes only up
+# to sweep.MAX_SWEEP_PREFIXES (128, the reference's rule): on the c4
+# fleet's 2000 candidates it walks them one by one, so its singleton
+# launch is checked on a fleet of the c4 shape with 128 nodes
+SINGLE_NODES = 128
+CONSOLIDATION_ROWS = {
+    "typeok_screen": ("typeok_screen",), "scan_step": ("scan_step",), "run_step": ("run_step",),
+    "run_arrays": ("run_arrays",), "dedup_rows": ("dedup_rows",), "scan_step+relax": ("scan_step_relax",),
+    "run_step+relax": ("run_step_relax",), "fast_sweep": ("fast_sweep",),
+    "fast_sweep (singleton)": ("fast_sweep_singleton",), "set_sweep": ("set_sweep",),
+    "scan_lanes": ("scan_lanes", "scan_lanes_relax"),
+}
 # the device functions of K6 and K8, as the profiler names them
 SWEEP_KERNELS = ("sweep_cache_kernel", "fast_sweep_lanes", "set_sweep_lanes")
 # K5's edge checks (k5_edge_checks): (label, rows, widths of the nine
@@ -1498,8 +1518,9 @@ def fast_fleet_checks(dev, w, cands, tag: str, seed: int, rows_out: list, profil
 
 def sweep_worlds() -> list:
     """The sweep phase's four 2000-node fleets, in the order it takes them:
-    the c4 shape, the leftover fleet, the c0 fleet and the spread fleet
-    (host work only: main builds them while nvcc runs)."""
+    the c4 shape, the leftover fleet, the c0 fleet and the spread fleet,
+    then the SPREAD_CHECK_NODES spread fleet (host work only: main builds
+    them while nvcc runs)."""
     from karpenter_tpu_torch.testing.fixtures import underutilized_world
 
     return [
@@ -1512,7 +1533,37 @@ def sweep_worlds() -> list:
             SWEEP_NODES, seed=7, rider_requests=LEFTOVER_RIDER, heavy_every=C0_EVERY, heavy_requests=C0_HEAVY
         ),
         underutilized_world(SWEEP_NODES, seed=7, rider_spread=RIDER_SPREAD),
+        underutilized_world(SPREAD_CHECK_NODES, seed=7, rider_spread=RIDER_SPREAD),
     ]
+
+
+def spread_referee_check(dev, w) -> bool:
+    """Every prefix lane of a spread fleet (K7, the full-state lane path)
+    against the sequential referee, on a fleet small enough that the
+    referee is cheap (SPREAD_CHECK_NODES): the check of the lanes the
+    2000-node spread fleet holds only up to PAST_EDGE past the last
+    verdict change."""
+    import torch
+
+    from karpenter_tpu_torch.controllers.disruption import sweep as S
+    from karpenter_tpu_torch.solver import tpu_kernel as K
+
+    cands = sweep_candidates(w, LANE_CANDIDATES)
+    reset_launches()
+    t0 = time.monotonic()
+    v = S.prefix_feasibility(w.kube, w.cluster, w.cloud, cands, device=dev)
+    torch.cuda.synchronize()
+    n = K.LAUNCHES["scan_lanes"] + K.LAUNCHES["scan_lanes_relax"]
+    log(f"small spread world: {SPREAD_CHECK_NODES} nodes, {len(cands)} candidates; scan_lanes (prefix) "
+        f"{time.monotonic() - t0:.3f}s host, path={S.last_sweep['path']}, launches={n}, "
+        f"feasible {sum(v)}/{len(cands)}: {''.join('1' if x else '0' for x in v)}")
+    if S.last_sweep["path"] != "sweep_vmap" or n != 1:
+        return False
+    t0 = time.monotonic()
+    bad = referee_mismatches(w, cands, [(k, [j <= k for j in range(len(cands))]) for k in range(len(cands))], v)
+    log(f"referee, small spread world (prefix): every lane, {len(cands)} checked, {len(bad)} disagree "
+        f"({time.monotonic() - t0:.1f}s host)")
+    return not bad
 
 
 def sweep_phase(dev, worlds: Optional[list] = None) -> Optional[list]:
@@ -1524,7 +1575,9 @@ def sweep_phase(dev, worlds: Optional[list] = None) -> Optional[list]:
     spread fleet. Each main path with its launch counts reset just before
     and read just after, each kernel held bit for bit against its plain
     version on the same inputs, verdicts held against the sequential
-    referee. The fleets are `worlds` (sweep_worlds(), built here when None).
+    referee, every prefix lane on the small spread fleet
+    (spread_referee_check). The fleets are `worlds` (sweep_worlds(), built
+    here when None).
     Returns the kernels-line rows, or None when a check failed."""
     import torch
 
@@ -1575,16 +1628,19 @@ def sweep_phase(dev, worlds: Optional[list] = None) -> Optional[list]:
         u2 = S.build_union(w2.kube, w2.cluster, w2.cloud, cands2, device=dev)
         st_b, xs, valid_b, lane_pods, relax = S.lane_scan_args(w2.cluster, cands2, u2, singleton)
         got = K.scan_lanes(u2.tb, st_b, xs, valid_b, relax)
+        xs_c = cut_positions(xs, LANE_CHECK_POSITIONS, axis=0)
+        valid_c = valid_b[:, :LANE_CHECK_POSITIONS].contiguous()
+        got_c = K.scan_lanes(u2.tb, st_b, xs_c, valid_c, relax)
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
-        want = K.scan_lanes_plain(u2.tb, st_b, xs, valid_b, relax)
+        want = K.scan_lanes_plain(u2.tb, st_b, xs_c, valid_c, relax)
         end.record()
         torch.cuda.synchronize()
         k7_plain_ms += start.elapsed_time(end)
-        bad_fields = lanes_mismatches(got, want)
+        bad_fields = lanes_mismatches(got_c, want)
         log(f"K7 scan_lanes ({'singleton' if singleton else 'prefix'}; B={valid_b.shape[0]}, P={valid_b.shape[1]}, "
             f"E={st_b.eavail.shape[1]}, N={st_b.active.shape[1]}, relax={relax}): mismatched {bad_fields or 'nothing'} "
-            f"vs plain ({start.elapsed_time(end):.1f} ms plain)")
+            f"vs plain on the first {LANE_CHECK_POSITIONS} positions ({start.elapsed_time(end):.1f} ms plain)")
         k7_mism += len(bad_fields)
         if bad_fields:
             return None
@@ -1614,8 +1670,12 @@ def sweep_phase(dev, worlds: Optional[list] = None) -> Optional[list]:
     b_ms, b_by = bound(nb, ops)
     log(f"K7 scan_lanes prefix + singleton: kernel {k7_ms:.3f} ms, plain {k7_plain_ms:.1f} ms, "
         f"bound {b_ms:.6f} ms ({b_by})")
-    rows_out.append(row("scan_lanes", "scan_lanes.cu", "karpenter_tpu/controllers/disruption/sweep.py:690",
-                        k7_launch, k7_mism, k7_ms, k7_plain_ms, b_ms, b_by))
+    rows_out.append(dict(row("scan_lanes", "scan_lanes.cu", "karpenter_tpu/controllers/disruption/sweep.py:690",
+                             k7_launch, k7_mism, k7_ms, k7_plain_ms, b_ms, b_by),
+                         plain_positions=LANE_CHECK_POSITIONS))
+
+    if not spread_referee_check(dev, worlds.pop(0)):
+        return None
 
     # the kernels' own device time, from profiler traces taken after every
     # check, so that no trace overlaps the host timings above
@@ -1630,6 +1690,227 @@ def sweep_phase(dev, worlds: Optional[list] = None) -> Optional[list]:
         + json.dumps({r["name"]: r.get("device_ms_split") for r in rows_out}))
     log(f"sweep phase: {time.monotonic() - t_phase:.1f}s")
     return rows_out
+
+
+def launch_counts() -> dict:
+    """Every kernel wrapper's launch count since reset_launches(), the
+    non-zero ones."""
+    from karpenter_tpu_torch.controllers.disruption import setsweep as SS
+    from karpenter_tpu_torch.controllers.disruption import sweep as S
+    from karpenter_tpu_torch.solver import tpu as T
+    from karpenter_tpu_torch.solver import tpu_kernel as K
+    from karpenter_tpu_torch.solver import tpu_runs as KR
+
+    return {k: v for counts in (S.LAUNCHES, SS.LAUNCHES, T.LAUNCHES, K.LAUNCHES, KR.LAUNCHES) for k, v in counts.items() if v}
+
+
+def fleet_digest(world) -> tuple:
+    """The fleet's state as the consolidation controllers read it: each
+    state node, whether it is being deleted, its pods; the pending pods."""
+    c = world.cluster
+    nodes = tuple(
+        (sn.name, sn.marked_for_deletion, sn.deleting(), tuple(sorted(p.name for p in c.pods_on(sn.name))))
+        for sn in c.state_nodes()
+    )
+    return nodes, tuple(sorted(p.name for p in world.kube.pending_pods()))
+
+
+def command_view(cmd) -> tuple:
+    """A Command as the consolidation phase compares it: candidate names in
+    order, decision, each replacement's instance type names in order."""
+    return (
+        tuple(c.name for c in cmd.candidates), cmd.decision,
+        tuple(tuple(it.name for it in r.instance_type_options) for r in cmd.replacements),
+    )
+
+
+def live_nodes(world) -> set:
+    """Nodes neither marked for deletion nor deleting."""
+    return {sn.name for sn in world.cluster.state_nodes()
+            if sn.node is not None and not (sn.marked_for_deletion or sn.deleting())}
+
+
+def single_node_world():
+    """The fleet of the consolidation phase's check (c): the c4 shape at
+    SINGLE_NODES nodes (host work: main builds it while nvcc runs)."""
+    from karpenter_tpu_torch.testing.fixtures import underutilized_world
+
+    return underutilized_world(SINGLE_NODES, seed=7, n_pending=SWEEP_PENDING)
+
+
+def consolidation_phase(dev, w, digest, w_single) -> Optional[dict]:
+    """The consolidation controllers on the card at the c4 width, on the
+    sweep phase's c4 fleet `w` (held unchanged to `digest`, its state
+    before the sweep phase): 2000 nodes, 100 candidates, 20 pending pods.
+
+    (a) MultiNodeConsolidation(sweep="sets"): a Command, K8 launched, its
+        removal feasible for the referee, its savings >= the batched rung's;
+    (b) the batched rung (K6) against the binary search on the oracle;
+    (c) SingleNodeConsolidation against its force_oracle sequential walk,
+        on `w` (2000 candidates: no sweep) and on `w_single`
+        (single_node_world(): one K6 singleton launch over every
+        candidate);
+    (d) (a)'s Command rebuilt by compute_consolidation with
+        Options(tpu_min_pods=0), the simulation on K1, K3 or K2, K4 and K5
+        (K5 runs from _DEDUP_DECODE_MIN claim slots up: lowered to 1 here),
+        against the default route's;
+    (e) a DisruptionController round trip: propose; validate after the TTL
+        and start; with the replacements initialized by hand (the port has
+        no lifecycle controller yet), delete the originals. The cluster
+        then has as many fewer live nodes as the Command removed, and
+        every pod is bound to a live node or waits for the next round.
+
+    Each main path with its launch counts reset just before and read just
+    after. Returns {"launches": totals over the main paths, "seconds": the
+    phase's}, or None when a check failed."""
+    import torch
+
+    from karpenter_tpu_torch.api.objects import COND_INITIALIZED
+    from karpenter_tpu_torch.controllers.disruption import consolidation as CN
+    from karpenter_tpu_torch.controllers.disruption import setsweep as SS
+    from karpenter_tpu_torch.controllers.disruption.controller import DisruptionController
+    from karpenter_tpu_torch.controllers.disruption.helpers import simulate_scheduling
+    from karpenter_tpu_torch.controllers.disruption.queue import VALIDATION_TTL_SECONDS
+    from karpenter_tpu_torch.controllers.disruption.types import command_savings
+    from karpenter_tpu_torch.controllers.provisioning import Provisioner
+    from karpenter_tpu_torch.options import Options
+    from karpenter_tpu_torch.solver import tpu as T
+
+    t_phase = time.monotonic()
+    total: dict = {}
+    bad: list = []
+
+    def main_path(label, fn):
+        reset_launches()
+        t0 = time.monotonic()
+        out = fn()
+        torch.cuda.synchronize()
+        dt = time.monotonic() - t0
+        counts = launch_counts()
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+        log(f"consolidation {label}: {dt:.3f}s host, launches={counts}")
+        return out, counts
+
+    def show(label, cmd):
+        log(f"consolidation {label}: {cmd.decision}, {len(cmd.candidates)} nodes removed, "
+            f"{len(cmd.replacements)} replacement(s), {command_savings(cmd):.6f} $/h saved")
+
+    if fleet_digest(w) != digest:
+        log("consolidation phase: the sweep phase changed the c4 fleet")
+        return None
+    args = (w.kube, w.cluster, w.cloud, w.clock)
+
+    # (a) the sets rung (K8)
+    cmds, n = main_path("(a) MultiNodeConsolidation(sweep='sets')",
+                        CN.MultiNodeConsolidation(*args, sweep="sets", device=dev).compute_commands)
+    log(f"consolidation (a) last_search_stats: {json.dumps(SS.last_search_stats)}")
+    if not cmds or n.get("set_sweep", 0) < 1:
+        log("consolidation (a): no Command, or K8 not launched")
+        return None
+    cmd_a = cmds[0]
+    show("(a)", cmd_a)
+    t0 = time.monotonic()
+    sim = simulate_scheduling(w.kube, w.cluster, w.cloud, cmd_a.candidates, force_oracle=True)
+    referee_ok = sim.all_pods_scheduled() and len(sim.non_empty_new_claims()) <= 1
+    log(f"consolidation (a) referee: removal {'feasible' if referee_ok else 'INFEASIBLE'} "
+        f"({time.monotonic() - t0:.1f}s host)")
+    if not referee_ok:
+        bad.append("(a) referee")
+
+    # (b) the batched rung (K6) against the binary search on the oracle
+    cmds_b, n = main_path("(b) MultiNodeConsolidation(sweep='batched')",
+                          CN.MultiNodeConsolidation(*args, sweep="batched", device=dev).compute_commands)
+    t0 = time.monotonic()
+    cmds_bin = CN.MultiNodeConsolidation(*args, sweep="binary", force_oracle=True).compute_commands()
+    log(f"consolidation (b) binary search on the oracle: {time.monotonic() - t0:.1f}s host")
+    if not cmds_b or n.get("fast_sweep", 0) < 1 or [command_view(c) for c in cmds_b] != [
+        command_view(c) for c in cmds_bin
+    ]:
+        bad.append("(b) batched against binary")
+    else:
+        show("(b) batched = binary", cmds_b[0])
+        if command_savings(cmd_a) < command_savings(cmds_b[0]):
+            bad.append("(a) savings below the batched rung's")
+
+    # (c) single-node against the sequential walk: on the c4 fleet (more
+    # candidates than lanes: no sweep), then one singleton launch
+    for label, world, lanes in (("c4 fleet", w, 0), (f"{SINGLE_NODES}-node fleet", w_single, 1)):
+        a = (world.kube, world.cluster, world.cloud, world.clock)
+        cmds_c, n = main_path(f"(c) SingleNodeConsolidation, {label}",
+                              CN.SingleNodeConsolidation(*a, device=dev).compute_commands)
+        t0 = time.monotonic()
+        cmds_seq = CN.SingleNodeConsolidation(*a, force_oracle=True).compute_commands()
+        log(f"consolidation (c) sequential walk on the oracle, {label}: {time.monotonic() - t0:.1f}s host")
+        if n.get("fast_sweep_singleton", 0) != lanes or not cmds_c or [command_view(c) for c in cmds_c] != [
+            command_view(c) for c in cmds_seq
+        ]:
+            bad.append(f"(c) single-node against the sequential walk, {label}")
+        else:
+            show(f"(c) single-node = sequential, {label}", cmds_c[0])
+
+    # (d) (a)'s Command with the simulation on the kernels
+    kernels_route = CN.MultiNodeConsolidation(*args, options=Options(tpu_min_pods=0), device=dev)
+    dedup_min = T._DEDUP_DECODE_MIN
+    T._DEDUP_DECODE_MIN = 1
+    try:
+        cmd_d, n = main_path("(d) compute_consolidation, tpu_min_pods=0",
+                             lambda: kernels_route.compute_consolidation(cmd_a.candidates))
+    finally:
+        T._DEDUP_DECODE_MIN = dedup_min
+    k_step = n.get("run_step", 0) + n.get("run_step_relax", 0) + n.get("scan_step", 0) + n.get("scan_step_relax", 0)
+    if command_view(cmd_d) != command_view(cmd_a) or abs(command_savings(cmd_d) - command_savings(cmd_a)) > 1e-12:
+        bad.append("(d) the kernel route's Command")
+    if min(n.get(k, 0) for k in ("typeok_screen", "run_arrays", "dedup_rows")) < 1 or not k_step:
+        bad.append("(d) kernel launches")
+    if tpu_errors():
+        bad.append("(d) tpu_error")
+
+    # (e) the controller's round trip
+    before = live_nodes(w)
+    prov = Provisioner(w.kube, w.cluster, w.cloud, w.clock, device=dev)
+    ctrl = DisruptionController(w.kube, w.cluster, w.cloud, prov, w.clock, device=dev)
+    t_e = time.monotonic()
+    main_path("(e) reconcile 1 (propose)", ctrl.reconcile)
+    proposal = ctrl._pending_validation[1] if ctrl._pending_validation else None
+    if proposal is None or command_view(proposal) != command_view(cmd_a):
+        bad.append("(e) proposal")
+        log(f"consolidation phase: {time.monotonic() - t_phase:.1f}s; failed: {', '.join(bad)}")
+        return None
+    w.clock.advance(VALIDATION_TTL_SECONDS)
+    started, _ = main_path("(e) reconcile 2 (validate, start)", ctrl.reconcile)
+    if started is None or command_view(started) != command_view(cmd_a):
+        bad.append("(e) validation")
+        log(f"consolidation phase: {time.monotonic() - t_phase:.1f}s; failed: {', '.join(bad)}")
+        return None
+    new_claims = list(ctrl.queue.in_flight[0].replacement_names)
+    # the lifecycle controller's part (not yet ported): the replacements
+    # launch, register and initialize
+    for name in new_claims:
+        claim = w.kube.get("NodeClaim", name)
+        claim.status.conditions[COND_INITIALIZED] = "True"
+        w.kube.update("NodeClaim", claim)
+    w.clock.advance(2.0)
+    main_path("(e) reconcile 3 (delete the originals)", ctrl.reconcile)
+    removed = {c.name for c in started.candidates}
+    after = live_nodes(w)
+    deleting = {c.name for c in w.kube.list("NodeClaim") if c.metadata.deletion_timestamp is not None}
+    waiting = {p.name for p in prov.get_pending_pods() + prov._reschedulable_from_deleting_nodes()}
+    stray = [p.name for p in w.kube.list("Pod") if p.node_name not in after and p.name not in waiting]
+    log(f"consolidation (e): {len(before)} -> {len(after)} live nodes ({len(removed)} removed, "
+        f"{len(new_claims)} replacement claim(s) {new_claims}), {len(deleting)} claims deleting, {len(waiting)} pods "
+        f"for the next provisioning round, {len(stray)} stray; {time.monotonic() - t_e:.1f}s for the round trip")
+    if ctrl.queue.busy or after != before - removed or deleting != {c.claim_name() for c in started.candidates}:
+        bad.append("(e) deletions")
+    riders = {p.name for c in started.candidates for p in c.reschedulable_pods}
+    if stray or not riders <= waiting:
+        bad.append("(e) pods")
+    if tpu_errors():
+        bad.append("tpu_error")
+    seconds = time.monotonic() - t_phase
+    log(f"consolidation phase: {seconds:.1f}s; launches on its main paths {json.dumps(total)}; "
+        f"{'failed: ' + ', '.join(bad) if bad else 'ok'}")
+    return None if bad else {"launches": total, "seconds": seconds}
 
 
 def fleet_world(its, cpu: str, n_pods: int, n_pref: int = 0, n_follow: int = 0) -> World:
@@ -1749,13 +2030,13 @@ def solo_outcomes(worlds: list, dev) -> tuple[list, float]:
     return outs, total
 
 
-def cut_positions(xs, n: int):
-    """The first n pod positions of a stacked PodX ([B, P, ...] fields),
-    contiguous."""
+def cut_positions(xs, n: int, axis: int = 1):
+    """The first n pod positions of a PodX, contiguous: stacked ([B, P,
+    ...] fields, axis 1) or one batch (axis 0)."""
     from karpenter_tpu_torch.ops.encode import Reqs
 
     def cut(a):
-        return a[:, :n].contiguous()
+        return a.narrow(axis, 0, n).contiguous()
 
     return type(xs)(*(Reqs(*(cut(a) for a in f)) if isinstance(f, Reqs) else cut(f) for f in xs))
 
@@ -2393,6 +2674,7 @@ def main() -> int:
     with ThreadPoolExecutor(1) as ex:
         building = ex.submit(_build.build_all)
         fleets = sweep_worlds()
+        snc_fleet = single_node_world()
         log(f"sweep fleets built on the host while nvcc runs: {time.monotonic() - t0:.1f}s")
         built = building.result()
     log(f"build: {time.monotonic() - t0:.1f}s wall for {len(built)} libraries (parallel nvcc)")
@@ -3020,9 +3302,17 @@ def main() -> int:
         return 1
 
     # ---- 12. the consolidation sweeps (K6, K7, K8) ----
+    c4_fleet = fleets[0]
+    c4_digest = fleet_digest(c4_fleet)
     sweep_rows = sweep_phase(dev, fleets)
     del fleets
     if sweep_rows is None:
+        return 1
+
+    # ---- 12b. the consolidation controllers on the c4 fleet ----
+    consolidation = consolidation_phase(dev, c4_fleet, c4_digest, snc_fleet)
+    del c4_fleet, snc_fleet
+    if consolidation is None:
         return 1
 
     # ---- 13. fleet lanes (K7 with each lane's own pod rows) ----
@@ -3095,6 +3385,8 @@ def main() -> int:
     ] + sweep_rows + [fleet_row]
     for r in kernels:
         r.update(apart.get(r["name"], {}))
+        if r["name"] in CONSOLIDATION_ROWS:
+            r["launches_consolidation"] = sum(consolidation["launches"].get(k, 0) for k in CONSOLIDATION_ROWS[r["name"]])
     log(f"chip_smoke: {time.monotonic() - t_start:.1f}s in all")
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -32,9 +32,13 @@ Layout:
   controllers/provisioning.py                           Batcher, VolumeTopology,
                                                         the Provisioner
   controllers/nodepool_aux.py                           the requirement validator
-  controllers/disruption/                               candidates, the referee,
-                                                        sweep.py (K6, K7),
-                                                        setsweep.py (K8)
+  controllers/static.py                                 the pools' node limit
+  controllers/disruption/                               candidates, budgets, the
+                                                        referee, sweep.py (K6,
+                                                        K7), setsweep.py (K8),
+                                                        the methods, Validator,
+                                                        OrchestrationQueue and
+                                                        DisruptionController
   csrc/, _build.py                                      CUDA sources, nvcc build
   wire.py, convert.py                                   request decode, reference
                                                         tensors and clusters ->

@@ -1,4 +1,5 @@
 """The control plane's host copies (the reference's `controllers/`): the
-in-memory API store, the cluster-state cache and, under `disruption/`, the
-consolidation sweeps. The provisioner, lifecycle and disruption
-controllers come with the control-plane slice."""
+in-memory API store, the cluster-state cache, the Provisioner, the static
+pools' node limit and, under `disruption/`, the consolidation sweeps and
+controllers. The lifecycle and termination controllers come with the rest
+of the Operator's controllers."""

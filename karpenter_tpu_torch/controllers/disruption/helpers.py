@@ -3,13 +3,13 @@
 
 A copy of the reference's `controllers/disruption/helpers.py`
 (helpers.go:52-143 SimulateScheduling, :174 GetCandidates, types.go:73-134
-the candidate filters). The disruption budgets come with the consolidation
-controllers' slice.
+the candidate filters, :231 BuildDisruptionBudgetMapping).
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+import math
+from dataclasses import dataclass, field
 from typing import Callable, Optional
 
 from karpenter_tpu_torch.api import labels as well_known
@@ -231,3 +231,51 @@ def _candidate_price(c: Candidate, cloud_provider, its_cache) -> float:
         if o.available and o.requirements.is_compatible(reqs):
             return o.price
     return MAX_FLOAT
+
+
+# ---------------------------------------------------------------------------
+# budgets
+
+
+@dataclass
+class BudgetMapping:
+    """helpers.go:231 BuildDisruptionBudgetMapping: per nodepool, how many
+    more nodes may be disrupted right now for a given reason."""
+
+    allowed: dict[str, int] = field(default_factory=dict)
+
+    def can_disrupt(self, nodepool: str, n: int = 1) -> bool:
+        return self.allowed.get(nodepool, 0) >= n
+
+    def consume(self, nodepool: str, n: int = 1) -> None:
+        self.allowed[nodepool] = max(0, self.allowed.get(nodepool, 0) - n)
+
+
+def build_budget_mapping(kube, cluster: Cluster, reason: str) -> BudgetMapping:
+    mapping = BudgetMapping()
+    # count nodes per nodepool and nodes already being disrupted
+    totals: dict[str, int] = {}
+    disrupting: dict[str, int] = {}
+    for sn in cluster.state_nodes():
+        np_name = sn.nodepool_name
+        if np_name is None:
+            continue
+        totals[np_name] = totals.get(np_name, 0) + 1
+        if sn.marked_for_deletion or sn.deleting():
+            disrupting[np_name] = disrupting.get(np_name, 0) + 1
+    for np in kube.list("NodePool"):
+        total = totals.get(np.name, 0)
+        allowed = total  # no budgets = unlimited up to pool size
+        for budget in np.disruption.budgets:
+            if budget.reasons and reason not in budget.reasons:
+                continue
+            raw = budget.nodes.strip()
+            if raw.endswith("%"):
+                # nodepool.go:359 GetScaledValueFromIntOrPercent(roundUp=true):
+                # a 10% budget on a 5-node pool still allows 1 disruption
+                limit = math.ceil(total * float(raw[:-1]) / 100.0)
+            else:
+                limit = int(raw)
+            allowed = min(allowed, limit)
+        mapping.allowed[np.name] = max(0, allowed - disrupting.get(np.name, 0))
+    return mapping

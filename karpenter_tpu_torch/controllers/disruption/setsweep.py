@@ -28,8 +28,12 @@ K8 `set_sweep` (csrc/set_sweep.cu with csrc/sweep_core.cuh).
   class counts as an exact integer reduction over J (torch has no CUDA
   int32 matmul, and a float product must not stand in for a count).
 
-`sweep_sets` (the proposal rounds that end in compute_consolidation) and
-the consolidation controllers come with the control-plane slice.
+`sweep_sets` is MultiNodeConsolidation's "sets" rung: bounded
+proposal -> feasibility -> reseed rounds, one K8 launch each, under the
+multi-node timeout; the winner is materialized through the real
+compute_consolidation, feasible prefixes walked largest-first as a
+backstop, so its savings are never below the prefix search's. The port has
+no tracing yet: `last_search_stats` keeps the last search's counters.
 """
 
 from __future__ import annotations
@@ -48,16 +52,26 @@ from karpenter_tpu_torch.controllers.disruption.sweep import (
     _lane_avail,
     _row0,
 )
-from karpenter_tpu_torch.controllers.disruption.types import Candidate
+from karpenter_tpu_torch.controllers.disruption.types import Candidate, Command, command_savings
 from karpenter_tpu_torch.solver import tpu_problem as tp
 from karpenter_tpu_torch.solver import tpu_runs as KR
 
 # lane cap for one device dispatch; proposals beyond it queue for the
 # next round
 MAX_SET_LANES = 4096
+# proposal->feasibility->reseed rounds per sweep (each is one dispatch)
+MAX_SET_ROUNDS = 6
+# top-ranked non-prefix sets materialized through compute_consolidation
+# (the prefix backstop walk rides separately); each materialization is
+# one exact simulation
+MATERIALIZE_TRIES = 6
 # lane-count bucket floor: rounds of different sizes pad to the same
 # pow-2 lane counts
 LANE_BUCKET_FLOOR = 64
+
+# sweep_sets overwrites this with the last search's round, lane and
+# materialization counters
+last_search_stats: dict = {}
 
 # launches of K8 (one per set_sweep call on the card)
 LAUNCHES = {"set_sweep": 0}
@@ -294,3 +308,91 @@ def _prefix_len(mask: np.ndarray) -> int:
     """k if mask is exactly candidates[:k], else 0."""
     k = int(mask.sum())
     return k if k and bool(mask[:k].all()) else 0
+
+
+def sweep_sets(consolidation, candidates: list[Candidate]) -> Command:
+    """MultiNodeConsolidation's sweep="sets" search: bounded
+    proposal->batched-feasibility->reseed rounds under the multi-node
+    timeout, then the winners materialized through the real
+    compute_consolidation path (feasible prefixes walked largest-first as
+    a backstop, the prefix sweep's own rule, so the result's savings are
+    >= the prefix search's on every supported shape). Raises
+    SweepUnsupported when the set kernel cannot express the problem."""
+    ctx = SetSweepContext.build(
+        consolidation.kube,
+        consolidation.cluster,
+        consolidation.cloud,
+        candidates,
+        consolidation.opts,
+        device=consolidation.device,
+    )
+    clock = consolidation.clock
+    deadline = clock.now() + consolidation.opts.multinode_consolidation_timeout_seconds
+    proposer = SetProposer(candidates, seed=len(candidates))
+    feasible_masks: list[np.ndarray] = []
+    best_mask = None
+    best_est = -1.0
+    batch = proposer.first_round()
+    rounds = 0
+    lanes = 0
+    while len(batch) and rounds < MAX_SET_ROUNDS and clock.now() <= deadline:
+        feas = ctx.evaluate(batch)
+        rounds += 1
+        lanes += len(batch)
+        ests = ctx.savings_estimate(batch)
+        improved = False
+        for r, ok, est in zip(batch, feas, ests):
+            if not ok:
+                continue
+            feasible_masks.append(r)
+            if est > best_est + 1e-12:
+                best_mask, best_est = r, float(est)
+                improved = True
+        if not improved or best_mask is None:
+            break
+        batch = proposer.neighborhood(best_mask)
+
+    # ---- materialize ----
+    # Kernel feasibility is schedulability; compute_consolidation also
+    # applies the price and spot-to-spot rules, so a feasible set can still
+    # materialize to a no-op. Two passes:
+    best_cmd = Command(reason=consolidation.reason)
+    best_savings = 0.0
+
+    # 1) prefix backstop: feasible prefix lengths largest-first until one
+    #    materializes, exactly the prefix sweep's rule (sweep.sweep_first_n)
+    feasible_ks = sorted({k for k in (_prefix_len(r) for r in feasible_masks) if k}, reverse=True)
+    for k in feasible_ks:
+        cmd = consolidation.compute_consolidation(candidates[:k])
+        if cmd.candidates:
+            best_cmd, best_savings = cmd, command_savings(cmd)
+            break
+
+    # 2) top non-prefix sets by estimated savings (price sum, an upper
+    #    bound that ignores replacement cost), ties toward larger sets
+    ranked = sorted(
+        (r for r in feasible_masks if not _prefix_len(r)),
+        key=lambda r: (-float(ctx.savings_estimate(r[None])[0]), -int(r.sum())),
+    )
+    for r in ranked[:MATERIALIZE_TRIES]:
+        if clock.now() > deadline and best_cmd.candidates:
+            break
+        subset = [c for j, c in enumerate(candidates) if r[j]]
+        cmd = consolidation.compute_consolidation(subset)
+        if not cmd.candidates:
+            continue
+        s = command_savings(cmd)
+        if s > best_savings + 1e-12 or (
+            abs(s - best_savings) <= 1e-12 and len(cmd.candidates) > len(best_cmd.candidates)
+        ):
+            best_cmd, best_savings = cmd, s
+
+    last_search_stats.clear()
+    last_search_stats.update(
+        rounds=rounds,
+        lanes_evaluated=lanes,
+        feasible_sets=len(feasible_masks),
+        winner_nodes=len(best_cmd.candidates),
+        winner_savings_per_hour=best_savings,
+    )
+    return best_cmd

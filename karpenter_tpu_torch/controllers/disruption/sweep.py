@@ -630,3 +630,27 @@ def singleton_feasibility(
     pods rescheduling onto the remaining cluster plus at most one new
     node? Every candidate is an independent lane."""
     return prefix_feasibility(kube, cluster, cloud_provider, candidates, options, singleton=True, device=device)
+
+
+def sweep_first_n(consolidation, candidates: list[Candidate]):
+    """MultiNodeConsolidation's prefix search ("batched" rung): one batched
+    feasibility sweep on `consolidation.device`, then the real
+    compute_consolidation on the largest feasible prefix (prices and spot
+    rules as the sequential path's). Returns a Command."""
+    from karpenter_tpu_torch.controllers.disruption.types import Command
+
+    feasible = prefix_feasibility(
+        consolidation.kube,
+        consolidation.cluster,
+        consolidation.cloud,
+        candidates,
+        consolidation.opts,
+        device=consolidation.device,
+    )
+    for k in range(len(candidates), 0, -1):
+        if not feasible[k - 1]:
+            continue
+        cmd = consolidation.compute_consolidation(candidates[:k])
+        if cmd.decision != "no-op":
+            return cmd
+    return Command(reason=consolidation.reason)
