@@ -10,10 +10,11 @@ PyTorch version on the card, bit for bit:
 
 - K1 typeok_screen on the headline's class rows, the c6 mix's tier rows,
   the full-size screens world's class rows and a 2048-type catalog's;
-- K2 scan_step on three small problems and a 2048-pod prefix of the
+- K2 scan_step on three small problems and a 1024-pod prefix of the
   headline round (the whole round is timed too), and with the relax tier
   loop on three small tiered problems (one overflows mid-ladder) and the
-  1000-pod preference round;
+  first 256 positions of the 1000-pod preference round (the whole round
+  is timed);
 - K3 run_step on three small problems (one overflows its 64 claim slots)
   and on the headline's two dispatches (up to the claim-slot overflow,
   then the rest after the state grows), and with the relax tier loop on
@@ -50,7 +51,7 @@ of K1, K4 and K5 beside an empty kernel's (the launch floor), K5's as
 the whole decode call with the kernels it launches (one, up to 8192
 rows) and its per-phase clock breakdown, and the
 per-phase clock breakdown of K3 (the headline's and c6's two
-dispatches), K2 (a 2048-pod headline prefix) and K7 at one lane beside K2
+dispatches), K2 (a 1024-pod headline prefix) and K7 at one lane beside K2
 on the same fleet lane, each profiled launch held bit for bit to the same
 launch without it, where each launch table lived (shared or device
 memory), and the sweep kernels' cache and lane launches apart.
@@ -80,14 +81,26 @@ pods each, a window of 4 lanes with preference ladders and a window of 4
 lanes whose follower pods requeue into a second round, through
 TorchScheduler(fleet=FleetCoalescer), every lane coalesced (one K7 launch
 per round) and equal to its solo solve through K2, and an overflowing lane
-that leaves its window; last, a solve with every free byte of the card held
+that leaves its window; then the solver sidecar (`sidecar_phase`): the
+port's SolverServer on the card behind a unix socket, with a
+DeviceTableCache, an EpochStore and an AdmissionGate, at the headline's
+width — a full snapshot with an epoch key equal to the in-process solve
+(K1, K4, K3, K5), a same-epoch delta served from the table cache (no
+upload bytes, no K1 launch), a delta that churns existing nodes equal to a
+full snapshot, 4 scan-path lanes over the wire through a fleet window (one
+K7 launch a round), a Provisioner(solver=ResilientSolver) reconcile of the
+entry cluster answered by the sidecar with the entry phase's claims, and,
+with the server stopped, a reconcile that degrades in-process to the card;
+the server-side phases beside the in-process solve's give the wire's
+cost; last, a solve with every free byte of the card held
 must raise out of TorchHybridScheduler.solve, not be re-solved on the
 oracle by the last-resort guard. It checks decisions against the port's oracle on
 twelve problems, and prints:
 
 - the card's name and power limit (nvidia-smi),
-- one JSON line {"kernels": [...]} with each kernel's launches on its path,
-  its agreement with the plain version, and its times,
+- one JSON line {"kernels": [...]} with each kernel's launches on its path
+  (and on the consolidation and sidecar paths), its agreement with the
+  plain version, and its times,
 - as the last line, {"ok": true, "device": {...}}.
 
 Any failed phase exits non-zero without the last line. Without a CUDA
@@ -107,10 +120,13 @@ from typing import NamedTuple, Optional
 HEADLINE_PODS = 10000
 HEADLINE_TYPES = 500
 PARITY_PODS = 1000
-K2_PREFIX = 2048  # headline pods K2 is held against its plain version on
+K2_PREFIX = 1024  # headline pods K2 is held against its plain version on
 C6_PODS = 10000
 C6_PARITY_PODS = 2000  # c6 pods solved by the oracle too
 PREF_PODS = 1000  # the preference round (every pod tiered)
+# positions of the preference round K2+relax is held to its plain version on
+# (the plain tier loop takes about 50 ms a position)
+PREF_CHECK_POSITIONS = 256
 # The JAX package's kernel odometer for the c6 solve (bench.py
 # build_universe(500) + make_problem(10000, its, pods_realistic), the same
 # construction as c6_world): recorded with `JAX_PLATFORMS=cpu python3
@@ -176,6 +192,9 @@ FLEET_FOLLOW = (4, 20)  # lanes, follower pods a lane
 # hundred existing nodes on the headline's 500 types
 FULL_PODS = 2000
 FULL_NODES = 300
+# positions of the screens world's round K2 is held to its plain version on
+# (of its 2048; the plain version takes about 9 ms a position)
+FULL_K2_CHECK_POSITIONS = 1024
 # a catalog too large for the type tables' shared memory (the kernels then
 # read the mask words and offerings from device memory)
 LARGE_CATALOG_TYPES = 2048
@@ -201,6 +220,17 @@ CONSOLIDATION_ROWS = {
     "run_step+relax": ("run_step_relax",), "fast_sweep": ("fast_sweep",),
     "fast_sweep (singleton)": ("fast_sweep_singleton",), "set_sweep": ("set_sweep",),
     "scan_lanes": ("scan_lanes", "scan_lanes_relax"),
+}
+# the sidecar (sidecar_phase): the port's SolverServer on the card, reached
+# over its unix socket by the port's SolverClient, a ResilientSolver and a
+# fleet window; each kernels-line row gains its launches on that path
+SIDECAR_NODES = 20  # existing nodes of the churn epoch (check c)
+SIDECAR_CHURN = (3, 2, 2)  # nodes added, removed and relabelled by its delta
+SIDECAR_LANES = 4  # concurrent scan-path lanes over the wire (check d)
+SIDECAR_TIMEOUT = 600.0  # the clients' wire deadline
+SIDECAR_ROWS = {
+    "typeok_screen": ("typeok_screen",), "run_step": ("run_step",), "run_arrays": ("run_arrays",),
+    "dedup_rows": ("dedup_rows",), "fleet_lanes": ("fleet_lanes", "fleet_lanes_relax"),
 }
 # the device functions of K6 and K8, as the profiler names them
 SWEEP_KERNELS = ("sweep_cache_kernel", "fast_sweep_lanes", "set_sweep_lanes")
@@ -1139,16 +1169,17 @@ def runs_checked(world: World, dev, exact_only: bool = False, device_tables: boo
     return out
 
 
-def scan_checked(world: World, dev, n_slots: int, device_tables: bool = False) -> dict:
-    """K2 over a world's whole first round with `n_slots` claim slots (the
-    tier loop on when the round has tiers), held bit for bit to its plain
-    version; with `device_tables` a second launch reads every table from
-    device memory and is held to the same plain result."""
+def scan_checked(world: World, dev, n_slots: int, device_tables: bool = False, prefix: Optional[int] = None) -> dict:
+    """K2 over a world's first round (its first `prefix` pods, or all) with
+    `n_slots` claim slots (the tier loop on when the round has tiers), held
+    bit for bit to its plain version; with `device_tables` a second launch
+    reads every table from device memory and is held to the same plain
+    result."""
     import torch
 
     from karpenter_tpu_torch.solver import tpu_kernel as K
 
-    tb, st, xs = step_inputs(world, dev, N=n_slots)
+    tb, st, xs = step_inputs(world, dev, prefix=prefix, N=n_slots)
     relax = bool((xs.ntiers > 1).any())
     got = K.solve_scan(tb, st, xs, relax=relax)
     layout = K.last_layout("scan_step")
@@ -1171,8 +1202,9 @@ def full_size_phase(dev) -> Optional[dict]:
     """The screens the headline bypasses at full size, with the solves'
     decisions equal to the port's oracle: the screens world (pool limit,
     reservations, minValues; the bulk gates send its solve down the scan
-    path) through K2 (the whole round) and K3 (every dispatch, every pod on
-    its exact step), each held bit for bit to its plain version, and again
+    path) through K2 (the round's first FULL_K2_CHECK_POSITIONS pods) and
+    K3 (every dispatch, every pod on its exact step), each held bit for
+    bit to its plain version, and again
     with every launch table read from device memory; and the bulk world
     (existing-node windows) through K3 against its plain version, its
     runs-path and forced-scan solves against the oracle. Then a catalog of
@@ -1207,7 +1239,8 @@ def full_size_phase(dev) -> Optional[dict]:
         )
         # K2 against its plain version where it is the main path (the screens
         # world); the bulk world's forced scan solve is held to the oracle
-        k2 = scan_checked(full_world(screens), dev, _pow2(FULL_PODS), device_tables=True) if screens else None
+        k2 = scan_checked(full_world(screens), dev, _pow2(FULL_PODS), device_tables=True,
+                          prefix=FULL_K2_CHECK_POSITIONS) if screens else None
         if k2:
             log(
                 f"K2 scan_step full-size {label} (P={k2['P']}, N={k2['N']}, relax={k2['relax']}, over={k2['over']}, "
@@ -2422,6 +2455,26 @@ def partition_mismatches(got, want) -> list[str]:
     return bad
 
 
+def claims_view(claims) -> list:
+    """Created NodeClaims as two reconciles of one cluster must agree on
+    them: each claim's JSON without what a round names on its own (the
+    object's name, uid, version and creation time, the synthetic hostname)."""
+    from karpenter_tpu_torch.api import codec
+    from karpenter_tpu_torch.api import labels as well_known
+
+    out = []
+    for c in claims:
+        d = codec.to_jsonable(c)
+        for k in ("name", "uid", "resource_version", "creation_timestamp"):
+            d["metadata"].pop(k, None)
+        d["metadata"]["labels"].pop(well_known.HOSTNAME_LABEL_KEY, None)
+        for r in d["requirements"]:
+            if r["key"] == well_known.HOSTNAME_LABEL_KEY:
+                r["values"] = []
+        out.append(json.dumps(d, sort_keys=True))
+    return sorted(out)
+
+
 def entry_point_phase(dev, its) -> Optional[dict]:
     """The provisioning entry point at full width: Provisioner.reconcile ->
     schedule -> solve_in_process -> TorchHybridScheduler.solve (the c6 mix
@@ -2502,7 +2555,8 @@ def entry_point_phase(dev, its) -> Optional[dict]:
     if tpu_errors():
         bad.append("tpu_error")
     log(f"entry point phase: {time.monotonic() - t_phase:.1f}s; {'failed: ' + ', '.join(bad) if bad else 'ok'}")
-    return None if bad else {"pods": n_total, "median_s": med, "pods_per_s": n_total / med, "launches": launches}
+    return None if bad else {"pods": n_total, "median_s": med, "pods_per_s": n_total / med, "launches": launches,
+                             "claims_view": claims_view(result.created_claims)}
 
 
 def decisions_phase(dev, its) -> bool:
@@ -2561,14 +2615,14 @@ def crossover_phase(dev, its) -> Optional[dict]:
         medians, snaps = {}, {}
         for side, force in (("card", False), ("oracle", True)):
             times = []
-            for rep in range(4):
+            for rep in range(3 if force else 4):  # the card's first solve warms it up
                 fixtures.reset_rng(42)
                 pods = fixtures.make_generic_pods(n)
                 t0 = time.monotonic()
                 res, sched = solve_in_process(pools, ibp, pods, options=SchedulerOptions(tpu_min_pods=0),
                                               force_oracle=force, device=dev)
                 torch.cuda.synchronize()
-                if rep:
+                if rep or force:
                     times.append(time.monotonic() - t0)
                 if sched.used_tpu is force:
                     log(f"crossover n={n}: the {side} side took the other route ({sched.fallback_kind})")
@@ -2589,6 +2643,301 @@ def crossover_phase(dev, its) -> Optional[dict]:
     if tpu_errors():
         return None
     return {"sizes": table, "crossover": crossover}
+
+
+def sidecar_views(n: int, relabel: int = 0, first: int = 0):
+    """n existing nodes of the headline's pool (8 cores, 32 GiB, a third
+    of it free, zones in turn) as StateNodeViews, with the ClusterSource
+    that names them; node i is "sidecar-<first + i>", and the first
+    `relabel` nodes carry one more label."""
+    from karpenter_tpu_torch.api import labels as wk
+    from karpenter_tpu_torch.api.objects import Node, ObjectMeta
+    from karpenter_tpu_torch.solver.nodes import StateNodeView
+    from karpenter_tpu_torch.solver.topology import ClusterSource
+
+    views = []
+    for i in range(first, first + n):
+        name = f"sidecar-{i}"
+        labels = {
+            wk.TOPOLOGY_ZONE_LABEL_KEY: ("test-zone-a", "test-zone-b", "test-zone-c")[i % 3],
+            wk.HOSTNAME_LABEL_KEY: name, wk.CAPACITY_TYPE_LABEL_KEY: "on-demand", wk.OS_LABEL_KEY: "linux",
+            wk.ARCH_LABEL_KEY: "amd64", wk.NODEPOOL_LABEL_KEY: "default",
+        }
+        if i - first < relabel:
+            labels["team"] = "blue"
+        gib = 1024**3 * 1000
+        views.append(StateNodeView(
+            name=name, node_labels=dict(labels), labels=labels,
+            available={"cpu": 2700, "memory": 11 * gib, "pods": 110_000},
+            capacity={"cpu": 8000, "memory": 32 * gib, "pods": 110_000}, initialized=True,
+        ))
+    nodes = {v.name: Node(metadata=ObjectMeta(name=v.name, labels=dict(v.labels))) for v in views}
+    return views, ClusterSource(pods_by_namespace={}, nodes_by_name=nodes, namespace_labels={"default": {}})
+
+
+def wire_parts(got: dict, pods) -> tuple:
+    """A sidecar answer (wire.decode_result) as results_snapshot reads a
+    local one: claims by pod names with their types and requests, the
+    existing-node placements, the failed pods."""
+    name = {p.uid: p.name for p in pods}
+    claims = sorted(
+        (tuple(sorted(name[u] for u in c["pod_uids"])), c["nodepool"], tuple(sorted(c["instance_types"])),
+         tuple(sorted((k, int(v)) for k, v in c["requests"].items())))
+        for c in got["new_node_claims"] if c["pod_uids"]
+    )
+    existing = {}
+    for u, n in got["existing_assignments"].items():
+        existing.setdefault(n, []).append(name[u])
+    return (claims, sorted((n, tuple(sorted(v))) for n, v in existing.items()),
+            tuple(sorted(name[u] for u in got["pod_errors"])), bool(got["timed_out"]))
+
+
+def sidecar_phase(dev, its, entry_claims: list) -> Optional[dict]:
+    """The solver sidecar on the card: the port's SolverServer in this
+    process on a unix socket, with a DeviceTableCache, an EpochStore and an
+    AdmissionGate, reached by the port's SolverClient at the headline's
+    width (make_diverse_pods(HEADLINE_PODS) x HEADLINE_TYPES types):
+
+    (a) a full snapshot with an epoch key equals the in-process
+        solve_in_process, through K1, K4, K3 and K5, used_tpu;
+    (b) a SOLVE_DELTA of the same batch, no churn: the same answer, the
+        table cache's `hit`, no upload bytes, no K1 launch;
+    (c) a delta with churn (SIDECAR_CHURN nodes added, removed, relabelled
+        on an epoch of SIDECAR_NODES nodes) equals a full snapshot of the
+        churned world;
+    (d) SIDECAR_LANES concurrent scan-path lanes (make_self_spread_pods(
+        FLEET_PODS), a profile each) through a server with a fleet window:
+        each lane equals its solo solve, one K7 launch a round;
+    (e) a Provisioner(solver=ResilientSolver) reconcile of the entry
+        cluster answers from the sidecar with the entry phase's claims;
+        with the server stopped, the next reconcile (DECISIONS_PODS)
+        degrades in-process to the card and the breaker records it;
+    (f) the server-side phases of (a) beside the in-process solve's: the
+        wire's own cost; the client's and the server's traces share one
+        wire id.
+
+    No solve degrades to the oracle on the server. Returns {launches,
+    seconds, upload_bytes, phases}, or None when a check failed."""
+    import shutil
+    import tempfile
+    import threading
+
+    import torch
+
+    from karpenter_tpu_torch import tracing
+    from karpenter_tpu_torch.solver import epochs as E
+    from karpenter_tpu_torch.solver import fleet as F
+    from karpenter_tpu_torch.solver import tpu as T
+    from karpenter_tpu_torch.solver import tpu_kernel as K
+    from karpenter_tpu_torch.solver.hybrid import SOLVER_FALLBACK, ResilientSolver, solve_in_process
+    from karpenter_tpu_torch.solver.service import SolverClient, SolverServer
+
+    t_phase = time.monotonic()
+    os.makedirs("build", exist_ok=True)
+    sock_dir = os.path.relpath(tempfile.mkdtemp(prefix="sidecar-", dir="build"))  # short: AF_UNIX paths
+    bad = []
+    srv = SolverServer(os.path.join(sock_dir, "solver.sock"), device=dev, table_cache=E.DeviceTableCache(),
+                       epoch_store=E.EpochStore(), admission=E.AdmissionGate(max_inflight=8))
+    srv.start()
+    fleet_srv = None
+    try:
+        w = headline_world(HEADLINE_PODS, its)
+        client = SolverClient(srv.socket_path, request_timeout=SIDECAR_TIMEOUT)
+
+        def wire_solve(label, pods, views=None, source=None, c=client):
+            tr = tracing.new_trace("sidecar_client", side="local")
+            t0 = time.monotonic()
+            got = c.solve(w.pools, w.ibp, pods, state_node_views=views, cluster=source, trace=tr)
+            torch.cuda.synchronize()
+            dt = time.monotonic() - t0
+            tr.finish("ok")
+            server = [t for t in tracing.RING.find(tr.trace_id) if t.side == "server"]
+            if len(server) != 1:
+                bad.append(f"{label}: {len(server)} server traces share the wire id {tr.trace_id}")
+                return got, tr, None, dt
+            return got, tr, server[0], dt
+
+        # (a) the full snapshot, with the epoch key
+        torch.cuda.synchronize()
+        reset_launches()
+        got_a, ctr_a, str_a, dt_a = wire_solve("(a)", w.pods)
+        launches_a = launch_counts()
+        ltr = tracing.new_trace("solve")
+        w_local = headline_world(HEADLINE_PODS, its)
+        t0 = time.monotonic()
+        local, _ = solve_in_process(w_local.pools, w_local.ibp, w_local.pods, device=dev, trace=ltr)
+        torch.cuda.synchronize()
+        dt_local = time.monotonic() - t0
+        ltr.finish("ok")
+        parts_a = wire_parts(got_a, w.pods)
+        missing = [k for k in ("typeok_screen", "run_arrays", "dedup_rows") if launches_a.get(k, 0) < 1]
+        if not launches_a.get("run_step", 0) + launches_a.get("run_step_relax", 0):
+            missing.append("run_step")
+        cache_a = [s.attrs["outcome"] for s in str_a.spans if s.name == "table_cache"] if str_a else []
+        upload_a = str_a.counts.get("upload_bytes", 0) if str_a else 0
+        same_a = parts_a == results_snapshot(local, w_local.pods)
+        log(f"sidecar (a) full snapshot, {len(w.pods)} pods: {dt_a:.3f}s through the wire "
+            f"(in-process {dt_local:.3f}s); used_tpu={got_a['used_tpu']} claims={len(parts_a[0])} "
+            f"table_cache={cache_a} upload_bytes={upload_a} launches={launches_a}; "
+            f"vs solve_in_process: {'equal' if same_a else 'DIFFERENT'}; missing launches: {missing or 'none'}")
+        if not (same_a and got_a["used_tpu"]) or missing or cache_a != ["miss"] or client.full_solves != 1:
+            bad.append("(a)")
+
+        # (b) the same batch as a delta of that epoch, no churn
+        k1 = T.LAUNCHES["typeok_screen"]
+        got_b, _, str_b, dt_b = wire_solve("(b)", w.pods)
+        cache_b = [s.attrs["outcome"] for s in str_b.spans if s.name == "table_cache"] if str_b else []
+        upload_b = str_b.counts.get("upload_bytes", 0) if str_b else None
+        k1_b = T.LAUNCHES["typeok_screen"] - k1
+        same_b = wire_parts(got_b, w.pods) == parts_a
+        log(f"sidecar (b) same-epoch delta: {dt_b:.3f}s; table_cache={cache_b} upload_bytes={upload_b} "
+            f"K1 launches +{k1_b}; delta solves {client.delta_solves}; answer {'equal' if same_b else 'DIFFERENT'}")
+        if not same_b or cache_b != ["hit"] or upload_b != 0 or k1_b or client.delta_solves != 1:
+            bad.append("(b)")
+
+        # (c) an epoch with existing nodes, then a delta that churns them
+        n_add, n_del, n_rel = SIDECAR_CHURN
+        views0, src0 = sidecar_views(SIDECAR_NODES)
+        wire_solve("(c) base", w.pods, views0, src0)
+        views1, src1 = sidecar_views(SIDECAR_NODES - n_del, relabel=n_rel, first=n_del)
+        more, more_src = sidecar_views(n_add, first=SIDECAR_NODES)
+        views1 += more
+        src1.nodes_by_name.update(more_src.nodes_by_name)
+        got_c, _, str_c, dt_c = wire_solve("(c) churn", w.pods, views1, src1)
+        snap = SolverClient(srv.socket_path, request_timeout=SIDECAR_TIMEOUT, epochs=False)
+        got_full, _, _, dt_full = wire_solve("(c) full", w.pods, views1, src1, c=snap)
+        snap.close()
+        same_c = wire_parts(got_c, w.pods) == wire_parts(got_full, w.pods)
+        used = len({n for n, _ in wire_parts(got_c, w.pods)[1]})
+        log(f"sidecar (c) churn delta (+{n_add} -{n_del} ~{n_rel} of {SIDECAR_NODES} nodes): {dt_c:.3f}s, "
+            f"full snapshot {dt_full:.3f}s; existing nodes used {used}; delta solves {client.delta_solves}, "
+            f"resyncs {client.resyncs}; {'equal' if same_c else 'DIFFERENT'}")
+        if not same_c or client.delta_solves != 3 or client.resyncs or not used:
+            bad.append("(c)")
+        client.close()
+
+        # (d) scan-path lanes over the wire through a fleet window
+        fleet_srv = SolverServer(os.path.join(sock_dir, "fleet.sock"), device=dev, table_cache=E.DeviceTableCache(),
+                                 fleet_window_seconds=FLEET_WINDOW_SECONDS, fleet_max_lanes=SIDECAR_LANES,
+                                 admission=E.AdmissionGate(max_inflight=32))
+        fleet_srv.start()
+        solo = []
+        for k in range(SIDECAR_LANES):
+            s_, pods_ = scheduler_for(fleet_world(its, f"{k + 1}00m", FLEET_PODS), dev)
+            res_ = s_.solve(pods_)
+            if s_.last_used_runs:
+                bad.append("(d) a solo lane took the runs path")
+            solo.append(results_snapshot(res_, pods_))
+        lanes = [fleet_world(its, f"{k + 1}00m", FLEET_PODS) for k in range(SIDECAR_LANES)]
+        out, errors = [None] * SIDECAR_LANES, []
+        barrier = threading.Barrier(SIDECAR_LANES + 1)
+        seq0 = tracing.Trace("probe").seq
+
+        def lane(k):
+            try:
+                c = SolverClient(fleet_srv.socket_path, request_timeout=SIDECAR_TIMEOUT)
+                barrier.wait(timeout=FLEET_JOIN_SECONDS)
+                out[k] = wire_parts(c.solve(lanes[k].pools, lanes[k].ibp, lanes[k].pods), lanes[k].pods)
+                c.close()
+            except BaseException as e:  # reported below; the phase fails on it
+                errors.append(e)
+
+        threads = [threading.Thread(target=lane, args=(k,), daemon=True) for k in range(SIDECAR_LANES)]
+        for t in threads:
+            t.start()
+        torch.cuda.synchronize()
+        reset_launches()
+        barrier.wait(timeout=FLEET_JOIN_SECONDS)
+        t0 = time.monotonic()
+        for t in threads:
+            t.join(timeout=FLEET_JOIN_SECONDS)
+        torch.cuda.synchronize()
+        dt_d = time.monotonic() - t0
+        launches_d = launch_counts()
+        fleet_srv.stop()
+        windows = [s_ for t in tracing.RING.snapshot() if t.seq > seq0 and t.side == "server"
+                   for s_ in t.spans if s_.name == "fleet_window"]
+        rounds = sorted({s_.attrs.get("rounds") for s_ in windows})
+        k7 = launches_d.get("fleet_lanes", 0) + launches_d.get("fleet_lanes_relax", 0)
+        lane_bad = [k for k in range(SIDECAR_LANES) if out[k] is None or out[k] != solo[k]]
+        log(f"sidecar (d) {SIDECAR_LANES} lanes x {FLEET_PODS} pods over the wire: {dt_d:.3f}s; windows "
+            f"{[(s_.attrs.get('mode'), s_.attrs.get('lanes'), s_.attrs.get('rounds')) for s_ in windows]}; "
+            f"launches {launches_d}; lanes differing from their solo solve: {lane_bad or 'none'}; errors {errors}")
+        if errors or lane_bad or len(windows) != SIDECAR_LANES or len(rounds) != 1:
+            bad.append("(d)")
+        elif any(s_.attrs.get("mode") != "coalesced" for s_ in windows) or k7 != rounds[0]:
+            bad.append("(d) not one K7 launch a round")
+        if launches_d.get("scan_step", 0) or launches_d.get("scan_step_relax", 0):
+            bad.append("(d) a lane ran solo")
+
+        # (e) the Provisioner through a ResilientSolver, then the server gone
+        rs = ResilientSolver(srv.socket_path, request_timeout_seconds=SIDECAR_TIMEOUT, device=dev)
+        prov = entry_cluster(C6_PODS, ENTRY_PVC_PODS, its, dev)
+        prov.solver = rs
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.monotonic()
+        result = prov.reconcile(ignore_batcher=True)
+        torch.cuda.synchronize()
+        dt_e = time.monotonic() - t0
+        launches_e = launch_counts()
+        same_e = claims_view(result.created_claims) == entry_claims
+        log(f"sidecar (e) Provisioner(solver=ResilientSolver) on {C6_PODS + ENTRY_PVC_PODS} pods: {dt_e:.3f}s; "
+            f"solver={prov.last_solver_used} created={len(result.created_claims)} launches={launches_e}; "
+            f"claims vs the entry phase's in-process reconcile: {'equal' if same_e else 'DIFFERENT'}")
+        if prov.last_solver_used != "sidecar" or not same_e or rs.fallback_reason:
+            bad.append("(e) sidecar reconcile")
+        srv.stop()
+        failed0 = SOLVER_FALLBACK.value({"reason": "sidecar_unavailable"})
+        prov2 = entry_cluster(*DECISIONS_PODS, its, dev)
+        prov2.solver = rs
+        result2 = prov2.reconcile(ignore_batcher=True)
+        torch.cuda.synchronize()
+        placed2 = sum(len(c.pods) for c in result2.results.new_node_claims) + sum(
+            len(n.pods) for n in result2.results.existing_nodes)
+        degraded = SOLVER_FALLBACK.value({"reason": "sidecar_unavailable"}) - failed0
+        log(f"sidecar (e) server stopped, {sum(DECISIONS_PODS)} pods: solver={prov2.last_solver_used} "
+            f"placed={placed2} errors={len(result2.results.pod_errors)} breaker={rs.breaker.state} "
+            f"failures={rs.breaker.consecutive_failures} sidecar_unavailable +{degraded:g}; "
+            f"reason {rs.fallback_reason!r}")
+        if prov2.last_solver_used != "tpu" or rs.breaker.consecutive_failures != 1 or degraded != 1:
+            bad.append("(e) degrade")
+        if placed2 + len(result2.results.pod_errors) != sum(DECISIONS_PODS):
+            bad.append("(e) degraded placements")
+
+        # (f) the wire's own cost: (a)'s phases on both sides
+        phases = {}
+        if str_a is not None:
+            phases = {
+                "client": {k: round(v, 4) for k, v in ctr_a.top_phases().items()},
+                "server": {k: round(v, 4) for k, v in str_a.top_phases().items()},
+                "in_process": {k: round(v, 4) for k, v in ltr.top_phases().items()},
+                "client_s": round(dt_a, 4), "server_s": round(str_a.total_seconds, 4),
+                "in_process_s": round(dt_local, 4), "wire_id": ctr_a.trace_id,
+                "bytes": {s_.name: s_.attrs.get("bytes") for s_ in ctr_a.spans if "bytes" in s_.attrs},
+            }
+            log("sidecar (f) phases (s) of (a): " + json.dumps(phases))
+        if not phases or ctr_a.trace_id != str_a.trace_id:
+            bad.append("(f)")
+        if srv.oracle_degraded_solves or fleet_srv.oracle_degraded_solves or srv.device_failures:
+            bad.append("a server-side oracle degrade or device failure")
+        if tpu_errors():
+            bad.append("tpu_error")
+    finally:
+        srv.stop()
+        if fleet_srv is not None:
+            fleet_srv.stop()
+        srv.table_cache.clear()
+        shutil.rmtree(sock_dir, ignore_errors=True)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+    seconds = time.monotonic() - t_phase
+    log(f"sidecar phase: {seconds:.1f}s; {'failed: ' + ', '.join(bad) if bad else 'ok'}")
+    if bad:
+        return None
+    launches = dict(launches_a)
+    launches.update({k: v for k, v in launches_d.items() if k.startswith("fleet_lanes")})
+    return {"launches": launches, "seconds": seconds, "upload_bytes": upload_a, "phases": phases}
 
 
 def device_failure_check(dev, its) -> bool:
@@ -3052,22 +3401,27 @@ def main() -> int:
     k2r_ms = cuda_ms(lambda: K.solve_scan(tb_p, st_p, xs_p, relax=True), 2)
     k2one_ms = cuda_ms(lambda: K.solve_scan(tb_p, st_p, xs_one, relax=True), 2)
     got_p = K.solve_scan(tb_p, st_p, xs_p, relax=True)
+    # the plain version on the round's first PREF_CHECK_POSITIONS positions,
+    # against the kernel on the same positions
+    xs_pc, xs_onec = (cut_positions(x, PREF_CHECK_POSITIONS, axis=0) for x in (xs_p, xs_one))
+    got_pc = K.solve_scan(tb_p, st_p, xs_pc, relax=True)
     t0 = time.monotonic()
-    want_p = K.solve_scan_plain(tb_p, st_p, xs_p, relax=True)
+    want_pc = K.solve_scan_plain(tb_p, st_p, xs_pc, relax=True)
     torch.cuda.synchronize()
     k2r_plain_ms = (time.monotonic() - t0) * 1e3
     t0 = time.monotonic()
-    K.solve_scan_plain(tb_p, st_p, xs_one, relax=True)
+    K.solve_scan_plain(tb_p, st_p, xs_onec, relax=True)
     torch.cuda.synchronize()
     k2one_plain_ms = (time.monotonic() - t0) * 1e3
-    bad = scan_mismatches(got_p, want_p)
+    bad = scan_mismatches(got_pc, want_pc)
     P_p, N_p = xs_p.valid.shape[0], st_p.active.shape[0]
     n_valid_p = int(xs_p.valid.sum())
     pref_trips = int(got_p[4].tier_steps)
     pref_hist = got_p[4].tier_hist.tolist()
     log(
         f"K2 scan_step+relax preference round (P={P_p}, {n_valid_p} pods, N={N_p}): kernel {k2r_ms:.3f} ms "
-        f"(one trip a pod: {k2one_ms:.3f} ms), plain {k2r_plain_ms:.1f} ms (one trip a pod: {k2one_plain_ms:.1f} ms), "
+        f"(one trip a pod: {k2one_ms:.3f} ms), plain on the first {PREF_CHECK_POSITIONS} positions "
+        f"{k2r_plain_ms:.1f} ms (one trip a pod: {k2one_plain_ms:.1f} ms), "
         f"over={bool(got_p[3])} tier_steps={pref_trips} tier_hist={pref_hist} mismatches={bad or 'none'}"
     )
     if bad:
@@ -3320,6 +3674,12 @@ def main() -> int:
     if fleet_row is None:
         return 1
 
+    # ---- 13b. the solver sidecar on the card: epochs, the table cache on
+    # the device, a fleet window over the wire, the ResilientSolver ----
+    sidecar = sidecar_phase(dev, its, entry["claims_view"])
+    if sidecar is None:
+        return 1
+
     # ---- 14. K1, K4 and K5 apart: device time (profiler) and the wrapper's
     # host time a call, beside the launch floor (an empty kernel) ----
     floor = {"device_ms": device_ms(lambda: T.empty_launch(dev), 200, ("empty_kernel",)),
@@ -3368,8 +3728,9 @@ def main() -> int:
         # and tier rows)
         row("typeok_screen (tier rows)", "typeok.cu", "karpenter_tpu/solver/tpu.py:982", launches6["typeok_screen"],
             k1t_mism, k1t_ms, k1t_plain_ms, k1t_bound, k1t_by),
-        row("scan_step+relax", "scan_step.cu", "karpenter_tpu/solver/tpu_kernel.py:932",
-            pref_launches["scan_step_relax"], k2r_mism, k2r_ms, k2r_plain_ms, k2r_bound, k2r_by),
+        dict(row("scan_step+relax", "scan_step.cu", "karpenter_tpu/solver/tpu_kernel.py:932",
+                 pref_launches["scan_step_relax"], k2r_mism, k2r_ms, k2r_plain_ms, k2r_bound, k2r_by),
+             plain_positions=PREF_CHECK_POSITIONS),
         row("run_step+relax", "run_step.cu", "karpenter_tpu/solver/tpu_runs.py:358", launches6["run_step_relax"],
             k3r_mism, k3r_ms, k3r_plain_ms, k3r_bound, k3r_by),
         # the tier loop inside K2 and K3: it runs in every relax launch of
@@ -3381,12 +3742,14 @@ def main() -> int:
                 k2r_ms - k2one_ms, k2r_plain_ms - k2one_plain_ms, relax_bound, relax_by),
             tier_steps={"preference_round": pref_trips, "c6": c6_trips},
             tier_hist={"preference_round": pref_hist, "c6": odo6["tier_hist"]},
+            plain_positions=PREF_CHECK_POSITIONS,
         ),
     ] + sweep_rows + [fleet_row]
     for r in kernels:
         r.update(apart.get(r["name"], {}))
         if r["name"] in CONSOLIDATION_ROWS:
             r["launches_consolidation"] = sum(consolidation["launches"].get(k, 0) for k in CONSOLIDATION_ROWS[r["name"]])
+        r["launches_sidecar"] = sum(sidecar["launches"].get(k, 0) for k in SIDECAR_ROWS.get(r["name"], ()))
     log(f"chip_smoke: {time.monotonic() - t_start:.1f}s in all")
     print(json.dumps({"kernels": kernels}))
     print(smi)

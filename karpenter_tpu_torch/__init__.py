@@ -10,6 +10,9 @@ Layout:
   api/, utils/, scheduling/, cloudprovider/             host copies
   metrics.py, logging.py, events.py, options.py         host copies (options:
                                                         the card's crossover)
+  tracing.py                                            solve traces, the trace
+                                                        ring, the solve metrics
+  analysis/protorec.py                                  the protocol recorder
   testing/                                              fixtures (host copies and
                                                         underutilized_world)
   ops/vocab.py, ops/encode.py                           host encoding copies
@@ -22,11 +25,16 @@ Layout:
   solver/hybrid.py                                      TorchHybridScheduler and
                                                         solve_in_process: the
                                                         kernels, the oracle for
-                                                        the rest
-  solver/fleet.py, solver/epochs.py                     fleet lanes (K7 reading
+                                                        the rest; CircuitBreaker
+                                                        and ResilientSolver
+  solver/fleet.py                                       fleet lanes (K7 reading
                                                         each lane through a lane
-                                                        table) and their window
-                                                        key
+                                                        table)
+  solver/epochs.py                                      fingerprints, epochs and
+                                                        deltas, the table cache
+                                                        on the card, admission
+  solver/service.py                                     the sidecar: SolverServer,
+                                                        SolverClient
   controllers/kube.py, state.py                         API store, cluster cache
                                                         (host copies)
   controllers/provisioning.py                           Batcher, VolumeTopology,
@@ -40,9 +48,10 @@ Layout:
                                                         OrchestrationQueue and
                                                         DisruptionController
   csrc/, _build.py                                      CUDA sources, nvcc build
-  wire.py, convert.py                                   request decode, reference
-                                                        tensors and clusters ->
-                                                        the port's
+  wire.py, convert.py                                   the problem and result
+                                                        codec; reference tensors
+                                                        and clusters -> the
+                                                        port's
 """
 
 __version__ = "0.1.0"

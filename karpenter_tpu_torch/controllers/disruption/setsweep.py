@@ -32,14 +32,20 @@ K8 `set_sweep` (csrc/set_sweep.cu with csrc/sweep_core.cuh).
 proposal -> feasibility -> reseed rounds, one K8 launch each, under the
 multi-node timeout; the winner is materialized through the real
 compute_consolidation, feasible prefixes walked largest-first as a
-backstop, so its savings are never below the prefix search's. The port has
-no tracing yet: `last_search_stats` keeps the last search's counters.
+backstop, so its savings are never below the prefix search's. A search
+owns a "setsweep" trace (its union's encode and upload, each proposal
+round's propose span and K8 dispatch span, each materialization), and a
+dispatch feeds `tracing.SOLVE_DISPATCHES`, `tracing.SWEEP_SET_LANES` and
+`tracing.KERNEL_ITERATIONS` (path "setsweep"); `last_search_stats` keeps
+the last search's counters.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from karpenter_tpu_torch import tracing
 
 from karpenter_tpu_torch.controllers.disruption.sweep import (
     SweepUnsupported,
@@ -142,13 +148,15 @@ class SetSweepContext:
         self.prices = np.where(raw >= MAX_FLOAT, 0.0, raw)
 
     @classmethod
-    def build(cls, kube, cluster, cloud_provider, candidates: list[Candidate], options=None, device=None):
+    def build(
+        cls, kube, cluster, cloud_provider, candidates: list[Candidate], options=None, device=None, trace=None,
+    ):
         """Union gates + set-kernel gates + int64 guards + one table
         upload. Raises SweepUnsupported when the set kernel cannot express
         the shape."""
         if not candidates:
             raise SweepUnsupported("no candidates for set sweep")
-        u = build_union(kube, cluster, cloud_provider, candidates, options, device=device)
+        u = build_union(kube, cluster, cloud_provider, candidates, options, device=device, trace=trace)
         p = u.problem
         reason = fast_gate_reason(p)
         if reason is not None:
@@ -195,7 +203,7 @@ class SetSweepContext:
             t(base.astype(np.int32)), t(P_pad.astype(np.int32)), t(sizes), trivial=False,
         )
 
-    def evaluate(self, member: np.ndarray) -> np.ndarray:
+    def evaluate(self, member: np.ndarray, trace=None) -> np.ndarray:
         """feasible[B] for a [B, J] boolean/0-1 membership batch, in one
         dispatch (see kernel_args for the padding)."""
         member = np.asarray(member)
@@ -208,10 +216,21 @@ class SetSweepContext:
             raise SweepUnsupported(f"{B} set lanes > {MAX_SET_LANES}")
         if self.trivial:
             return np.ones(B, bool)
-        out, steps = set_sweep(*self.kernel_args(member))
+        with tracing.span_of(trace, "dispatch", path="setsweep", lanes=B) as dsp:
+            out, steps = set_sweep(*self.kernel_args(member))
+            feas = out.cpu().numpy()[:B].astype(bool)
+            steps = int(steps)
+            dsp["kernel"] = {"steps": steps, "lanes": B}
+        if trace is not None:
+            trace.count("dispatches")
+            trace.count("set_lanes", by=B)
+            trace.count("kernel_iterations", by=steps)
+        tracing.SOLVE_DISPATCHES.inc({"path": "setsweep"})
+        tracing.SWEEP_SET_LANES.inc(by=B)
+        tracing.KERNEL_ITERATIONS.inc({"path": "setsweep"}, by=steps)
         last_sweep.clear()
-        last_sweep.update(path="setsweep", lanes=B, steps=int(steps))
-        return out.cpu().numpy()[:B].astype(bool)
+        last_sweep.update(path="setsweep", lanes=B, steps=steps)
+        return feas
 
     def kernel_args(self, member: np.ndarray) -> tuple:
         """K8's arguments for a [B, J] membership batch: the rows padded to
@@ -318,6 +337,23 @@ def sweep_sets(consolidation, candidates: list[Candidate]) -> Command:
     a backstop, the prefix sweep's own rule, so the result's savings are
     >= the prefix search's on every supported shape). Raises
     SweepUnsupported when the set kernel cannot express the problem."""
+    tr = tracing.new_trace("setsweep")
+    tr.annotate(candidates=len(candidates))
+    try:
+        cmd = _sweep_sets_traced(consolidation, candidates, tr)
+    except SweepUnsupported:
+        # ladder control flow (the controller falls to the prefix rung);
+        # finish keeps unsupported traces out of the ring
+        tr.finish("unsupported")
+        raise
+    except BaseException:
+        tr.finish("error")
+        raise
+    tr.finish("ok")
+    return cmd
+
+
+def _sweep_sets_traced(consolidation, candidates: list[Candidate], tr) -> Command:
     ctx = SetSweepContext.build(
         consolidation.kube,
         consolidation.cluster,
@@ -325,6 +361,7 @@ def sweep_sets(consolidation, candidates: list[Candidate]) -> Command:
         candidates,
         consolidation.opts,
         device=consolidation.device,
+        trace=tr,
     )
     clock = consolidation.clock
     deadline = clock.now() + consolidation.opts.multinode_consolidation_timeout_seconds
@@ -332,11 +369,12 @@ def sweep_sets(consolidation, candidates: list[Candidate]) -> Command:
     feasible_masks: list[np.ndarray] = []
     best_mask = None
     best_est = -1.0
-    batch = proposer.first_round()
+    with tr.span("propose"):
+        batch = proposer.first_round()
     rounds = 0
     lanes = 0
     while len(batch) and rounds < MAX_SET_ROUNDS and clock.now() <= deadline:
-        feas = ctx.evaluate(batch)
+        feas = ctx.evaluate(batch, trace=tr)
         rounds += 1
         lanes += len(batch)
         ests = ctx.savings_estimate(batch)
@@ -350,7 +388,8 @@ def sweep_sets(consolidation, candidates: list[Candidate]) -> Command:
                 improved = True
         if not improved or best_mask is None:
             break
-        batch = proposer.neighborhood(best_mask)
+        with tr.span("propose"):
+            batch = proposer.neighborhood(best_mask)
 
     # ---- materialize ----
     # Kernel feasibility is schedulability; compute_consolidation also
@@ -363,7 +402,8 @@ def sweep_sets(consolidation, candidates: list[Candidate]) -> Command:
     #    materializes, exactly the prefix sweep's rule (sweep.sweep_first_n)
     feasible_ks = sorted({k for k in (_prefix_len(r) for r in feasible_masks) if k}, reverse=True)
     for k in feasible_ks:
-        cmd = consolidation.compute_consolidation(candidates[:k])
+        with tr.span("materialize", prefix=k):
+            cmd = consolidation.compute_consolidation(candidates[:k])
         if cmd.candidates:
             best_cmd, best_savings = cmd, command_savings(cmd)
             break
@@ -378,7 +418,8 @@ def sweep_sets(consolidation, candidates: list[Candidate]) -> Command:
         if clock.now() > deadline and best_cmd.candidates:
             break
         subset = [c for j, c in enumerate(candidates) if r[j]]
-        cmd = consolidation.compute_consolidation(subset)
+        with tr.span("materialize", set_size=len(subset)):
+            cmd = consolidation.compute_consolidation(subset)
         if not cmd.candidates:
             continue
         s = command_savings(cmd)
@@ -395,4 +436,5 @@ def sweep_sets(consolidation, candidates: list[Candidate]) -> Command:
         winner_nodes=len(best_cmd.candidates),
         winner_savings_per_hour=best_savings,
     )
+    tr.annotate(**last_search_stats)
     return best_cmd

@@ -35,8 +35,13 @@ K6 `fast_sweep` (csrc/fast_sweep.cu with csrc/sweep_core.cuh).
   verdict. All int32; the host's int64 guards prove no sum wraps.
 
 Every entry point takes `device` (None = the card; "cpu" runs the plain
-versions, as the tests do). The port has no tracing yet: `last_sweep`
-keeps the path, lanes and odometer steps of the last sweep dispatch.
+versions, as the tests do) and `trace` (a tracing.Trace; a standalone
+`prefix_feasibility` owns a "sweep" trace): the union's encode and
+upload and each sweep dispatch are spans, a dispatch span carries the
+odometer steps, and the dispatch and iteration counters feed
+`tracing.SOLVE_DISPATCHES` and `tracing.KERNEL_ITERATIONS` (path
+"sweep"). `last_sweep` keeps the path, lanes and odometer steps of the
+last sweep dispatch.
 """
 
 from __future__ import annotations
@@ -48,7 +53,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from karpenter_tpu_torch import _build
+from karpenter_tpu_torch import _build, tracing
 from karpenter_tpu_torch.controllers.disruption.types import Candidate
 from karpenter_tpu_torch.controllers.state import cluster_source, is_reschedulable
 from karpenter_tpu_torch.device import unpack
@@ -342,11 +347,13 @@ def fast_sweep_args(sched, problem, candidates, view_slot, order, pod_prefix, si
 
 
 def _fast_prefix_feasibility(
-    sched, problem, candidates, view_slot, order, pod_prefix, tb, base_st, singleton=False,
+    sched, problem, candidates, view_slot, order, pod_prefix, tb, base_st, singleton=False, trace=None,
 ):
     """Gate-check and run the delta-state sweep; None = the gates failed
     and the caller takes the full-state lane scan. tb/base_st come from
-    the caller (the tables upload once per sweep)."""
+    the caller (the tables upload once per sweep). The dispatch span
+    covers the launch and its fetch only: a declined gate check is not a
+    dispatch."""
     if fast_gate_reason(problem) is not None:
         return None
     if not len(order):
@@ -354,10 +361,17 @@ def _fast_prefix_feasibility(
     args = fast_sweep_args(sched, problem, candidates, view_slot, order, pod_prefix, singleton)
     if args is None:
         return None
-    feasible, steps = fast_sweep(tb, base_st, *args, singleton=singleton)
+    with tracing.span_of(trace, "dispatch", path="sweep_fast", lanes=len(candidates)) as dsp:
+        feasible, steps = fast_sweep(tb, base_st, *args, singleton=singleton)
+        feasible = [bool(v) for v in feasible.cpu().numpy()]
+        steps = int(steps)
+        dsp["kernel"] = {"steps": steps}
+    tracing.KERNEL_ITERATIONS.inc({"path": "sweep"}, by=steps)
+    if trace is not None:
+        trace.count("kernel_iterations", by=steps)
     last_sweep.clear()
-    last_sweep.update(path="sweep_fast", lanes=len(candidates), steps=int(steps))
-    return [bool(v) for v in feasible.cpu().numpy()]
+    last_sweep.update(path="sweep_fast", lanes=len(candidates), steps=steps)
+    return feasible
 
 
 # ---------------------------------------------------------------------------
@@ -384,7 +398,9 @@ class UnionSweep:
         self.base = base
 
 
-def build_union(kube, cluster, cloud_provider, candidates: list[Candidate], options=None, device=None) -> UnionSweep:
+def build_union(
+    kube, cluster, cloud_provider, candidates: list[Candidate], options=None, device=None, trace=None,
+) -> UnionSweep:
     """The shared front half of every batched sweep: the union gates
     (nodepool limits, draining non-candidates, missing views, host
     ports), the union problem encode, the shared FFD order and the one
@@ -435,7 +451,8 @@ def build_union(kube, cluster, cloud_provider, candidates: list[Candidate], opti
         device=device,
     )
     try:
-        problem = encode_problem(sched.oracle, pods)
+        with tracing.span_of(trace, "encode", pods=len(pods)):
+            problem = encode_problem(sched.oracle, pods)
     except UnsupportedBySolver as e:
         raise SweepUnsupported(str(e)) from e
     if problem.num_host_ports:
@@ -451,8 +468,9 @@ def build_union(kube, cluster, cloud_provider, candidates: list[Candidate], opti
         sched.oracle._update_cached_pod_data(pod)
     order = sorted(range(len(pods)), key=lambda i: ffd_sort_key(pods[i], data[pods[i].uid].requests))
 
-    tb = sched._tables(problem)  # also sets sched._typeok
-    sched._upload_pod_tables(problem)
+    with tracing.span_of(trace, "upload"):
+        tb = sched._tables(problem)  # also sets sched._typeok
+        sched._upload_pod_tables(problem)
     base = sched._init_state(problem, UNION_CLAIM_SLOTS)
     return UnionSweep(sched, problem, pods, pod_prefix, order, view_slot, tb, base)
 
@@ -462,29 +480,59 @@ def build_union(kube, cluster, cloud_provider, candidates: list[Candidate], opti
 
 
 def prefix_feasibility(
-    kube, cluster, cloud_provider, candidates: list[Candidate], options=None, singleton: bool = False, device=None,
+    kube,
+    cluster,
+    cloud_provider,
+    candidates: list[Candidate],
+    options=None,
+    singleton: bool = False,
+    device=None,
+    trace=None,
 ) -> list[bool]:
     """[len(candidates)] — feasible(k), all lanes evaluated in one device
     dispatch. Prefix mode (multi-node consolidation): lane k removes
     candidates[:k+1]. Singleton mode (single-node consolidation): lane k
-    removes only candidates[k]."""
+    removes only candidates[k]. `trace` joins the caller's trace; without
+    one the sweep owns a "sweep" trace, finished "unsupported" (kept out
+    of the ring) when a gate sends the caller to the next rung."""
+    tr = trace if trace is not None else tracing.new_trace("sweep")
+    tr.annotate(candidates=len(candidates), singleton=singleton)
+    try:
+        out = _prefix_feasibility_traced(kube, cluster, cloud_provider, candidates, options, singleton, device, tr)
+    except SweepUnsupported:
+        if trace is None:
+            tr.finish("unsupported")
+        raise
+    except BaseException:
+        if trace is None:
+            tr.finish("error")
+        raise
+    if trace is None:
+        tr.finish("ok")
+    return out
+
+
+def _prefix_feasibility_traced(kube, cluster, cloud_provider, candidates, options, singleton, device, tr):
     B = len(candidates)
     if B == 0:
         return []
     if B > MAX_SWEEP_PREFIXES:
         raise SweepUnsupported(f"{B} prefixes > {MAX_SWEEP_PREFIXES}")
 
-    u = build_union(kube, cluster, cloud_provider, candidates, options, device=device)
+    u = build_union(kube, cluster, cloud_provider, candidates, options, device=device, trace=tr)
     fast = _fast_prefix_feasibility(
-        u.sched, u.problem, candidates, u.view_slot, u.order, u.pod_prefix, u.tb, u.base, singleton=singleton,
+        u.sched, u.problem, candidates, u.view_slot, u.order, u.pod_prefix, u.tb, u.base,
+        singleton=singleton, trace=tr,
     )
     if fast is not None:
+        tr.count("dispatches")
+        tracing.SOLVE_DISPATCHES.inc({"path": "sweep"})
         return fast
     # the fast gates failed: the full-state lane scan is exact but carries
     # B copies of the State, so large problems go to the sequential search
     if B * len(u.pods) > MAX_VMAP_LANE_PODS:
         raise SweepUnsupported("delta-state gates failed on a large problem; binary search wins")
-    return _lane_scan_feasibility(cluster, candidates, u, singleton)
+    return _lane_scan_feasibility(cluster, candidates, u, singleton, trace=tr)
 
 
 def _topology_deltas(cluster, candidates, u: UnionSweep):
@@ -605,18 +653,26 @@ def lane_scan_args(cluster, candidates, u: UnionSweep, singleton: bool):
     return st_b, xs, t(valid_b), lane_pods, bool((problem.ntiers_r > 1).any())
 
 
-def _lane_scan_feasibility(cluster, candidates, u: UnionSweep, singleton: bool) -> list[bool]:
+def _lane_scan_feasibility(cluster, candidates, u: UnionSweep, singleton: bool, trace=None) -> list[bool]:
     """The full-state lane scan (the reference's `vmap(solve_scan)` path,
     kernel K7 on the card): every lane walks the union's pods over its own
     State; a lane is feasible when none of its pods fails, no claim slot
     overflows and at most one claim opens."""
     st_b, xs, valid_b, lane_pods, relax = lane_scan_args(cluster, candidates, u, singleton)
-    st_out, kinds, _, over, odo = K.scan_lanes(u.tb, st_b, xs, valid_b, relax)
-    kinds = kinds.cpu().numpy()[:, : lane_pods.shape[1]]
-    over = over.cpu().numpy()
-    n_claims = st_out.n_claims.cpu().numpy()
+    with tracing.span_of(trace, "dispatch", path="sweep_vmap", lanes=len(candidates)) as dsp:
+        st_out, kinds, _, over, odo = K.scan_lanes(u.tb, st_b, xs, valid_b, relax)
+        kinds = kinds.cpu().numpy()[:, : lane_pods.shape[1]]
+        over = over.cpu().numpy()
+        n_claims = st_out.n_claims.cpu().numpy()
+        steps = int(odo.steps.sum())
+        dsp["kernel"] = {"steps": steps, "lanes": len(candidates)}
+    tracing.KERNEL_ITERATIONS.inc({"path": "sweep"}, by=steps)
+    tracing.SOLVE_DISPATCHES.inc({"path": "sweep"})
+    if trace is not None:
+        trace.count("dispatches")
+        trace.count("kernel_iterations", by=steps)
     last_sweep.clear()
-    last_sweep.update(path="sweep_vmap", lanes=len(candidates), steps=int(odo.steps.sum()))
+    last_sweep.update(path="sweep_vmap", lanes=len(candidates), steps=steps)
     return [
         not bool(over[k]) and int(n_claims[k]) <= 1 and not np.any((kinds[k] == K.KIND_FAIL) & lane_pods[k])
         for k in range(len(candidates))

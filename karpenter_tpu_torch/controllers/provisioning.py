@@ -11,11 +11,17 @@ solver-agnostic. Pods landing on existing ready nodes are bound directly
 landing on new claims bind on a later reconcile once the claim's node
 registers.
 
-Not yet ported: the sidecar boundary (`solver=`, a ResilientSolver) and
-the solve trace (`last_trace`); they come with the service slice. In
-their place the Provisioner keeps `last_scheduler` (the hybrid scheduler
-of the last solve: `used_tpu`, `fallback_kind`, the kernel odometer) and
-`last_phases` (host seconds of the last reconcile's phases).
+With `solver=` (a `hybrid.ResilientSolver`), a round solves through the
+sidecar boundary: the remote solver under a circuit breaker, the
+in-process solve as the floor (`last_solver_used` is "sidecar", "tpu" or
+"oracle"; a degraded round logs "solver degraded" with the reason). Each
+round rides ONE trace (`tracing.maybe_trace(None, "provisioning")`) from
+`schedule` down through the wire client or the solve driver's host
+phases; `last_trace` is that trace. Beside it the Provisioner keeps
+`last_scheduler` (the hybrid scheduler of the last in-process solve:
+`used_tpu`, `fallback_kind`, the kernel odometer; None when the sidecar
+answered) and `last_phases` (host seconds of the last reconcile's
+phases).
 """
 
 from __future__ import annotations
@@ -24,7 +30,7 @@ import time
 from dataclasses import dataclass, field
 from typing import Optional
 
-from karpenter_tpu_torch import logging, metrics
+from karpenter_tpu_torch import logging, metrics, tracing
 from karpenter_tpu_torch.api import labels as well_known
 from karpenter_tpu_torch.api.objects import (
     NodeAffinity,
@@ -221,6 +227,7 @@ class Provisioner:
         recorder: Optional[Recorder] = None,
         force_oracle: bool = False,
         device=None,
+        solver=None,
     ):
         self.kube = kube
         self.cluster = cluster
@@ -236,8 +243,14 @@ class Provisioner:
         )
         self.force_oracle = force_oracle
         self.device = None if force_oracle else resolve_device(device)
+        # Optional sidecar boundary: a ResilientSolver (solver/hybrid.py).
+        # When set, schedule() routes solves through it — remote sidecar
+        # under a circuit breaker, the in-process solve as the floor.
+        # None = solve in-process directly.
+        self.solver = solver
         self.log = logging.root.named("provisioner")
         self.last_solver_used: Optional[str] = None
+        self.last_trace = None  # the most recent schedule()'s solve trace
         self.last_scheduler = None  # the TorchHybridScheduler of the last solve
         self.last_phases: dict[str, float] = {}
 
@@ -377,17 +390,58 @@ class Provisioner:
 
     def schedule(self, pods: list[Pod]) -> Results:
         """provisioner.go:303 Schedule: build scheduler inputs from live
-        cluster state and run one Solve through `solve_in_process`."""
-        t0 = time.monotonic()
-        *inputs, source = self.scheduler_inputs(pods)
-        self.last_phases["build_inputs"] = time.monotonic() - t0
-        results, scheduler = solve_in_process(
-            *inputs, cluster=source, force_oracle=self.force_oracle, device=self.device
-        )
-        self.last_scheduler = scheduler
-        self.last_solver_used = "tpu" if scheduler.used_tpu else "oracle"
-        self.last_phases.update(scheduler.last_phases)
-        return results
+        cluster state and run one Solve — through `solver` when one is
+        set, else `solve_in_process`. The whole Solve rides ONE trace from
+        here down; `last_trace` exposes it."""
+        with tracing.maybe_trace(None, "provisioning") as tr:
+            self.last_trace = tr
+            tr.annotate(pods=len(pods))
+            t0 = time.monotonic()
+            with tr.span("build_inputs"):
+                node_pools, its_by_pool, pods, views, daemonset_pods, options, source = self.scheduler_inputs(pods)
+            self.last_phases["build_inputs"] = time.monotonic() - t0
+            if self.solver is not None:
+                # the resilient sidecar boundary: never raises for
+                # solver-side faults — every pending pod gets a decision
+                # (or a pod_error) in THIS reconcile
+                results = self.solver.solve(
+                    node_pools,
+                    its_by_pool,
+                    pods,
+                    state_node_views=views,
+                    daemonset_pods=daemonset_pods,
+                    options=options,
+                    cluster=source,
+                    force_oracle=self.force_oracle,
+                    trace=tr,
+                )
+                self.last_scheduler = None
+                self.last_solver_used = self.solver.last_used
+                tr.annotate(solver=self.last_solver_used)
+                if self.solver.fallback_reason:
+                    self.log.info(
+                        "solver degraded",
+                        reason=self.solver.fallback_reason,
+                        solver=self.last_solver_used,
+                    )
+                return results
+            results, scheduler = solve_in_process(
+                node_pools,
+                its_by_pool,
+                pods,
+                views,
+                daemonset_pods,
+                options,
+                cluster=source,
+                force_oracle=self.force_oracle,
+                trace=tr,
+                device=self.device,
+            )
+            self.last_scheduler = scheduler
+            self.last_solver_used = "tpu" if scheduler.used_tpu else "oracle"
+            tr.annotate(solver=self.last_solver_used)
+            self.last_phases.update(scheduler.last_phases)
+            return results
 
     def create_node_claims(self, results: Results) -> list[NodeClaim]:
         """provisioner.go:407 Create: persist NodeClaims for the solver's

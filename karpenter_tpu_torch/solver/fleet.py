@@ -43,12 +43,16 @@ round's lanes with lane 0 up to the pow-2 lane bucket, only to reuse one
 compiled XLA shape; K7 takes any lane count, so a round here launches
 exactly its active lanes.
 
-The reference's metrics and `fleet_window` trace events become module
-counters and `last_*` introspection (the port has no tracing yet):
-`FLEET_SOLVES` by mode, `FLEET_DISPATCHES`, `FLEET_LANES` (dispatches by
-lane count), per lane `TorchScheduler.last_fleet` (mode, lanes, rounds,
-window wait) and per window `FleetCoalescer.last_window` (lanes, rounds,
-the window's rung P0 and its host phases in seconds).
+Each lane's trace (the caller's, threaded down from `TorchScheduler`)
+gains a `fleet_dispatch` span around its window and a `fleet_window`
+event (mode, lanes, lane bucket, wait, rounds, and the epoch when the
+sidecar materialized the request from one); a shared launch counts as a
+`fleet` dispatch in `tracing.SOLVE_DISPATCHES`. Beside them the module
+keeps its counters: `FLEET_SOLVES` by mode, `FLEET_DISPATCHES`,
+`FLEET_LANES` (dispatches by lane count), per lane
+`TorchScheduler.last_fleet` (mode, lanes, rounds, window wait) and per
+window `FleetCoalescer.last_window` (lanes, rounds, the window's rung P0
+and its host phases in seconds).
 """
 
 from __future__ import annotations
@@ -60,7 +64,8 @@ from typing import Optional
 import numpy as np
 import torch
 
-from karpenter_tpu_torch.solver import epochs
+from karpenter_tpu_torch import tracing
+from karpenter_tpu_torch.solver import buckets, epochs
 from karpenter_tpu_torch.solver import tpu_kernel as K
 from karpenter_tpu_torch.solver.tpu import _fold_odo, _new_odo_totals
 from karpenter_tpu_torch.solver.tpu_problem import _pow2
@@ -116,6 +121,7 @@ def fleet_dispatch(tb, st_b, xs_b, relax: bool = True):
     (st_b, kinds_b [B, P], slots_b [B, P], over_b [B], odo_b) with a
     leading lane axis (odo_b: every Odometer field per lane)."""
     out = K.solve_scan_lanes(tb, st_b, xs_b, relax)
+    tracing.SOLVE_DISPATCHES.inc({"path": "fleet"})
     _count(FLEET_DISPATCHES, "fleet")
     _count(FLEET_LANES, int(st_b.rank.shape[0]))
     return out
@@ -230,7 +236,9 @@ class FleetCoalescer:
 
     # -- the TorchScheduler hook -----------------------------------------
 
-    def solve_lane(self, sched, problem, tb, order, N: int, relax: bool, deadline):
+    def solve_lane(
+        self, sched, problem, tb, order, N: int, relax: bool, deadline, trace=None, table_fp=None, epoch_key=None
+    ):
         """Offer one scan-path solve to the current batch window.
 
         Returns (st, kinds, slots, timed_out, odo) — the solo scan loop's
@@ -238,17 +246,25 @@ class FleetCoalescer:
         `TorchScheduler._decode` — or None when the lane must run the solo
         path instead (no sibling arrived, claim-slot overflow, a lane-local
         or batch-wide failure). Never raises for coalescing faults: the
-        solo path is always the floor. Sets `sched.last_fleet`."""
+        solo path is always the floor. Sets `sched.last_fleet`.
+
+        `table_fp` is the upload phase's table fingerprint when a
+        DeviceTableCache computed it (the sidecar shape), saving a re-hash;
+        `epoch_key` ((client, epoch id)) rides the lane's window event."""
         lane = _Lane(sched, problem, tb, order, N, relax, deadline)
-        key = (epochs.table_fingerprint(problem), int(N), bool(relax))
-        try:
-            result = self._submit(key, lane)
-        except Exception as e:
-            # a batch-wide fault (stack or dispatch raised in THIS lane's
-            # leader turn) lands on the solo loop; the siblings were already
-            # errored to their own solo fallbacks by _submit
-            lane.error = e
-            result = None
+        if table_fp is None:
+            table_fp = epochs.table_fingerprint(problem)
+        key = (table_fp, int(N), bool(relax))
+        with tracing.span_of(trace, "fleet_dispatch"):
+            try:
+                result = self._submit(key, lane)
+            except Exception as e:
+                # a batch-wide fault (stack or dispatch raised in THIS lane's
+                # leader turn) lands on the solo loop; the siblings were
+                # already errored to their own solo fallbacks by _submit
+                lane.error = e
+                result = None
+        wait = time.monotonic() - lane.entered_at
         if result is not None:
             mode = "coalesced"
         elif lane.error is None and not lane.solo:
@@ -262,8 +278,26 @@ class FleetCoalescer:
             "mode": mode,
             "lanes": lane.lanes_in_window,
             "rounds": lane.rounds,
-            "wait_seconds": time.monotonic() - lane.entered_at,
+            "wait_seconds": wait,
         }
+        if trace is not None:
+            if result is None:
+                trace.event("fleet_window", mode=mode, wait_seconds=round(wait, 6))
+            else:
+                attrs = dict(
+                    mode=mode,
+                    lanes=lane.lanes_in_window,
+                    bucket=buckets.bucket_lanes(lane.lanes_in_window),
+                    wait_seconds=round(wait, 6),
+                    rounds=lane.rounds,
+                )
+                if epoch_key is not None:
+                    attrs["epoch"] = str(epoch_key)
+                trace.event("fleet_window", **attrs)
+                # rounds can be 0 (a lane whose deadline was blown before
+                # the first shared round): no phantom dispatch on the trace
+                if lane.rounds:
+                    trace.count("dispatches", by=lane.rounds)
         return result
 
     def _submit(self, key: tuple, lane: _Lane):

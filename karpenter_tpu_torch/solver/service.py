@@ -1,0 +1,1260 @@
+"""The Solver service boundary: a sidecar serving Solve over a unix-domain
+socket, solving on the card.
+
+A copy of the reference's `solver/service.py` (the frame layer,
+`SolverServer`, `SolverClient`) on the port's own codec (wire.py), epochs,
+tracing and protorec hooks. `_solve_decoded` calls the port's
+`solve_in_process` with the server's DeviceTableCache, fleet window and
+the request's epoch, so a SOLVE runs on TorchHybridScheduler ->
+TorchScheduler on `device` (None = the card). The protocol is the
+reference's byte for byte: the reference's `SolverClient`, the C++ client
+(native/solver_client.cc) and this module's client all speak to either
+server.
+
+Wire protocol v2 (language-neutral; the C++ client in native/solver_client.cc
+speaks it too):
+
+    frame   := magic "KTPU" | u32 kind | u32 req_id | u32 len | payload[len]
+    kind    := 1 SOLVE request   (payload = problem JSON; pods ride as
+                                  per-CLASS specs + flat base64 columns,
+                                  SURVEY §7 hard-part #5 — the per-pod
+                                  payload is O(classes) JSON + O(pods)
+                                  binary, not O(pods) JSON; an optional
+                                  "epoch" {client, id} key asks the
+                                  server to retain the cluster sections
+                                  as an epoch — absent it, the frame is
+                                  byte-for-byte the stateless protocol)
+               2 RESULT response (payload = JSON header + flat base64
+                                  assignment arrays: pod i -> claim index /
+                                  existing-node index)
+               3 ERROR response  (payload = utf-8 message)
+               4 PING / 5 PONG   (health; an empty-payload PING keeps
+                                  the legacy bare-token PONG — "ready"/
+                                  "prewarming", plus "draining" during
+                                  stop() — while PING payload "v2"
+                                  answers JSON {status,
+                                  admission_queue_depth, epoch_clients,
+                                  epochs})
+               6 SOLVE_DELTA     (payload = JSON {client, base_epoch,
+                                  epoch, delta, pods_flat, options,
+                                  force_oracle}: cluster CHANGES against
+                                  a server-held epoch + the pending-pod
+                                  batch — steady-state wire cost is
+                                  O(churn + pending pods), not O(cluster))
+               7 EPOCH_RESYNC    (retriable response: the base epoch is
+                                  unknown/evicted or the delta failed to
+                                  decode/apply; the client falls back to
+                                  the full-snapshot SOLVE, which is
+                                  always correct from scratch)
+               8 RETRY           (admission rejected: payload JSON
+                                  {retry_after_seconds, queue_depth};
+                                  the caller degrades in-process and
+                                  honors the hint before re-dialing)
+    u32     := little-endian
+    req_id  := request/response correlation: a response echoes the request's
+               id. Responses are in-order per connection (the server is
+               synchronous per connection), so the id is a tripwire, not a
+               demultiplexer: a client that reads a response whose id is not
+               the one it sent knows the stream is poisoned (e.g. it timed
+               out mid-read earlier and a stale response is still in flight)
+               and MUST tear the connection down — never resynchronize
+               mid-stream.
+
+Live cluster state (StateNodeViews) crosses the wire too, so a sidecar
+solve of a NON-empty cluster — provisioning onto existing capacity,
+consolidation simulation — matches the in-process result.
+
+Timeout/cancellation follows provisioner.go:366-374: the request carries
+`timeout_seconds`; the server passes it into SchedulerOptions so a Solve
+that overruns returns partial results with timed_out=True instead of
+hanging the control plane. The CLIENT additionally enforces a hard
+per-request deadline on the socket itself — a sidecar that stops
+responding (hung solve, dead process, black-holed proxy) can never block
+a control-plane call past its deadline.
+
+Fault envelope:
+- frames above MAX_FRAME_LEN are refused with an ERROR frame; up to
+  OVERSIZE_DRAIN_MAX the body is drained (discarded under the stall
+  deadline, never buffered) so the stream stays in sync and the
+  connection KEEPS SERVING — an oversized delta costs one refusal, not
+  the stream; beyond the drain cap the length field is corruption and
+  the connection closes;
+- malformed payloads (bad JSON, bad schema) answer ERROR and keep serving;
+- a bad magic closes only that connection — framing is lost, the stream
+  cannot be resynchronized;
+- epoch faults (unknown/evicted base epoch, malformed or inapplicable
+  delta, a materialized request that no longer decodes) answer a
+  retriable EPOCH_RESYNC — the client's full-snapshot fallback is
+  always correct from scratch, so no epoch fault can corrupt state;
+- admission rejections answer RETRY with a backoff hint — the server
+  never queues past its solve budget (solver/epochs.py AdmissionGate);
+- the accept loop survives ANY exception escaping a connection handler
+  (logged, never fatal);
+- stop() drains: in-flight solves finish and flush their responses before
+  the listener is torn down, and NEW solve frames arriving on surviving
+  connections during the drain window get an immediate retriable
+  "draining" ERROR instead of a silent close;
+- a failure of the card inside a solve (`hybrid.device_failure`) answers
+  an ERROR frame that names it, like any solve failure: the server counts
+  it in `device_failures` and does not re-solve it on the oracle.
+
+Prewarm keeps the reference's hooks (`prewarm=`, `prewarm_fn=`, the
+readiness event, the mid-prewarm oracle degrade); with no `prewarm_fn`
+the default builds and loads the kernels' libraries (`_build`).
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import random
+import socket
+import struct
+import threading
+import time
+from typing import Optional
+
+from karpenter_tpu_torch import _build
+from karpenter_tpu_torch import logging as klog
+from karpenter_tpu_torch import tracing
+from karpenter_tpu_torch.analysis import protorec
+from karpenter_tpu_torch.solver import epochs
+from karpenter_tpu_torch.solver.hybrid import device_failure, solve_in_process
+from karpenter_tpu_torch.solver.oracle import SchedulerOptions
+from karpenter_tpu_torch.wire import _decode_problem_dict, _encode_result, decode_result, encode_problem_dict
+
+MAGIC = b"KTPU"
+HEADER_LEN = 16  # magic(4) + kind(4) + req_id(4) + len(4)
+KIND_SOLVE = 1
+KIND_RESULT = 2
+KIND_ERROR = 3
+KIND_PING = 4
+KIND_PONG = 5
+KIND_SOLVE_DELTA = 6
+KIND_EPOCH_RESYNC = 7
+KIND_RETRY = 8
+
+# Refuse frames above this size with an ERROR frame: a corrupted length
+# field must not make either side try to buffer gigabytes. 64 MiB clears
+# the largest measured problem payload by >100x (the pod payload is
+# O(classes) JSON + O(pods) binary).
+MAX_FRAME_LEN = 64 * 1024 * 1024
+
+# A peer that starts a frame must finish it within this window; stalling
+# mid-frame is a fault (truncating proxy, wedged client), not idleness.
+FRAME_STALL_SECONDS = 30.0
+
+# A frame above MAX_FRAME_LEN but at or below this cap is DRAINED (read
+# and discarded under the frame-stall wall clock) so the stream stays in
+# sync and the connection keeps serving after the ERROR answer — an
+# oversized delta must not cost the client its connection. Beyond the
+# cap (a corrupted length field, not a real payload) the connection
+# closes as before: draining gigabytes on a liar's say-so is itself a
+# denial of service.
+OVERSIZE_DRAIN_MAX = 4 * MAX_FRAME_LEN
+
+
+class SolverUnavailable(ConnectionError):
+    """The sidecar could not produce a response within the client's retry
+    and deadline budget. The control plane treats this as 'degrade to the
+    in-process solver', mirroring the reference's typed cloud-provider
+    errors (provisioner.go:366-374)."""
+
+
+class SolverError(RuntimeError):
+    """The sidecar answered a clean ERROR frame: the solve itself failed
+    server-side. Transport is healthy; retrying the same problem would
+    fail the same way."""
+
+
+# the admission-rejection exception lives in epochs.py (hybrid.py catches
+# it and cannot import this module — service imports hybrid); re-exported
+# here as part of the client's public error surface
+SolverOverloaded = epochs.SolverOverloaded
+
+
+class _OversizedFrame(Exception):
+    """Internal: an oversized frame was fully drained — the stream is
+    still in sync, so the handler answers ERROR and keeps the connection
+    (unlike ProtocolError, which closes it)."""
+
+    def __init__(self, req_id: int, length: int):
+        super().__init__(f"frame of {length} bytes exceeds max {MAX_FRAME_LEN}")
+        self.req_id = req_id
+        self.length = length
+
+
+class ProtocolError(ValueError):
+    """The peer violated the framing discipline (bad magic, oversized
+    frame, correlation-id mismatch). The connection is not recoverable.
+    `req_id` is the offending frame's correlation id when the header was
+    still readable (0 otherwise), so the server can address its final
+    ERROR frame before closing."""
+
+    def __init__(self, msg: str, req_id: int = 0):
+        super().__init__(msg)
+        self.req_id = req_id
+
+
+def _send_frame(
+    sock: socket.socket, kind: int, payload: bytes, req_id: int = 0
+) -> None:
+    sock.sendall(
+        MAGIC + struct.pack("<III", kind, req_id & 0xFFFFFFFF, len(payload)) + payload
+    )
+
+
+def _recv_exact_deadline(sock: socket.socket, n: int, deadline: float) -> bytes:
+    """_recv_exact under a hard wall-clock deadline: every recv() gets only
+    the remaining budget, so trickling bytes cannot stretch the total past
+    the deadline."""
+    buf = b""
+    while len(buf) < n:
+        remaining = deadline - time.monotonic()
+        if remaining <= 0:
+            raise socket.timeout("deadline exceeded")
+        sock.settimeout(remaining)
+        got = sock.recv(n - len(buf))
+        if not got:
+            raise ConnectionError("peer closed")
+        buf += got
+    return buf
+
+
+def _discard_exact_deadline(sock: socket.socket, n: int, deadline: float) -> None:
+    """Read and throw away n bytes under the same wall-clock discipline as
+    _recv_exact_deadline, in bounded chunks — draining an oversized frame
+    must never buffer it."""
+    left = n
+    while left > 0:
+        remaining = deadline - time.monotonic()
+        if remaining <= 0:
+            raise socket.timeout("deadline exceeded draining oversized frame")
+        sock.settimeout(remaining)
+        got = sock.recv(min(left, 1 << 20))
+        if not got:
+            raise ConnectionError("peer closed")
+        left -= len(got)
+
+
+def _recv_frame_deadline(sock: socket.socket, deadline: float) -> tuple[int, int, bytes]:
+    head = _recv_exact_deadline(sock, HEADER_LEN, deadline)
+    if head[:4] != MAGIC:
+        raise ProtocolError(f"bad magic {head[:4]!r}")
+    kind, req_id, length = struct.unpack("<III", head[4:])
+    if length > MAX_FRAME_LEN:
+        raise ProtocolError(
+            f"frame of {length} bytes exceeds max {MAX_FRAME_LEN}", req_id=req_id
+        )
+    return kind, req_id, _recv_exact_deadline(sock, length, deadline)
+
+
+# ---------------------------------------------------------------------------
+# server
+
+
+class SolverServer:
+    """Serves SOLVE frames, one handler thread per connection (the control
+    plane is a singleton provisioner, but a drained-and-replaced control
+    plane briefly overlaps its successor — two live connections must both
+    be served, not queued behind each other).
+
+    Robustness contract (no solver-side fault may wedge the accept
+    loop): solve failures answer ERROR on the same correlation id; framing
+    violations close only the offending connection; anything unexpected is
+    logged and the loop keeps serving. stop() drains gracefully — the
+    listener closes first, in-flight handlers get `drain_seconds` to flush
+    their responses.
+
+    Concurrency contract: the two locks here are leaves — nothing
+    blocking runs under either (_conns_lock guards set membership only;
+    stop() snapshots the set under the lock and joins OUTSIDE it), and
+    neither nests inside the other. Handler threads solve concurrently on
+    one card: each launches on its own current stream (the device's
+    default one; nothing here sets a stream), and the DeviceTableCache's
+    entries are read, never written, by the solves that share them.
+
+    Prewarm/readiness: with prewarm=True, start() kicks a background
+    thread that runs `prewarm_fn(stop)` — by default, building and
+    loading the kernels' libraries — BEFORE the server reports ready.
+    SOLVE requests that arrive mid-prewarm are served immediately but
+    degrade to the oracle fallback (force_oracle) — decision-identical,
+    never a solve that pays the build — and PONG payloads say
+    "prewarming" so readiness probes can gate traffic.
+
+    `device` is the solves' device (None = the card; "cpu" runs the
+    plain versions). `device_failures` counts solves that failed on the
+    card; each answered an ERROR frame."""
+
+    def __init__(
+        self,
+        socket_path: str,
+        drain_seconds: float = 30.0,
+        prewarm: bool = False,
+        prewarm_fn=None,
+        admission: Optional[epochs.AdmissionGate] = None,
+        epoch_store: Optional[epochs.EpochStore] = None,
+        table_cache: Optional[epochs.DeviceTableCache] = None,
+        fleet_window_seconds: float = 0.0,
+        fleet_max_lanes: int = 8,
+        device=None,
+    ):
+        self.socket_path = socket_path
+        self.drain_seconds = drain_seconds
+        self.prewarm = prewarm
+        self._prewarm_fn = prewarm_fn
+        self._prewarm_thread: Optional[threading.Thread] = None
+        self._prewarm_stop: Optional[threading.Event] = None
+        self._prewarm_gen = 0
+        self.ready = threading.Event()
+        self._sock: Optional[socket.socket] = None
+        self._thread: Optional[threading.Thread] = None
+        self._stop = threading.Event()
+        self._conns: set[threading.Thread] = set()
+        self._conns_lock = threading.Lock()
+        # handler threads (one per connection) all bump the solve counter;
+        # the read-modify-write needs its own lock or increments are lost
+        self._stats_lock = threading.Lock()
+        self.solves = 0
+        self.oracle_degraded_solves = 0
+        self.device_failures = 0
+        self.device = device
+        # the stateful-with-epochs layer (solver/epochs.py): bounded
+        # per-client epoch store, content-addressed device-table cache,
+        # and the admission gate in front of every solve
+        self.epochs = epoch_store or epochs.EpochStore()
+        self.admission = admission or epochs.AdmissionGate()
+        self.table_cache = table_cache or epochs.DeviceTableCache()
+        # fleet-axis serving (solver/fleet.py): with a non-zero batch
+        # window, concurrent scan-path solves coalesce onto fleet lanes
+        # and share ONE lane launch per round. 0.0 (the default) keeps the stateless per-request dispatch:
+        # a lone control plane should not pay window latency for
+        # siblings that never come. Pair a fleet window with an
+        # AdmissionGate whose max_inflight covers the lane budget —
+        # coalescing WANTS the concurrency the default gate sheds.
+        self.fleet = None
+        if fleet_window_seconds > 0:
+            from karpenter_tpu_torch.solver import fleet as fleet_mod
+
+            self.fleet = fleet_mod.FleetCoalescer(
+                window_seconds=fleet_window_seconds,
+                max_lanes=fleet_max_lanes,
+            )
+        # epoch-store writes from handler threads are generation-guarded
+        # (under the stats lock, the prewarm-gen discipline): a handler
+        # abandoned by stop() must not install sections into a LATER
+        # start()'s serving life
+        self._epoch_gen = 0
+        self.log = klog.root.named("solver.service")
+
+    def start(self) -> None:
+        if os.path.exists(self.socket_path):
+            os.unlink(self.socket_path)
+        self._stop.clear()
+        # readiness transitions BEFORE the accept loop exists: a request
+        # racing start() must never observe a ready=False non-prewarming
+        # server (it would spuriously degrade to the oracle). The gen
+        # bump rides the stats lock so the abandoned-prewarm-thread read
+        # in _run_prewarm's finally can never see a torn increment.
+        with self._stats_lock:
+            self._prewarm_gen += 1
+            self._epoch_gen += 1
+        if self.prewarm:
+            self.ready.clear()
+        else:
+            self.ready.set()
+        self._sock = socket.socket(socket.AF_UNIX, socket.SOCK_STREAM)
+        self._sock.bind(self.socket_path)
+        self._sock.listen(8)
+        self._sock.settimeout(0.2)
+        self._thread = threading.Thread(target=self._serve, daemon=True)
+        self._thread.start()
+        if self.prewarm:
+            # each prewarm thread gets its OWN stop event: start() after
+            # stop() clears the server-wide _stop, which must not revive
+            # an abandoned thread — its private event stays set, so it
+            # exits at the next combo boundary even across restarts
+            self._prewarm_stop = threading.Event()
+            self._prewarm_thread = threading.Thread(
+                target=self._run_prewarm,
+                args=(self._prewarm_gen, self._prewarm_stop),
+                daemon=True,
+            )
+            self._prewarm_thread.start()
+
+    def _run_prewarm(self, gen: int, stop: threading.Event) -> None:
+        """Build and load the kernels' libraries (or run `prewarm_fn`),
+        then report ready. A prewarm failure is logged and the server
+        reports ready anyway (degraded: first solves pay the build). `gen`
+        guards the ready transition: a thread abandoned by stop() must not
+        flip readiness during a LATER start()'s prewarm."""
+        try:
+            if self._prewarm_fn is not None:
+                self._prewarm_fn(stop)
+            else:
+                t0 = time.monotonic()
+                built = _build.build_all()
+                for name in _build.SOURCES:
+                    _build.library(name)
+                self.log.info(
+                    "prewarm complete",
+                    built=sum(1 for b in built.values() if b["seconds"]),
+                    loaded=len(_build.SOURCES),
+                    seconds=round(time.monotonic() - t0, 1),
+                )
+        except Exception as e:
+            self.log.error(
+                "prewarm failed; serving without it",
+                error=f"{type(e).__name__}: {e}",
+            )
+        finally:
+            with self._stats_lock:
+                current = gen == self._prewarm_gen
+            if current:
+                self.ready.set()
+
+    def stop(self) -> None:
+        """Graceful drain: stop accepting, let in-flight handlers finish
+        (bounded by drain_seconds), then tear the socket down."""
+        self._stop.set()
+        if self._prewarm_thread is not None:
+            # nvcc cannot be interrupted, so the bounded join deliberately
+            # abandons the daemon thread rather than block shutdown; its
+            # private stop event (set here, never cleared) reaches a
+            # prewarm_fn that polls it, and the gen guard keeps its final
+            # ready-set inert
+            if self._prewarm_stop is not None:
+                self._prewarm_stop.set()
+            self._prewarm_thread.join(timeout=1.0)
+            self._prewarm_thread = None
+        if self._thread is not None:
+            self._thread.join(timeout=5)
+            self._thread = None
+        deadline = time.monotonic() + self.drain_seconds
+        with self._conns_lock:
+            pending = list(self._conns)
+        for t in pending:
+            t.join(timeout=max(0.0, deadline - time.monotonic()))
+        if self._sock is not None:
+            self._sock.close()
+            self._sock = None
+        if os.path.exists(self.socket_path):
+            os.unlink(self.socket_path)
+
+    def _serve(self) -> None:
+        while not self._stop.is_set():
+            try:
+                conn, _ = self._sock.accept()
+            except socket.timeout:
+                continue
+            except OSError:
+                return
+            t = threading.Thread(target=self._run_conn, args=(conn,), daemon=True)
+            with self._conns_lock:
+                self._conns.add(t)
+            t.start()
+
+    def _run_conn(self, conn: socket.socket) -> None:
+        try:
+            self._handle(conn)
+        except socket.timeout:
+            # a response send stalled past FRAME_STALL_SECONDS: the peer
+            # stopped reading — drop the connection, keep serving
+            self.log.warn("peer stopped reading mid-response, closing connection")
+        except ConnectionError:
+            pass  # peer went away; normal churn
+        except ProtocolError as e:
+            # framing is lost — the stream cannot be resynchronized; answer
+            # once (best effort, the header's req_id if it was readable)
+            # and close only this connection
+            self.log.warn("protocol violation, closing connection", error=str(e))
+            if protorec.RECORDER is not None:
+                protorec.RECORDER.record(
+                    ev="srv_send",
+                    kind=KIND_ERROR,
+                    req_id=e.req_id,
+                    conn=protorec.RECORDER.conn_id(conn),
+                    draining=self._stop.is_set(),
+                    refusal=False,
+                )
+            try:
+                _send_frame(conn, KIND_ERROR, str(e).encode(), req_id=e.req_id)
+            except OSError:
+                pass
+        except Exception as e:  # the accept loop must survive ANYTHING
+            self.log.error(
+                "unexpected error in connection handler",
+                error=f"{type(e).__name__}: {e}",
+            )
+        finally:
+            if protorec.RECORDER is not None:
+                protorec.RECORDER.record(
+                    ev="srv_close",
+                    conn=protorec.RECORDER.conn_closed(conn),
+                    draining=self._stop.is_set(),
+                )
+            conn.close()
+            with self._conns_lock:
+                self._conns.discard(threading.current_thread())
+
+    def _recv_frame_idle(self, conn: socket.socket) -> tuple[int, int, bytes]:
+        """Receive one frame, polling the stop flag only BETWEEN frames:
+        the idle wait covers the first byte alone, so a poll timeout can
+        never discard a partially-read header and desync the stream. Once
+        a frame starts, the peer gets FRAME_STALL_SECONDS of WALL CLOCK to
+        finish it (same _recv_exact_deadline discipline as the client — a
+        peer trickling one byte per poll interval must not hold the
+        handler thread forever); a mid-frame stall is a fault, not
+        idleness.
+
+        During drain (stop() set) the poll becomes ONE short grace read:
+        a frame already in flight is still read — _handle answers it with
+        an immediate retriable "draining" ERROR instead of the silent
+        close that used to leave the client waiting out its full deadline
+        — but an idle connection
+        closes at once.
+
+        Oversized frames: above MAX_FRAME_LEN but within
+        OVERSIZE_DRAIN_MAX the body is drained (discarded, never
+        buffered) under the same wall-clock deadline and _OversizedFrame
+        is raised — the stream is in sync, so _handle answers ERROR and
+        the connection KEEPS SERVING. Beyond the drain cap the length
+        field is treated as corruption and the connection closes."""
+        while True:
+            if self._stop.is_set():
+                conn.settimeout(0.05)
+                try:
+                    first = conn.recv(1)
+                except socket.timeout:
+                    raise ConnectionError("server stopping")
+                break
+            conn.settimeout(0.2)
+            try:
+                first = conn.recv(1)
+                break
+            except socket.timeout:
+                continue
+        if not first:
+            raise ConnectionError("peer closed")
+        deadline = time.monotonic() + FRAME_STALL_SECONDS
+        head = first + _recv_exact_deadline(conn, HEADER_LEN - 1, deadline)
+        if head[:4] != MAGIC:
+            raise ProtocolError(f"bad magic {head[:4]!r}")
+        kind, req_id, length = struct.unpack("<III", head[4:])
+        if length > MAX_FRAME_LEN:
+            if length > OVERSIZE_DRAIN_MAX:
+                raise ProtocolError(
+                    f"frame of {length} bytes exceeds max {MAX_FRAME_LEN}",
+                    req_id=req_id,
+                )
+            _discard_exact_deadline(conn, length, deadline)
+            raise _OversizedFrame(req_id, length)
+        payload = _recv_exact_deadline(conn, length, deadline)
+        if protorec.RECORDER is not None:
+            # a COMPLETE frame arrived: everything the server hears is on
+            # the record — a received solve that closes unanswered is the
+            # silent-drain-close violation the refinement acceptor hunts
+            protorec.RECORDER.record(
+                ev="srv_recv",
+                kind=kind,
+                req_id=req_id,
+                conn=protorec.RECORDER.conn_id(conn),
+                draining=self._stop.is_set(),
+            )
+        return kind, req_id, payload
+
+    def _send_response(self, conn: socket.socket, kind: int, payload: bytes, req_id: int) -> None:
+        """A peer that stops READING must not wedge the handler either:
+        sendall under a socket timeout enforces a total wall-clock bound
+        across its internal retries (CPython tracks a deadline)."""
+        if protorec.RECORDER is not None:
+            # record the INTENT before the write: a peer closed by a
+            # fault mid-send must still count as "answered" — the server
+            # held up its half of the contract
+            protorec.RECORDER.record(
+                ev="srv_send",
+                kind=kind,
+                req_id=req_id,
+                conn=protorec.RECORDER.conn_id(conn),
+                draining=self._stop.is_set(),
+                refusal=kind == KIND_ERROR and payload.startswith(b"draining"),
+            )
+        conn.settimeout(FRAME_STALL_SECONDS)
+        _send_frame(conn, kind, payload, req_id=req_id)
+
+    def _pong_payload(self, verbose: bool) -> bytes:
+        """Readiness plus backpressure observability. An EMPTY-payload
+        PING (every pre-epoch client and probe) keeps the legacy bare
+        token — "ready"/"prewarming" byte-for-byte as before, plus
+        "draining" during stop(), which an equality-on-b"ready" probe
+        correctly reads as not-ready. A PING carrying payload b"v2"
+        (SolverClient.ping_status) answers the JSON form with the
+        admission queue depth and resident-epoch counts."""
+        if self._stop.is_set():
+            status = "draining"
+        elif self.ready.is_set():
+            status = "ready"
+        else:
+            status = "prewarming"
+        if not verbose:
+            return status.encode()
+        clients, resident = self.epochs.stats()
+        return json.dumps(
+            {
+                "status": status,
+                "admission_queue_depth": self.admission.depth(),
+                "epoch_clients": clients,
+                "epochs": resident,
+            }
+        ).encode()
+
+    def _drain_close_check(self) -> None:
+        """During drain, EVERY answered frame is that connection's last:
+        the one-refusal-then-close bound on the SOLVE branch must also
+        cover PING/oversized/unknown-kind traffic, or a fast-sending
+        peer keeps its handler thread (and socket) alive past stop()'s
+        bounded join — and a later start() would find that abandoned
+        handler still serving outside the new generation."""
+        if self._stop.is_set():
+            raise ConnectionError("server stopping")
+
+    def _handle(self, conn: socket.socket) -> None:
+        while True:
+            try:
+                kind, req_id, payload = self._recv_frame_idle(conn)
+            except socket.timeout as e:
+                raise ProtocolError(f"peer stalled mid-frame: {e}") from e
+            except _OversizedFrame as e:
+                # the body was drained — framing is intact, answer and
+                # keep serving this connection (fault-suite contract:
+                # an oversized delta must not cost the client its stream)
+                self.log.warn(
+                    "oversized frame refused", bytes=e.length, req_id=e.req_id
+                )
+                self._send_response(conn, KIND_ERROR, str(e).encode(), e.req_id)
+                self._drain_close_check()
+                continue
+            if kind == KIND_PING:
+                self._send_response(
+                    conn, KIND_PONG, self._pong_payload(bool(payload)), req_id
+                )
+                self._drain_close_check()
+                continue
+            if kind not in (KIND_SOLVE, KIND_SOLVE_DELTA):
+                self._send_response(
+                    conn, KIND_ERROR, f"unknown kind {kind}".encode(), req_id
+                )
+                self._drain_close_check()
+                continue
+            if self._stop.is_set():
+                # graceful-drain fix: a SOLVE arriving on a surviving
+                # connection during the drain window gets an immediate
+                # retriable refusal instead of riding out drain_seconds
+                # of silence — the caller degrades to the oracle NOW.
+                # ONE refusal, then the connection closes: a peer that
+                # keeps sending must not hold a handler thread (and its
+                # socket) past the drain window the old stop-flag loop
+                # exit used to bound.
+                self._send_response(
+                    conn,
+                    KIND_ERROR,
+                    b"draining: server stopping; degrade in-process and retry later",
+                    req_id,
+                )
+                raise ConnectionError("server stopping")
+            token, hint, depth = self.admission.try_admit(len(payload))
+            if token is None:
+                # never queue: answer RETRY with the backoff hint so the
+                # caller's deadline budget degrades it to the in-process
+                # ladder instead of cascading
+                body = json.dumps(
+                    {"retry_after_seconds": hint, "queue_depth": depth}
+                ).encode()
+                self.log.warn(
+                    "admission rejected", queue_depth=depth, hint_seconds=hint
+                )
+                self._send_response(conn, KIND_RETRY, body, req_id)
+                continue
+            t0 = time.monotonic()
+            try:
+                if kind == KIND_SOLVE_DELTA:
+                    out_kind, out = self._solve_delta(payload, req_id)
+                else:
+                    out_kind, out = KIND_RESULT, self._solve(payload, req_id)
+            except Exception as e:  # error frames, never a dead socket
+                if device_failure(e):
+                    # the card failed: answered as it is, never re-solved
+                    # on the oracle, which would hide the card
+                    with self._stats_lock:
+                        self.device_failures += 1
+                    self.log.error("solve failed on the device, answering ERROR", error=f"{type(e).__name__}: {e}")
+                else:
+                    self.log.warn("solve failed, answering ERROR", error=str(e))
+                out_kind = KIND_ERROR
+                out = f"{type(e).__name__}: {e}".encode()
+            finally:
+                self.admission.release(token)
+            if out_kind == KIND_RESULT:
+                # completed solves teach the gate what a solve actually
+                # costs here — wire bytes under-state delta solves, whose
+                # frames are O(churn) but whose work is O(cluster + pods)
+                self.admission.observe(time.monotonic() - t0)
+            self._send_response(conn, out_kind, out, req_id)
+
+    def _solve(self, payload: bytes, req_id: int = 0) -> bytes:
+        # the server-side half of the solve trace: same wire correlation
+        # id as the client's trace, so the ring shows both —
+        # client wire spans and server decode/solve/encode phases — as
+        # one logical trace (tracing module docstring)
+        tr = tracing.new_trace("solve", side="server")
+        if req_id:
+            tr.set_wire_id(req_id)
+        try:
+            result = self._solve_traced(payload, tr)
+        except BaseException:
+            tr.finish("error")
+            raise
+        tr.finish("ok")
+        return result
+
+    def _solve_traced(self, payload: bytes, tr) -> bytes:
+        """Full-snapshot SOLVE: byte-for-byte the stateless protocol.
+        An optional "epoch" {client, id} key additionally retains the
+        request's cluster sections in the epoch store AFTER a successful
+        solve — the client only commits its side on RESULT, so both ends
+        agree on what epoch `id` means."""
+        with tr.span("wire_decode_request", bytes=len(payload)):
+            req = json.loads(payload)
+            epoch_info = req.pop("epoch", None)
+            decoded = _decode_problem_dict(req)
+        gen0 = self._current_epoch_gen()
+        epochs.EPOCH_SOLVES.inc(
+            {"mode": "full_resync" if epoch_info else "snapshot"}
+        )
+        epoch_key = None
+        if isinstance(epoch_info, dict):
+            epoch_key = (epoch_info.get("client"), epoch_info.get("id"))
+        out = self._solve_decoded(decoded, tr, epoch_key=epoch_key)
+        if isinstance(epoch_info, dict):
+            self._store_epoch(
+                gen0,
+                epoch_info.get("client"),
+                epoch_info.get("id"),
+                epochs.sections_from_request(req),
+            )
+        return out
+
+    def _solve_delta(self, payload: bytes, req_id: int) -> tuple[int, bytes]:
+        """SOLVE_DELTA: apply cluster changes against a server-held epoch
+        and solve the riding pending-pod batch. EVERY failure of the
+        epoch machinery — unknown/evicted base, malformed delta, a
+        materialized request that no longer decodes — answers a
+        retriable EPOCH_RESYNC so the client falls back to the
+        full-snapshot path; only the solve itself may raise (becoming an
+        ERROR frame, exactly like the snapshot path)."""
+        tr = tracing.new_trace("solve", side="server")
+        if req_id:
+            tr.set_wire_id(req_id)
+        try:
+            kind, out = self._solve_delta_traced(payload, tr)
+        except BaseException:
+            tr.finish("error")
+            raise
+        tr.finish("ok" if kind == KIND_RESULT else "resync")
+        return kind, out
+
+    def _resync(self, tr, reason: str, detail: str) -> tuple[int, bytes]:
+        epochs.EPOCH_RESYNCS.inc({"reason": reason})
+        tr.event("epoch_resync", reason=reason, detail=detail)
+        self.log.warn("epoch resync", reason=reason, detail=detail)
+        return KIND_EPOCH_RESYNC, json.dumps(
+            {"reason": reason, "detail": detail}
+        ).encode()
+
+    def _solve_delta_traced(self, payload: bytes, tr) -> tuple[int, bytes]:
+        try:
+            with tr.span("wire_decode_request", bytes=len(payload)):
+                d = json.loads(payload)
+            client = d["client"]
+            base_epoch = d["base_epoch"]
+            new_epoch = d["epoch"]
+            pods_flat = d["pods_flat"]
+        except (ValueError, KeyError, TypeError) as e:
+            return self._resync(tr, "decode_error", f"{type(e).__name__}: {e}")
+        base = self.epochs.get(client, base_epoch)
+        if base is None:
+            return self._resync(
+                tr,
+                "unknown_epoch",
+                f"client {client!r} epoch {base_epoch!r} not resident",
+            )
+        gen0 = self._current_epoch_gen()
+        try:
+            with tr.span("epoch_apply"):
+                sections = epochs.apply_delta(base, d.get("delta") or {})
+        except epochs.DeltaError as e:
+            return self._resync(tr, "apply_error", str(e))
+        try:
+            with tr.span("wire_decode_request"):
+                req = epochs.materialize_request(
+                    sections, pods_flat, d.get("options"),
+                    d.get("force_oracle", False),
+                )
+                decoded = _decode_problem_dict(req)
+        except Exception as e:
+            # a delta that applies but no longer decodes means the store
+            # and the client disagree about the world — resync, never
+            # store the poisoned sections
+            return self._resync(
+                tr, "materialize_error", f"{type(e).__name__}: {e}"
+            )
+        # store BEFORE the solve: on a solve ERROR the client keeps its
+        # base epoch (it commits only on RESULT) and both base and new
+        # stay resident, so either retry shape converges
+        self._store_epoch(gen0, client, new_epoch, sections)
+        epochs.EPOCH_SOLVES.inc({"mode": "delta"})
+        return KIND_RESULT, self._solve_decoded(
+            decoded, tr, epoch_key=(client, new_epoch)
+        )
+
+    def _current_epoch_gen(self) -> int:
+        with self._stats_lock:
+            return self._epoch_gen
+
+    def _store_epoch(self, gen0: int, client, epoch_id, sections: dict) -> None:
+        """Generation-guarded store write (the prewarm-gen discipline): a
+        handler thread abandoned by stop() must not install sections into
+        a later start()'s serving life."""
+        if client is None or epoch_id is None:
+            return
+        with self._stats_lock:
+            current = gen0 == self._epoch_gen
+        if current:
+            self.epochs.put(str(client), epoch_id, sections)
+            if protorec.RECORDER is not None:
+                protorec.RECORDER.record(
+                    ev="srv_epoch_store", client=str(client), epoch=epoch_id
+                )
+        elif protorec.RECORDER is not None:
+            # a DELIBERATE drop (stale generation) is a legal trace: the
+            # client may still commit this epoch off the RESULT, and the
+            # next delta heals through one EPOCH_RESYNC — the refinement
+            # acceptor accepts a commit against a store OR a recorded
+            # skip, but never against silence
+            protorec.RECORDER.record(
+                ev="srv_epoch_store_skipped", client=str(client), epoch=epoch_id
+            )
+
+    def _solve_decoded(self, decoded: tuple, tr, epoch_key=None) -> bytes:
+        (
+            node_pools,
+            its_by_pool,
+            pods,
+            views,
+            daemons,
+            options,
+            force_oracle,
+            source,
+        ) = decoded
+        # mid-prewarm requests degrade to the (decision-identical) oracle:
+        # the kernels may still be building, and a solve must never pay
+        # the build nor race the prewarm for the libraries
+        degraded = not self.ready.is_set()
+        if degraded:
+            force_oracle = True
+            tracing.record_fallback(
+                tr, "prewarm_degraded",
+                "mid-prewarm solve served by the oracle fallback",
+            )
+        results, scheduler = solve_in_process(
+            node_pools,
+            its_by_pool,
+            pods,
+            views,
+            daemons,
+            options,
+            cluster=source,
+            force_oracle=force_oracle,
+            trace=tr,
+            table_cache=self.table_cache,
+            fleet=self.fleet,
+            # the request's epoch identity (when it rode the epoch
+            # machinery): a coalesced window's trace then shows which
+            # epochs shared the materialization (solver/fleet.py)
+            epoch_key=epoch_key,
+            device=self.device,
+        )
+        with self._stats_lock:
+            self.solves += 1
+            if degraded:
+                self.oracle_degraded_solves += 1
+        with tr.span("wire_encode_result"):
+            out = _encode_result(results, bool(scheduler.used_tpu), pods)
+        tr.annotate(pods=len(pods), used_tpu=bool(scheduler.used_tpu))
+        return out
+
+
+# ---------------------------------------------------------------------------
+# client
+
+
+class SolverClient:
+    """The control plane's side of the boundary, hardened per the failure
+    ladder:
+
+    - requests carry a fresh correlation id; a response bearing any other
+      id means the stream is poisoned — tear down, never resynchronize;
+    - every call runs under a hard deadline (`request_timeout` default):
+      connect, send, and every recv share one wall-clock budget, so a hung
+      sidecar can never block the control plane past its deadline;
+    - a timeout mid-read poisons the connection (the late response may
+      still arrive) — the socket is closed, the next call reconnects;
+    - transport failures (refused/reset/closed) reconnect with exponential
+      backoff + jitter up to `max_retries`, inside the same deadline. A
+      SOLVE is stateless server-side, so retrying a possibly-executed
+      request is safe. A SOLVE_DELTA retry is idempotent too: re-applying
+      base->new overwrites the new epoch with identical sections while
+      the base stays resident.
+
+    Exhausting the budget raises SolverUnavailable; a clean server-side
+    ERROR frame raises SolverError; an admission RETRY frame raises
+    SolverOverloaded. Callers (ResilientSolver) treat all three as
+    'degrade down the ladder' (overload additionally carries a backoff
+    hint and skips the breaker).
+
+    Epoch mode (`epochs=True`, the default): the client keeps the last
+    server-ACKNOWLEDGED cluster sections and ships only the diff
+    (SOLVE_DELTA) against that epoch; any EPOCH_RESYNC answer — evicted
+    epoch, restarted server, failed delta — drops the local epoch state
+    and falls back to the full-snapshot request IN THE SAME CALL (one
+    hop, structurally loop-free: a full snapshot is never answered with
+    RESYNC). With `epochs=False` every request is the byte-for-byte
+    legacy snapshot."""
+
+    def __init__(
+        self,
+        socket_path: str,
+        connect_timeout: float = 5.0,
+        request_timeout: float = 30.0,
+        max_retries: int = 2,
+        backoff_base: float = 0.05,
+        backoff_cap: float = 2.0,
+        rng: Optional[random.Random] = None,
+        sleep=time.sleep,
+        epochs: bool = True,
+    ):
+        self.socket_path = socket_path
+        self.connect_timeout = connect_timeout
+        self.request_timeout = request_timeout
+        self.max_retries = max_retries
+        self.backoff_base = backoff_base
+        self.backoff_cap = backoff_cap
+        self._rng = rng or random.Random()
+        self._sleep = sleep
+        self._sock: Optional[socket.socket] = None
+        # correlation ids start at a RANDOM point in the u32 space: the id
+        # is a per-connection tripwire (the server just echoes it), but it
+        # doubles as the trace id on both sides — two clients (or one
+        # restarted control plane) both counting 1, 2, 3... would collide
+        # in the sidecar's trace ring and /debug/solves/<id> would merge
+        # unrelated solves into one "joined" trace
+        self._next_id = self._rng.randrange(0, 0xFFFFFFFF)
+        # observability for the breaker layer / tests
+        self.reconnects = 0
+        self.poisoned = 0
+        # correlation id of the most recent frame sent: solve() stamps it
+        # onto the caller's trace so client and sidecar spans join
+        self.last_req_id = 0
+        # -- epoch state (solver/epochs.py) -------------------------------
+        # the client id keys the server's epoch store across reconnects;
+        # random so a restarted control plane never aliases its
+        # predecessor's epochs (a stale alias would DELTA against someone
+        # else's world — the resync path would catch a missing epoch, but
+        # an id collision with a matching epoch number would not)
+        self.epochs_enabled = epochs
+        self.client_id = f"c{self._rng.randrange(0, 16**12):012x}"
+        self._epoch_seq = 0
+        self._acked_epoch: Optional[int] = None
+        self._acked_sections: Optional[dict] = None
+        self.resyncs = 0
+        self.delta_solves = 0
+        self.full_solves = 0
+
+    # -- connection management --------------------------------------------
+
+    def connect(self, timeout: Optional[float] = None) -> None:
+        self.close()
+        sock = socket.socket(socket.AF_UNIX, socket.SOCK_STREAM)
+        sock.settimeout(timeout if timeout is not None else self.connect_timeout)
+        sock.connect(self.socket_path)
+        self._sock = sock
+
+    def close(self) -> None:
+        if self._sock is not None:
+            self._sock.close()
+            self._sock = None
+
+    def _poison(self) -> None:
+        """Drop a connection whose stream state is no longer trustworthy
+        (partial read, stale in-flight response, framing violation)."""
+        self.poisoned += 1
+        self.close()
+
+    def _ensure_connected(self, deadline: float) -> None:
+        if self._sock is not None:
+            return
+        remaining = deadline - time.monotonic()
+        if remaining <= 0:
+            raise socket.timeout("deadline exceeded before connect")
+        self.connect(timeout=min(self.connect_timeout, remaining))
+        self.reconnects += 1
+
+    def _backoff(self, attempt: int, deadline: float) -> None:
+        """Exponential backoff with full jitter, clamped to the remaining
+        deadline budget (AWS-style decorrelated retries would also do; full
+        jitter is the simplest schedule that avoids thundering herds)."""
+        delay = min(self.backoff_cap, self.backoff_base * (2**attempt))
+        delay = self._rng.uniform(0, delay)
+        remaining = deadline - time.monotonic()
+        if remaining <= 0:
+            raise socket.timeout("deadline exceeded during backoff")
+        self._sleep(min(delay, remaining))
+
+    # -- request/response --------------------------------------------------
+
+    def _roundtrip(
+        self, kind: int, payload: bytes, timeout: Optional[float]
+    ) -> tuple[int, bytes]:
+        """One correlated request/response under a hard deadline, with
+        bounded reconnect-and-retry on transport failure."""
+        budget = self.request_timeout if timeout is None else timeout
+        deadline = time.monotonic() + budget
+        attempt = 0
+        while True:
+            try:
+                self._ensure_connected(deadline)
+                self._next_id = (self._next_id % 0xFFFFFFFF) + 1
+                req_id = self._next_id
+                self.last_req_id = req_id
+                remaining = deadline - time.monotonic()
+                if remaining <= 0:
+                    raise socket.timeout("deadline exceeded before send")
+                self._sock.settimeout(remaining)
+                _send_frame(self._sock, kind, payload, req_id=req_id)
+                try:
+                    rkind, rid, resp = _recv_frame_deadline(self._sock, deadline)
+                except ProtocolError:
+                    self._poison()  # framing lost (corrupted stream)
+                    raise
+                if rid != req_id:
+                    self._poison()
+                    raise ProtocolError(
+                        f"correlation mismatch: sent {req_id}, got {rid} — "
+                        "stream poisoned, tearing down"
+                    )
+                if protorec.RECORDER is not None:
+                    protorec.RECORDER.record(
+                        ev="cli_roundtrip",
+                        client=self.client_id,
+                        kind=kind,
+                        resp_kind=rkind,
+                        req_id=req_id,
+                    )
+                return rkind, resp
+            except socket.timeout as e:
+                # a partial read after timeout leaves the response in
+                # flight: poison, never resynchronize mid-stream
+                self._poison()
+                raise SolverUnavailable(
+                    f"no response within {budget:.3f}s deadline: {e}"
+                ) from e
+            except (ConnectionError, OSError) as e:
+                if isinstance(e, (SolverUnavailable,)):
+                    raise
+                self._poison()
+                attempt += 1
+                if attempt > self.max_retries:
+                    raise SolverUnavailable(
+                        f"sidecar unreachable after {attempt} attempts: {e}"
+                    ) from e
+                try:
+                    self._backoff(attempt - 1, deadline)
+                except socket.timeout:
+                    raise SolverUnavailable(
+                        f"deadline exhausted retrying: {e}"
+                    ) from e
+
+    def ping(self, timeout: Optional[float] = None) -> bool:
+        kind, _ = self._roundtrip(KIND_PING, b"", timeout)
+        return kind == KIND_PONG
+
+    def ping_status(self, timeout: Optional[float] = None) -> dict:
+        """The verbose PONG: {status, admission_queue_depth,
+        epoch_clients, epochs}. Empty-payload pings keep the legacy bare
+        token for old probes; this opts into the JSON form. A PRE-epoch
+        server ignores the v2 payload and answers the bare token — that
+        degrades to a status-only dict here, never an exception against
+        a healthy old sidecar."""
+        kind, resp = self._roundtrip(KIND_PING, b"v2", timeout)
+        if kind != KIND_PONG:
+            raise SolverError(f"PING answered kind {kind}")
+        try:
+            return json.loads(resp)
+        except ValueError:
+            return {"status": resp.decode(errors="replace")}
+
+    @staticmethod
+    def _overloaded(resp: bytes) -> SolverOverloaded:
+        try:
+            d = json.loads(resp)
+            hint = float(d.get("retry_after_seconds", 0.0))
+            depth = int(d.get("queue_depth", 0))
+        except (ValueError, TypeError):
+            hint, depth = 0.0, 0
+        return SolverOverloaded(
+            f"sidecar admission rejected (queue depth {depth}); "
+            f"retry after {hint:.3f}s",
+            backoff_hint_seconds=hint,
+            queue_depth=depth,
+        )
+
+    def _finish_result(self, kind: int, resp: bytes, pods, trace) -> dict:
+        if trace is not None:
+            # the correlation id of the attempt that ANSWERED (retries
+            # re-id; last_req_id tracks the final frame on the wire)
+            trace.set_wire_id(self.last_req_id)
+        if kind == KIND_RETRY:
+            raise self._overloaded(resp)
+        if kind == KIND_ERROR:
+            raise SolverError(resp.decode())
+        with tracing.span_of(trace, "wire_decode", bytes=len(resp)):
+            return decode_result(json.loads(resp), pods)
+
+    def solve(
+        self,
+        node_pools,
+        instance_types_by_pool,
+        pods,
+        state_node_views=None,
+        daemonset_pods=None,
+        options: Optional[SchedulerOptions] = None,
+        force_oracle: bool = False,
+        namespace_labels: Optional[dict] = None,
+        timeout: Optional[float] = None,
+        cluster=None,
+        trace=None,
+    ) -> dict:
+        """`trace` (tracing.Trace, optional): wire-phase spans land on it
+        and the SOLVE frame's correlation id becomes the trace id, joining
+        this client-side trace with the sidecar's server-side one.
+
+        Epoch mode ships a SOLVE_DELTA when a server-acknowledged epoch
+        exists, falling back to the full snapshot on EPOCH_RESYNC — one
+        extra hop inside the same deadline, never a loop. The local epoch
+        state commits only on a RESULT frame, mirroring the server (which
+        stores sections before answering), so a lost response leaves both
+        resident epochs intact and either retry shape converges."""
+        with tracing.span_of(trace, "wire_encode", pods=len(pods)):
+            req = encode_problem_dict(
+                node_pools,
+                instance_types_by_pool,
+                pods,
+                state_node_views,
+                daemonset_pods,
+                options,
+                force_oracle,
+                namespace_labels,
+                cluster,
+            )
+            if not self.epochs_enabled:
+                payload = json.dumps(req).encode()
+            else:
+                sections = epochs.sections_from_request(req)
+        if not self.epochs_enabled:
+            with tracing.span_of(trace, "wire_roundtrip", bytes=len(payload)):
+                kind, resp = self._roundtrip(KIND_SOLVE, payload, timeout)
+            return self._finish_result(kind, resp, pods, trace)
+
+        if self._acked_epoch is not None:
+            delta = epochs.diff_sections(self._acked_sections, sections)
+            self._epoch_seq += 1
+            body = {
+                "client": self.client_id,
+                "base_epoch": self._acked_epoch,
+                "epoch": self._epoch_seq,
+                "delta": delta,
+                "pods_flat": req["pods_flat"],
+                "options": req["options"],
+                "force_oracle": req["force_oracle"],
+            }
+            payload = json.dumps(body).encode()
+            # an oversized delta (mass churn) would be refused on arrival;
+            # skip straight to the snapshot instead of burning a round trip
+            if HEADER_LEN + len(payload) <= MAX_FRAME_LEN:
+                with tracing.span_of(
+                    trace, "wire_roundtrip", bytes=len(payload), mode="delta"
+                ):
+                    kind, resp = self._roundtrip(KIND_SOLVE_DELTA, payload, timeout)
+                if kind == KIND_EPOCH_RESYNC:
+                    # retriable by contract: drop local epoch state and
+                    # fall through to the always-correct full snapshot
+                    self.resyncs += 1
+                    self._acked_epoch = None
+                    self._acked_sections = None
+                    if trace is not None:
+                        trace.event("epoch_resync", server=resp.decode())
+                elif kind == KIND_ERROR and resp.startswith(b"unknown kind"):
+                    # a PRE-EPOCH server (mixed-version rollout: control
+                    # plane upgraded first) doesn't speak SOLVE_DELTA;
+                    # its snapshot path ignored our epoch key, so the
+                    # acked state is a fiction. Disable epoch mode for
+                    # this client's lifetime and fall through to the
+                    # plain snapshot — without this, every solve would
+                    # retry the delta, fail identically, and feed the
+                    # breaker against a healthy old sidecar.
+                    self.resyncs += 1
+                    self.epochs_enabled = False
+                    self._acked_epoch = None
+                    self._acked_sections = None
+                    if trace is not None:
+                        trace.event("epoch_resync", server="pre-epoch peer")
+                    payload = json.dumps(req).encode()
+                    with tracing.span_of(
+                        trace, "wire_roundtrip", bytes=len(payload), mode="legacy"
+                    ):
+                        kind, resp = self._roundtrip(KIND_SOLVE, payload, timeout)
+                    return self._finish_result(kind, resp, pods, trace)
+                else:
+                    out = self._finish_result(kind, resp, pods, trace)
+                    self._acked_epoch = body["epoch"]
+                    self._acked_sections = sections
+                    self.delta_solves += 1
+                    if protorec.RECORDER is not None:
+                        protorec.RECORDER.record(
+                            ev="cli_epoch_commit",
+                            client=self.client_id,
+                            epoch=body["epoch"],
+                            mode="delta",
+                        )
+                    return out
+
+        # full snapshot, establishing (or re-establishing) an epoch
+        self._epoch_seq += 1
+        req["epoch"] = {"client": self.client_id, "id": self._epoch_seq}
+        payload = json.dumps(req).encode()
+        with tracing.span_of(
+            trace, "wire_roundtrip", bytes=len(payload), mode="full"
+        ):
+            kind, resp = self._roundtrip(KIND_SOLVE, payload, timeout)
+        out = self._finish_result(kind, resp, pods, trace)
+        self._acked_epoch = self._epoch_seq
+        self._acked_sections = sections
+        self.full_solves += 1
+        if protorec.RECORDER is not None:
+            protorec.RECORDER.record(
+                ev="cli_epoch_commit",
+                client=self.client_id,
+                epoch=self._epoch_seq,
+                mode="snapshot",
+            )
+        return out

@@ -27,6 +27,17 @@ of `oracle.Scheduler` the same way. A solve runs
    claims, existing-node usage, pool limits and topology counts onto the
    shared oracle.
 
+Each step is a span of the solve's trace (`solve(pods, trace=None)`; a
+standalone solve owns a "tpu_solve" trace, `last_profile`): encode, order,
+upload (with the table cache's `hit`/`tables_hit`/`miss` event and the
+`upload_bytes` count), the `bucket` event, one `dispatch` span a kernel
+launch carrying its odometer block, `regrow`, decode; `last_phases` is this
+solve's share of those phases. With a `table_cache` (an
+epochs.DeviceTableCache, the sidecar's), a problem-fingerprint hit takes
+the tables, the pod x type screen and the pod tables from the card as they
+lie (no upload, no K1 launch), and a table-fingerprint hit rebuilds only
+the pod tables against the shared K.Tables.
+
 Decisions are bit-identical to the oracle's for supported problems. A
 problem with a relaxable requirement class (preferred node or pod
 (anti-)affinity, ScheduleAnyway spreads, required node-affinity OR-terms)
@@ -46,7 +57,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from karpenter_tpu_torch import _build
+from karpenter_tpu_torch import _build, tracing
 from karpenter_tpu_torch.api import labels as well_known
 from karpenter_tpu_torch.api.objects import NodePool, Operator, Pod
 from karpenter_tpu_torch.cloudprovider.types import InstanceTypes
@@ -56,6 +67,7 @@ from karpenter_tpu_torch.ops.kernels import VocabArrays, intersects_only
 from karpenter_tpu_torch.scheduling import Requirement, Requirements
 from karpenter_tpu_torch.solver import buckets
 from karpenter_tpu_torch.solver import nodes as nodes_mod
+from karpenter_tpu_torch.solver.epochs import problem_fingerprint, table_fingerprint
 from karpenter_tpu_torch.solver import tpu_kernel as K
 from karpenter_tpu_torch.solver import tpu_runs as KR
 from karpenter_tpu_torch.solver.nodes import (
@@ -607,24 +619,52 @@ def _new_odo_totals() -> dict:
     }
 
 
-def _fold_odo(totals: dict, odo: K.Odometer) -> None:
-    """Fold one dispatch's odometer into the solve totals."""
-    totals["steps"] += int(odo.steps)
-    totals["bulk_steps"] += int(odo.bulk_steps)
-    totals["tier_steps"] += int(odo.tier_steps)
-    for t, v in enumerate(odo.tier_hist.tolist()):
+def _odo_dispatch_dict(odo: K.Odometer) -> dict:
+    """One fetched kernel Odometer as plain ints: the `kernel` block a
+    dispatch span carries and the unit the per-solve totals accumulate."""
+    d = {"steps": int(odo.steps), "bulk_steps": int(odo.bulk_steps), "tier_steps": int(odo.tier_steps)}
+    if d["tier_steps"]:
+        d["tier_hist"] = [int(v) for v in odo.tier_hist.tolist()]  # a host array or a device tensor
+    return d
+
+
+def _fold_odo(totals: dict, odo, path: Optional[str] = None) -> dict:
+    """Fold one dispatch's odometer (a K.Odometer, or an accumulator such
+    as a fleet lane's) into the solve totals and, with `path`, into the
+    labeled kernel metrics; returns the folded block."""
+    d = odo if isinstance(odo, dict) else _odo_dispatch_dict(odo)
+    totals["steps"] += d.get("steps", 0)
+    totals["bulk_steps"] += d.get("bulk_steps", 0)
+    totals["tier_steps"] += d.get("tier_steps", 0)
+    for t, v in enumerate(d.get("tier_hist", ())):
         totals["tier_hist"][t] += v
-    totals["dispatches"] += 1
+    totals["dispatches"] += d.get("dispatches", 1)
+    for k in ("overflow_signals", "regrows"):
+        totals[k] += d.get(k, 0)
+    if path is not None:
+        if d.get("steps"):
+            tracing.KERNEL_ITERATIONS.inc({"path": path}, by=d["steps"])
+        for t, v in enumerate(d.get("tier_hist", ())):
+            if v:
+                tracing.KERNEL_TIER_STEPS.inc({"tier": str(t)}, by=v)
+    return d
 
 
-def _fold_totals(totals: dict, other: dict) -> None:
-    """Fold another accumulator (a fleet lane's rounds) into the totals."""
-    for k, v in other.items():
-        if k == "tier_hist":
-            for t, n in enumerate(v):
-                totals[k][t] += n
-        else:
-            totals[k] += v
+def _tree_nbytes(tree) -> int:
+    """Total bytes across the tensors of a table set (NamedTuples, dicts,
+    tuples of tensors): the table-upload accounting behind
+    karpenter_solve_upload_bytes_total."""
+    if isinstance(tree, torch.Tensor):
+        return tree.numel() * tree.element_size()
+    if isinstance(tree, dict):
+        return sum(_tree_nbytes(v) for v in tree.values())
+    if isinstance(tree, (tuple, list)):
+        return sum(_tree_nbytes(v) for v in tree)
+    return 0
+
+
+# the solve driver's top-level phases, as its trace names them
+SOLVE_PHASES = ("encode", "order", "upload", "fleet_dispatch", "dispatch", "regrow", "decode")
 
 
 # ---------------------------------------------------------------------------
@@ -660,6 +700,8 @@ class TorchScheduler:
         options: Optional[SchedulerOptions] = None,
         device=None,
         fleet=None,
+        table_cache=None,
+        epoch_key=None,
     ):
         self.device = resolve_device(device)
         # reuse the oracle's init wholesale: template filtering, daemon
@@ -673,13 +715,24 @@ class TorchScheduler:
         # arrive; any None answer (no sibling, overflow, coalescing fault)
         # runs the solo loop unchanged
         self.fleet = fleet
+        # epochs.DeviceTableCache (optional, shared across schedulers — the
+        # sidecar server owns one): table sets on the card keyed by the
+        # content fingerprint of every encoded array they derive from. A
+        # hit skips _tables/_upload_pod_tables and the type screens, so a
+        # repeat same-epoch solve uploads only the pending-pod batch
+        self._table_cache = table_cache
+        # (client, epoch id) of the request this scheduler serves, when the
+        # sidecar materialized it from a resident epoch: rides the fleet
+        # window's trace event
+        self._epoch_key = epoch_key
         # the last solve's kernel odometer (see _new_odo_totals), path,
-        # whether the tier loop ran, and its host phases in seconds (encode,
-        # order, tables: the tables, type screens, upload and bulk gates)
+        # whether the tier loop ran, its trace (`last_profile`) and its
+        # host phases in seconds, read off that trace (SOLVE_PHASES)
         self.last_odometer = None
         self.last_used_runs = False
         self.last_used_fleet = False
         self.last_relax = False
+        self.last_profile = None
         self.last_phases = {}
         # the fleet window of the last solve (mode, lanes, rounds,
         # wait_seconds; set by the coalescer), None when it offered none
@@ -687,23 +740,85 @@ class TorchScheduler:
 
     # -- solve ----------------------------------------------------------
 
-    def solve(self, pods: list[Pod]) -> Results:
+    def solve(self, pods: list[Pod], trace=None) -> Results:
         """May raise tpu_problem.UnsupportedBySolver (an encode gate);
-        callers fall back to the oracle."""
+        callers fall back to the oracle.
+
+        `trace` is an optional tracing.Trace the caller threads down from
+        the controller; a standalone solve owns a local one, so the phase
+        metrics populate on every solve. `last_profile` is that trace and
+        `last_phases` this solve's share of its phases."""
+        with tracing.maybe_trace(trace, "tpu_solve") as tr:
+            self.last_profile = tr
+            before = tr.phases
+            try:
+                return self._solve_traced(pods, tr)
+            finally:
+                after = tr.phases
+                self.last_phases = {
+                    k: after[k] - before.get(k, 0.0) for k in SOLVE_PHASES if k in after
+                }
+
+    def _upload(self, problem: EncodedProblem, prof):
+        """The upload phase: (tb, table fingerprint or None, upload bytes).
+        Sets `_typeok`, `_dev_tables` and `_aff_c`. With a table cache, a
+        problem-fingerprint hit takes all four from the card as they lie
+        (no bytes, no type screen); a table-fingerprint hit takes the
+        shared K.Tables and rebuilds only the pod tables; a miss builds
+        both and publishes them."""
+        cache = self._table_cache
+        cached = None
+        fp = tfp = None
+        if cache is not None:
+            fp = problem_fingerprint(problem)
+            cached = cache.get(fp)
+        if cached is not None:
+            tb, self._typeok, self._dev_tables, self._aff_c = cached
+            prof.event("table_cache", outcome="hit")
+            return tb, tfp, 0
+        tb = token = None
+        if cache is not None:
+            # single-flight on the TABLE fingerprint: concurrent same-epoch
+            # solves (a fleet window's lanes all encoding before any put
+            # lands) elect one builder for the shared K.Tables; the rest
+            # block here and reuse it
+            tfp = table_fingerprint(problem)
+            tb, token = cache.begin_tables(tfp)
+        try:
+            if tb is not None:
+                self._typeok = self._pod_typeok(problem, tb.ireq, tb.va)
+                self._upload_pod_tables(problem)
+                upload_bytes = _tree_nbytes(self._dev_tables)
+                prof.event("table_cache", outcome="tables_hit")
+            else:
+                tb = self._tables(problem)  # also sets self._typeok
+                self._upload_pod_tables(problem)
+                upload_bytes = _tree_nbytes(tb) + _tree_nbytes(self._dev_tables)
+                if cache is not None:
+                    prof.event("table_cache", outcome="miss")
+        finally:
+            if cache is not None:
+                cache.end_tables(token, tb)
+        if cache is not None:
+            cache.put(fp, (tb, self._typeok, self._dev_tables, self._aff_c))
+        return tb, tfp, upload_bytes
+
+    def _solve_traced(self, pods: list[Pod], prof) -> Results:
         if not pods:
             return Results(new_node_claims=[], existing_nodes=self.oracle.existing_nodes, pod_errors={})
-        t0 = time_mod.monotonic()
-        problem = encode_problem(self.oracle, pods)
+        with prof.span("encode", pods=len(pods)):
+            problem = encode_problem(self.oracle, pods)
         deadline = (
             time_mod.monotonic() + self.opts.timeout_seconds if self.opts.timeout_seconds else None
         )
-        t1 = time_mod.monotonic()
-        order = self._order_pods(problem)
-        t2 = time_mod.monotonic()
-        tb = self._tables(problem)  # also sets self._typeok
-        self._upload_pod_tables(problem)
-        self._bulk_flags_c = _bulk_class_flags(problem, _bulk_gates(problem))
-        self.last_phases = {"encode": t1 - t0, "order": t2 - t1, "tables": time_mod.monotonic() - t2}
+        with prof.span("order"):
+            order = self._order_pods(problem)
+        with prof.span("upload"):
+            tb, tfp, upload_bytes = self._upload(problem, prof)
+            self._bulk_flags_c = _bulk_class_flags(problem, _bulk_gates(problem))
+        if upload_bytes:
+            prof.count("upload_bytes", by=upload_bytes)
+            tracing.SOLVE_UPLOAD_BYTES.inc(by=upload_bytes)
         # with no relaxable requirement class the kernels run without the
         # tier loop, exactly as for a preference-free problem
         relax = bool((problem.ntiers_r > 1).any())
@@ -721,6 +836,14 @@ class TorchScheduler:
         if not use_runs:
             div = min(div, 4)
         N = min(_pow2(max(64, (len(pods) + div - 1) // div)), _pow2(len(pods)))
+        # the bucket is a decision, not a duration: a marker of the path x
+        # claim-slot rung x relax this solve rode
+        path = "runs" if use_runs else "scan"
+        prof.event("bucket", claim_slots=N, path=path, relax=relax)
+        tiers_beyond_0 = int(problem.ntiers_r.max(initial=1)) - 1 if relax else 0
+        if tiers_beyond_0:
+            prof.count("relax_tiers", by=tiers_beyond_0)
+            tracing.SOLVE_RELAX_TIERS.inc(by=tiers_beyond_0)
         odo = _new_odo_totals()
         self.last_odometer = odo
         # fleet coalescing (solver/fleet.py): the scan path only, as in the
@@ -728,12 +851,19 @@ class TorchScheduler:
         self.last_used_fleet = False
         self.last_fleet = None
         if self.fleet is not None and not use_runs:
-            got = self.fleet.solve_lane(self, problem, tb, order, N, relax, deadline)
+            got = self.fleet.solve_lane(
+                self, problem, tb, order, N, relax, deadline, trace=prof, table_fp=tfp, epoch_key=self._epoch_key
+            )
             if got is not None:
                 st, kinds, slots, timed_out, lane_odo = got
                 self.last_used_fleet = True
-                _fold_totals(odo, lane_odo)
-                return self._decode(problem, st, kinds, slots, timed_out)
+                _fold_odo(odo, lane_odo, "fleet")
+                prof.count("kernel_iterations", by=lane_odo.get("steps", 0))
+                if lane_odo.get("tier_steps"):
+                    prof.count("kernel_tier_steps", by=lane_odo["tier_steps"])
+                prof.annotate(pods=len(pods), path="fleet", relax=relax, claim_slots=N, timed_out=timed_out)
+                with prof.span("decode"):
+                    return self._decode(problem, st, kinds, slots, timed_out)
         while True:
             st = self._init_state(problem, N)
             seq = torch.zeros(N, dtype=torch.int32, device=self.device)
@@ -753,34 +883,50 @@ class TorchScheduler:
                 offset = 0
                 while True:
                     batch = pending[offset:]
-                    if use_runs:
-                        xs, idx_d = self._pod_xs_with_idx(problem, batch)
-                        rx = self._run_x(xs, idx_d, len(batch))
-                        st, seq, next_seq, got_kinds, got_slots, got_over, got_odo, got_ptr = KR.solve_runs(
-                            tb, st, rx, seq, next_seq, len(batch), relax
-                        )
-                    else:
-                        xs = self._pod_xs(problem, batch)
-                        st, got_kinds, got_slots, got_over, got_odo = K.solve_scan(tb, st, xs, relax)
-                        got_ptr = None
-                    _fold_odo(odo, got_odo)
-                    got_kinds = got_kinds.cpu().numpy()
-                    got_slots = got_slots.cpu().numpy()
-                    if bool(got_over):
+                    # one dispatch: the round's rows, the kernel launch, and
+                    # one fetch of the verdicts with the odometer block; the
+                    # sub-spans are recorded only behind the detail gate
+                    with prof.span("dispatch", path=path) as dsp:
+                        if use_runs:
+                            with prof.span("pod_xs", detail=True):
+                                xs, idx_d = self._pod_xs_with_idx(problem, batch)
+                                rx = self._run_x(xs, idx_d, len(batch))
+                            with prof.span("kernel", detail=True):
+                                st, seq, next_seq, got_kinds, got_slots, got_over, got_odo, got_ptr = KR.solve_runs(
+                                    tb, st, rx, seq, next_seq, len(batch), relax
+                                )
+                        else:
+                            with prof.span("pod_xs", detail=True):
+                                xs = self._pod_xs(problem, batch)
+                            with prof.span("kernel", detail=True):
+                                st, got_kinds, got_slots, got_over, got_odo = K.solve_scan(tb, st, xs, relax)
+                                got_ptr = None
+                        with prof.span("fetch", detail=True):
+                            got_kinds = got_kinds.cpu().numpy()
+                            got_slots = got_slots.cpu().numpy()
+                            got_over = bool(got_over)
+                            dsp["kernel"] = _fold_odo(odo, got_odo, path)
+                    prof.count("dispatches")
+                    tracing.SOLVE_DISPATCHES.inc({"path": path})
+                    if got_over:
                         odo["overflow_signals"] += 1
-                    if bool(got_over) and got_ptr is None:
+                        tracing.KERNEL_OVERFLOWS.inc({"path": path})
+                    if got_over and got_ptr is None:
                         overflowed = True  # scan path: re-solve from scratch
                         break
                     # runs path: commit the pods before the overflowing one,
                     # grow the state, go on from that pod
-                    n_done = int(got_ptr) if bool(got_over) else len(batch)
+                    n_done = int(got_ptr) if got_over else len(batch)
                     done = batch[:n_done]
                     kinds[done] = got_kinds[:n_done]
                     slots[done] = got_slots[:n_done]
                     round_failed += [i for i, k in zip(done, got_kinds[:n_done]) if k == K.KIND_FAIL]
-                    if not bool(got_over):
+                    if not got_over:
                         break
-                    st, seq = self._grow(problem, st, seq, N)
+                    with prof.span("regrow"):
+                        st, seq = self._grow(problem, st, seq, N)
+                    prof.count("regrows")
+                    tracing.SOLVE_REGROWS.inc()
                     odo["regrows"] += 1
                     N *= 2
                     offset += n_done
@@ -792,7 +938,12 @@ class TorchScheduler:
             if not overflowed:
                 break
             N *= 2  # scan-path slots exhausted: re-solve with room
-        return self._decode(problem, st, kinds, slots, timed_out)
+        prof.count("kernel_iterations", by=odo["steps"])
+        if odo["tier_steps"]:
+            prof.count("kernel_tier_steps", by=odo["tier_steps"])
+        prof.annotate(pods=len(pods), path=path, relax=relax, claim_slots=N, timed_out=timed_out)
+        with prof.span("decode"):
+            return self._decode(problem, st, kinds, slots, timed_out)
 
     def _order_pods(self, p: EncodedProblem) -> list:
         """FFD order from class columns; also points cached_pod_data at one
@@ -1109,9 +1260,10 @@ class TorchScheduler:
         n_claims = int(st.n_claims)
         N = st.active.shape[0]
         if self.last_odometer is not None:
-            self.last_odometer.update(
-                claims_opened=n_claims, claim_slots=N, claim_occupancy=round(n_claims / N, 4) if N else 0.0
-            )
+            occupancy = (n_claims / N) if N else 0.0
+            self.last_odometer.update(claims_opened=n_claims, claim_slots=N, claim_occupancy=round(occupancy, 4))
+            tracing.KERNEL_CLAIMS_OPENED.inc(by=n_claims)
+            tracing.KERNEL_CLAIM_OCCUPANCY.observe(occupancy)
         # fetch only the live claim rows (pow2-bucketed)
         n2 = min(_pow2(max(n_claims, 1), floor=64), N)
         E = st.eavail.shape[0]

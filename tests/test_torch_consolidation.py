@@ -522,7 +522,7 @@ def _device_error(*args, **kwargs):
     raise _build.DeviceError("set_sweep: launch failed (cudaErrorLaunchFailure)")
 
 
-def _out_of_memory(self, pods):
+def _out_of_memory(self, pods, trace=None):
     raise torch.OutOfMemoryError("CUDA out of memory")
 
 

@@ -167,7 +167,7 @@ def test_unexpected_kernel_error_degrades_to_pristine_oracle(monkeypatch):
     kernel solve re-solves the whole batch on a pristine oracle, logged at
     error level and counted as tpu_error."""
 
-    def boom(self, pods):
+    def boom(self, pods, trace=None):
         raise RuntimeError("kernel launch failed")
 
     monkeypatch.setattr(TpuScheduler, "solve", lambda self, pods, trace=None: boom(self, pods))
@@ -205,7 +205,7 @@ def test_device_failure_passes_the_guard(monkeypatch, failure):
     launch; torch's CUDA errors) propagates out of solve(): the guard does
     not re-solve it on the oracle, counts no tpu_error and sets no route."""
     monkeypatch.setattr(_build, "build_all", lambda: {"no_such_kernel": {"path": "/nonexistent/lib.so"}})
-    monkeypatch.setattr(TorchScheduler, "solve", lambda self, pods: DEVICE_FAILURES[failure]())
+    monkeypatch.setattr(TorchScheduler, "solve", lambda self, pods, trace=None: DEVICE_FAILURES[failure]())
     fixtures.reset_rng(7)
     case = _case(fixtures.make_diverse_pods(12), SchedulerOptions(tpu_min_pods=0))
     pools, ibp, pods, views, daemons, options, _f, source = wire._decode_problem_dict(case.problem)
