@@ -10,10 +10,10 @@ PyTorch version on the card, bit for bit:
 
 - K1 typeok_screen on the headline's class rows, the c6 mix's tier rows,
   the full-size screens world's class rows and a 2048-type catalog's;
-- K2 scan_step on three small problems and a 1024-pod prefix of the
+- K2 scan_step on three small problems and a 512-pod prefix of the
   headline round (the whole round is timed too), and with the relax tier
   loop on three small tiered problems (one overflows mid-ladder) and the
-  first 256 positions of the 1000-pod preference round (the whole round
+  first 128 positions of the 1000-pod preference round (the whole round
   is timed);
 - K3 run_step on three small problems (one overflows its 64 claim slots)
   and on the headline's two dispatches (up to the claim-slot overflow,
@@ -40,7 +40,7 @@ PyTorch version on the card, bit for bit:
   singleton lanes) on 64 candidates of a 2000-node fleet whose riders
   carry a zone spread;
 - K7 scan_lanes as the fleet launch (each lane's pod rows its own) on the
-  first 256 positions of 8 fleet lanes of 2000 pods, relax off and on;
+  first 32 positions of 8 fleet lanes of 2000 pods, relax off and on;
 - K3 and K2 at full size on the screens the headline bypasses (2000 pods
   beside 300 existing nodes: host ports, a pool limit, reservations,
   minValues; and existing-node windows) and on a 2048-type catalog whose
@@ -94,13 +94,23 @@ with the server stopped, a reconcile that degrades in-process to the card;
 the server-side phases beside the in-process solve's give the wire's
 cost; last, a solve with every free byte of the card held
 must raise out of TorchHybridScheduler.solve, not be re-solved on the
-oracle by the last-resort guard. It checks decisions against the port's oracle on
-twelve problems, and prints:
+oracle by the last-resort guard. Then process start and the Operator (phase
+14): two fresh processes' first headline solve, one after `aot.prewarm()`
+and one without (neither may run nvcc; equal decisions), the sidecar's
+prewarm with a solve sent mid-prewarm (served by the oracle, equal to the
+in-process solve); `Operator.run_until_settled()` on the entry cluster
+(every pod bound by the lifecycle controller's nodes, the kernel route),
+its probe endpoints, a headline solve under `profiling.device_trace`; and a
+2040-pod cluster provisioned, half emptied and consolidated by the card's
+Operator (a Command executed through the OrchestrationQueue and
+NodeTermination) against the oracle's Operator in a process of its own
+(equal claims, first Command and final nodes). It checks decisions against
+the port's oracle on twelve problems, and prints:
 
 - the card's name and power limit (nvidia-smi),
 - one JSON line {"kernels": [...]} with each kernel's launches on its path
-  (and on the consolidation and sidecar paths), its agreement with the
-  plain version, and its times,
+  (and on the consolidation, sidecar, Operator and prewarm paths), its
+  agreement with the plain version, and its times,
 - as the last line, {"ok": true, "device": {...}}.
 
 Any failed phase exits non-zero without the last line. Without a CUDA
@@ -120,13 +130,13 @@ from typing import NamedTuple, Optional
 HEADLINE_PODS = 10000
 HEADLINE_TYPES = 500
 PARITY_PODS = 1000
-K2_PREFIX = 1024  # headline pods K2 is held against its plain version on
+K2_PREFIX = 512  # headline pods K2 is held against its plain version on
 C6_PODS = 10000
 C6_PARITY_PODS = 2000  # c6 pods solved by the oracle too
 PREF_PODS = 1000  # the preference round (every pod tiered)
 # positions of the preference round K2+relax is held to its plain version on
 # (the plain tier loop takes about 50 ms a position)
-PREF_CHECK_POSITIONS = 256
+PREF_CHECK_POSITIONS = 128
 # The JAX package's kernel odometer for the c6 solve (bench.py
 # build_universe(500) + make_problem(10000, its, pods_realistic), the same
 # construction as c6_world): recorded with `JAX_PLATFORMS=cpu python3
@@ -149,7 +159,7 @@ LANE_CANDIDATES = 64
 RIDER_SPREAD = 4
 # positions of the spread fleet's 64 at which K7 is held to its plain
 # version (the plain version takes about half a second a position)
-LANE_CHECK_POSITIONS = 32
+LANE_CHECK_POSITIONS = 16
 REFEREE_SEEDED = 16  # seeded lanes of each kind held against the referee
 PAST_EDGE = 4  # spread-fleet prefix lanes held past the last verdict change
 # a spread fleet small enough that the referee holds every prefix lane of
@@ -179,7 +189,7 @@ FLEET_PREF_PODS = 200
 FLEET_PREF_SEED = 7
 # FFD positions of each lane K7 is held to its plain version on (the plain
 # version with relax on takes about half a second a position)
-FLEET_CHECK_POSITIONS = 64
+FLEET_CHECK_POSITIONS = 32
 FLEET_CHECK_LANES = 8
 FLEET_WIDE_POSITIONS = 64  # positions of the launch past K7's lane table
 FLEET_ORACLE_LANES = (0, 7)  # lanes of the widest window held against the oracle
@@ -194,7 +204,7 @@ FULL_PODS = 2000
 FULL_NODES = 300
 # positions of the screens world's round K2 is held to its plain version on
 # (of its 2048; the plain version takes about 9 ms a position)
-FULL_K2_CHECK_POSITIONS = 1024
+FULL_K2_CHECK_POSITIONS = 512
 # a catalog too large for the type tables' shared memory (the kernels then
 # read the mask words and offerings from device memory)
 LARGE_CATALOG_TYPES = 2048
@@ -206,7 +216,10 @@ FLEET_JOIN_SECONDS = 300.0
 ENTRY_PVC_PODS = 100
 ENTRY_ZONE = "test-zone-b"
 DECISIONS_PODS = (2000, 40)  # c6 pods, PVC pods: the card's Provisioner against the oracle
+ENTRY_TIMED = 1  # timed entry-point reconciles after the warm-up (each on a fresh 10100-pod cluster)
 CROSSOVER_SIZES = (16, 64, 256, 1024, 4096)  # make_generic_pods(n) through solve_in_process
+# the oracle's timed solves where the card wins by more than 5x (3 elsewhere)
+CROSSOVER_ORACLE_REPS = {1024: 1, 4096: 1}
 # the consolidation controllers (consolidation_phase) run on the sweep
 # phase's c4 fleet; each kernels-line row gains its launches on that path.
 # SingleNodeConsolidation sweeps its candidates as singleton lanes only up
@@ -255,6 +268,31 @@ K5_EDGES = (
     ("all distinct, n=8192", 8192, K5_HEADLINE_WIDTHS, "distinct"),
 )
 K5_BOOL = (False, False, True, True, True, False, False, False, False)  # other, notin, defined
+# phase 14 (cold_start_phase, operator_phase): fresh processes' first
+# headline solve with and without the prewarm; the port's Operator on the
+# entry cluster (C6_PODS + ENTRY_PVC_PODS) through provisioning and a
+# consolidation round, and at DECISIONS_PODS against the oracle's Operator
+COLD_START_TIMEOUT = 300.0
+PREWARM_DEGRADED_PODS = 1024  # the solve sent to the sidecar mid-prewarm
+OPERATOR_TICKS = 24  # the tick budget of each half of the Operator's run
+# (c)'s oracle side runs in a process of its own from the end of the build
+# (about 320 s of host on the card's machine: each provisioning round
+# re-solves every pending pod against the in-flight nodes on the oracle);
+# the seconds (c) then waits for it at most
+OPERATOR_ORACLE_TIMEOUT = 600.0
+OPERATOR_CLAIM_SEQ0 = 50000  # (c)'s claims are named from here on both sides
+OPERATOR_FLEET_NODES = 200  # the under-utilized fleet whose consolidation runs the sweeps
+OPERATOR_STILL_TICKS = 10  # ticks the node set holds still to end the run
+# the main path's kernels as the profiler names them (the device trace check)
+TRACE_KERNELS = ("typeok_kernel", "run_arrays_kernel", "run_step_kernel", "dedup_cluster_kernel")
+# each kernels-line row's launch counters (launches_operator, launches_prewarm)
+ROW_COUNTERS = {
+    "typeok_screen": ("typeok_screen",), "scan_step": ("scan_step",), "run_step": ("run_step",),
+    "run_arrays": ("run_arrays",), "dedup_rows": ("dedup_rows",), "scan_step+relax": ("scan_step_relax",),
+    "run_step+relax": ("run_step_relax",), "relax_step": ("run_step_relax", "scan_step_relax"),
+    "fast_sweep": ("fast_sweep",), "fast_sweep (singleton)": ("fast_sweep_singleton",), "set_sweep": ("set_sweep",),
+    "scan_lanes": ("scan_lanes", "scan_lanes_relax"), "fleet_lanes": ("fleet_lanes", "fleet_lanes_relax"),
+}
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 CORE_OPS_PER_S = 67e12  # H100 SXM non-tensor 32-bit rate (fp32 figure)
 
@@ -2347,7 +2385,6 @@ def entry_cluster(n_pods: int, n_pvc: int, its, dev, force_oracle: bool = False)
     `its`; pending: the c6 mix at n_pods, then n_pvc pods with the mix's
     requests, each with its own PVC of a StorageClass in ENTRY_ZONE. Returns
     the Provisioner (Options(tpu_min_pods=0) on `dev`, or the oracle's)."""
-    from karpenter_tpu_torch.api.objects import PersistentVolumeClaim, StorageClass
     from karpenter_tpu_torch.cloudprovider.kwok import KwokCloudProvider
     from karpenter_tpu_torch.controllers.kube import FakeClock, SimKube
     from karpenter_tpu_torch.controllers.provisioning import Provisioner
@@ -2360,10 +2397,22 @@ def entry_cluster(n_pods: int, n_pvc: int, its, dev, force_oracle: bool = False)
     cluster = Cluster(clock)
     wire_informers(kube, cluster)
     cloud = KwokCloudProvider(kube, clock, instance_types=its)
+    kube.create("NodePool", fixtures.node_pool(name="default"))
+    create_entry_pods(kube, n_pods, n_pvc)
+    return Provisioner(kube, cluster, cloud, clock, Options(tpu_min_pods=0), force_oracle=force_oracle,
+                       device=None if force_oracle else dev)
+
+
+def create_entry_pods(kube, n_pods: int, n_pvc: int) -> None:
+    """The entry cluster's pending pods in `kube`: the c6 mix at n_pods
+    (named c6-<i>), then n_pvc pods with the mix's requests, each with its
+    own PVC of a StorageClass in ENTRY_ZONE."""
+    from karpenter_tpu_torch.api.objects import PersistentVolumeClaim, StorageClass
+    from karpenter_tpu_torch.testing import fixtures
+
     pods = c6_pods(n_pods)
     for i, p in enumerate(pods):  # the mix's families reuse names; the store keys on them
         p.metadata.name = f"c6-{i}"
-    kube.create("NodePool", fixtures.node_pool(name="default"))
     sc = StorageClass()
     sc.metadata.name = "zonal"
     sc.zones = [ENTRY_ZONE]
@@ -2378,8 +2427,6 @@ def entry_cluster(n_pods: int, n_pvc: int, its, dev, force_oracle: bool = False)
         pods.append(p)
     for p in pods:
         kube.create("Pod", p)
-    return Provisioner(kube, cluster, cloud, clock, Options(tpu_min_pods=0), force_oracle=force_oracle,
-                       device=None if force_oracle else dev)
 
 
 def tpu_errors() -> float:
@@ -2390,28 +2437,51 @@ def tpu_errors() -> float:
     return SOLVE_FALLBACKS.value({"reason": "tpu_error"})
 
 
+def _opening(claim) -> int:
+    """A solve's claim by the order it was opened (its synthetic hostname's
+    sequence number)."""
+    return int(claim.hostname.rsplit("-", 1)[1])
+
+
+def solve_partition(solve, oracle, pods, ignore_preferences: bool):
+    """The referee's rule for a kernel route: `solve` (an oracle Scheduler's
+    solve, or a wrapper of it) on the pods the kernels take
+    (`pod_unsupported_reason` None) first, their claims then put in the order
+    they were opened (the order the kernels' decode returns them; the
+    oracle's last sort by pod count, scheduler.go:499, leaves them
+    otherwise), then the rest continued on the same `oracle`, as
+    TorchHybridScheduler continues them after the kernels. An oracle-only
+    solve interleaves the two sets in FFD order instead, so where both are
+    present its decisions may legally differ (the JAX package's hybrid
+    differs from its oracle the same way)."""
+    from karpenter_tpu_torch.solver.tpu_problem import pod_unsupported_reason
+
+    ok = [pod_unsupported_reason(p, ignore_preferences) is None for p in pods]
+    supported = [p for p, o in zip(pods, ok) if o]
+    rest = [p for p, o in zip(pods, ok) if not o]
+    if not supported or not rest:
+        out = solve(pods)
+        if supported:
+            oracle.new_node_claims.sort(key=_opening)
+        return out
+    first = solve(supported)
+    oracle.new_node_claims.sort(key=_opening)
+    cont = solve(rest)
+    cont.pod_errors.update(first.pod_errors)
+    cont.timed_out = cont.timed_out or first.timed_out
+    return cont
+
+
 def solve_partitioned_oracle(pools, ibp, pods, views, daemonset_pods, options, cluster):
-    """The referee of a kernel route: the oracle's decisions for
-    TorchHybridScheduler's partition. The pods the kernels take
-    (`pod_unsupported_reason` None) are solved first on the port's oracle,
-    then the rest continue on the same oracle, as the hybrid continues
-    them after the kernels. An oracle-only solve interleaves the two sets
-    in FFD order instead, so where both are present its decisions may
-    legally differ (the JAX package's hybrid differs from its oracle the
-    same way)."""
+    """The referee of a kernel route: the port's oracle on the hybrid's
+    partition (solve_partition)."""
     from karpenter_tpu_torch.solver.oracle import Scheduler
     from karpenter_tpu_torch.solver.topology import Topology
-    from karpenter_tpu_torch.solver.tpu_problem import pod_unsupported_reason
 
     topology = Topology(pools, ibp, pods, cluster=cluster, state_node_views=views,
                         ignore_preferences=options.ignore_preferences)
     oracle = Scheduler(pools, ibp, topology, views, daemonset_pods, options)
-    supported = [pod_unsupported_reason(p, options.ignore_preferences) is None for p in pods]
-    first = oracle.solve([p for p, ok in zip(pods, supported) if ok])
-    rest = oracle.solve([p for p, ok in zip(pods, supported) if not ok])
-    rest.pod_errors.update(first.pod_errors)
-    rest.timed_out = rest.timed_out or first.timed_out
-    return rest
+    return solve_partition(oracle.solve, oracle, pods, options.ignore_preferences)
 
 
 def partition_view(r, pods) -> tuple:
@@ -2542,13 +2612,13 @@ def entry_point_phase(dev, its) -> Optional[dict]:
         bad.append("odometer")
     times = [dt]
     phases = [dict(prov.last_phases)]
-    for _ in range(2):
+    for _ in range(ENTRY_TIMED - 1):
         prov = entry_cluster(C6_PODS, ENTRY_PVC_PODS, its, dev)
         _, dt = reconcile(prov)
         times.append(dt)
         phases.append(dict(prov.last_phases))
-    med = sorted(times)[1]
-    log(f"entry point reconcile seconds (n=3): {[round(x, 4) for x in times]}; median {med:.4f}s = "
+    med = sorted(times)[len(times) // 2]
+    log(f"entry point reconcile seconds (n={len(times)}): {[round(x, 4) for x in times]}; median {med:.4f}s = "
         f"{n_total / med:.1f} pods/s")
     log("entry point host phases (s), the median run: "
         + json.dumps({k: round(v, 4) for k, v in phases[times.index(med)].items()}))
@@ -2598,8 +2668,9 @@ def decisions_phase(dev, its) -> bool:
 def crossover_phase(dev, its) -> Optional[dict]:
     """solve_in_process on make_generic_pods(n) (requests only) with
     tpu_min_pods=0 on the card against force_oracle=True, per n in
-    CROSSOVER_SIZES: one warm-up and 3 timed solves a side, equal
-    decisions. The crossover is the smallest n from which the card's median
+    CROSSOVER_SIZES: the card one warm-up and 3 timed solves, the oracle
+    3 timed solves (CROSSOVER_ORACLE_REPS where it is more than 5x slower),
+    equal decisions. The crossover is the smallest n from which the card's median
     beats the oracle's at n and every larger n (0 from the first)."""
     import torch
 
@@ -2615,7 +2686,7 @@ def crossover_phase(dev, its) -> Optional[dict]:
         medians, snaps = {}, {}
         for side, force in (("card", False), ("oracle", True)):
             times = []
-            for rep in range(3 if force else 4):  # the card's first solve warms it up
+            for rep in range(CROSSOVER_ORACLE_REPS.get(n, 3) if force else 4):  # the card's first solve warms it up
                 fixtures.reset_rng(42)
                 pods = fixtures.make_generic_pods(n)
                 t0 = time.monotonic()
@@ -2627,12 +2698,12 @@ def crossover_phase(dev, its) -> Optional[dict]:
                 if sched.used_tpu is force:
                     log(f"crossover n={n}: the {side} side took the other route ({sched.fallback_kind})")
                     return None
-            medians[side] = sorted(times)[1]
+            medians[side] = sorted(times)[len(times) // 2]
             snaps[side] = results_snapshot(res, pods)
         same = snaps["card"] == snaps["oracle"]
         table.append({"n": n, "card_s": medians["card"], "oracle_s": medians["oracle"], "equal": same})
-        log(f"crossover n={n}: card {medians['card']:.4f}s, oracle {medians['oracle']:.4f}s (medians of 3), "
-            f"decisions {'equal' if same else 'DIFFERENT'}")
+        log(f"crossover n={n}: card {medians['card']:.4f}s (median of 3), oracle {medians['oracle']:.4f}s (median of "
+            f"{CROSSOVER_ORACLE_REPS.get(n, 3)}), decisions {'equal' if same else 'DIFFERENT'}")
         if not same:
             return None
     wins = [r["card_s"] < r["oracle_s"] for r in table]
@@ -2940,6 +3011,680 @@ def sidecar_phase(dev, its, entry_claims: list) -> Optional[dict]:
     return {"launches": launches, "seconds": seconds, "upload_bytes": upload_a, "phases": phases}
 
 
+def cold_start_run(mode: str, dev) -> dict:
+    """One fresh process's first headline solve (phase 14a): with
+    mode "prewarm", `aot.prewarm()` on `dev` first. Returns its seconds,
+    the prewarm's record, the launches, the decisions' digest and each
+    library's build seconds as `_build.build_all` saw them here (0: no
+    nvcc)."""
+    import hashlib
+
+    import torch
+
+    from karpenter_tpu_torch import _build
+    from karpenter_tpu_torch.solver import aot
+    from karpenter_tpu_torch.solver.hybrid import solve_in_process
+
+    out: dict = {"mode": mode}
+    its = build_universe(HEADLINE_TYPES)
+    w = headline_world(HEADLINE_PODS, its)
+    reset_launches()
+    if mode == "prewarm":
+        t0 = time.monotonic()
+        pw = aot.prewarm(device=dev)
+        out["prewarm_s"] = time.monotonic() - t0
+        out["prewarm"] = {k: pw[k] for k in ("completed", "built", "build_seconds", "launched", "skipped")}
+        out["combos"] = {k: {"first_launch_ms": v["first_launch_ms"], "build_seconds": v["build_seconds"]}
+                         for k, v in pw["combos"].items()}
+        out["launches_prewarm"] = launch_counts()
+        reset_launches()
+    t0 = time.monotonic()
+    res, sched = solve_in_process(w.pools, w.ibp, w.pods, device=dev)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    out["first_solve_s"] = time.monotonic() - t0
+    out["since_start_s"] = time.monotonic() - _T0
+    out["used_tpu"] = bool(sched.used_tpu)
+    out["launches_solve"] = launch_counts()
+    out["decisions"] = hashlib.sha256(repr(results_snapshot(res, w.pods)).encode()).hexdigest()
+    out["build"] = {} if dev.type != "cuda" else {k: v["seconds"] for k, v in _build.build_all().items()}
+    return out
+
+
+def cold_start_worker(mode: str) -> int:
+    """`python3 chip_smoke.py --cold-start prewarm|plain`: cold_start_run
+    on the card in this fresh process, printed as one COLD_START line."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; this test needs the card", file=sys.stderr)
+        return 2
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    print("COLD_START " + json.dumps(cold_start_run(mode, torch.device("cuda"))), flush=True)
+    return 0
+
+
+def cold_start_phase(dev, its, steady_s: float) -> Optional[dict]:
+    """Phase 14a. Two fresh processes on the card after this one built the
+    kernels: A runs `aot.prewarm()` then the headline's first solve, B the
+    same first solve without a prewarm. Neither may invoke nvcc, A's
+    prewarm must complete, and A's decisions must equal B's. A's first
+    solve is printed beside B's and the headline phase's steady median.
+    Then a SolverServer(prewarm=True) on the card in this process, its
+    default prewarm held after its first combo: a solve sent then is
+    served by the oracle (`prewarm_degraded` on the server's trace) with
+    the in-process decisions; after ready, the same solve is on the card.
+    Returns {"launches_prewarm", "seconds", ...}, or None on a failed check."""
+    import shutil
+    import tempfile
+    import threading
+
+    import torch
+
+    from karpenter_tpu_torch import tracing
+    from karpenter_tpu_torch.solver import aot
+    from karpenter_tpu_torch.solver.hybrid import solve_in_process
+    from karpenter_tpu_torch.solver.oracle import SchedulerOptions
+    from karpenter_tpu_torch.solver.service import SolverClient, SolverServer
+    from karpenter_tpu_torch.testing import fixtures
+
+    t_phase = time.monotonic()
+    bad = []
+    runs = {}
+    here = os.path.dirname(os.path.abspath(__file__))
+    for mode in ("prewarm", "plain"):
+        t0 = time.monotonic()
+        proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--cold-start", mode], cwd=here,
+                              capture_output=True, text=True, timeout=COLD_START_TIMEOUT)
+        line = next((ln for ln in proc.stdout.splitlines() if ln.startswith("COLD_START ")), None)
+        if proc.returncode != 0 or line is None:
+            log(f"cold start ({mode}): exit {proc.returncode}; {proc.stderr[-2000:]}")
+            return None
+        runs[mode] = json.loads(line[len("COLD_START "):])
+        runs[mode]["process_s"] = time.monotonic() - t0
+    a, b = runs["prewarm"], runs["plain"]
+    nvcc = {m: {k: v for k, v in r["build"].items() if v} for m, r in runs.items()}
+    log(f"cold start A (prewarm): process {a['process_s']:.1f}s, prewarm {a['prewarm_s']:.2f}s "
+        f"{json.dumps(a['prewarm'])}, first solve {a['first_solve_s']:.3f}s ({a['since_start_s']:.1f}s after the "
+        f"script's import), launches in the prewarm {json.dumps(a['launches_prewarm'])}")
+    log(f"cold start A's manifest (first-launch ms, build s): {json.dumps(a['combos'])}")
+    log(f"cold start B (no prewarm): process {b['process_s']:.1f}s, first solve {b['first_solve_s']:.3f}s "
+        f"({b['since_start_s']:.1f}s after the script's import)")
+    log(f"first headline solve: A {a['first_solve_s']:.3f}s (after a {a['prewarm_s']:.2f}s prewarm), "
+        f"B {b['first_solve_s']:.3f}s, steady (the headline phase's median) {steady_s:.3f}s; "
+        f"decisions A vs B {'equal' if a['decisions'] == b['decisions'] else 'DIFFERENT'}; "
+        f"nvcc in A and B: {nvcc}")
+    if any(nvcc.values()) or not all(r["build"] for r in runs.values()):
+        bad.append("nvcc in a fresh process")
+    if not a["prewarm"]["completed"] or a["prewarm"]["built"]:
+        bad.append("prewarm")
+    if a["decisions"] != b["decisions"] or not (a["used_tpu"] and b["used_tpu"]):
+        bad.append("first solves")
+
+    # the sidecar's default prewarm, held after its first combo
+    os.makedirs("build", exist_ok=True)
+    sock_dir = os.path.relpath(tempfile.mkdtemp(prefix="prewarm-", dir="build"))
+    gate = threading.Event()
+    real = aot.prewarm
+    combos_seen = []
+
+    def held(**kw):
+        def progress(name, seconds):
+            combos_seen.append(name)
+            if len(combos_seen) == 1:
+                gate.wait(COLD_START_TIMEOUT)
+
+        out = real(progress=progress, **kw)
+        if not combos_seen:  # every combo already warm here: hold the ready flip instead
+            gate.wait(COLD_START_TIMEOUT)
+        return out
+
+    fixtures.reset_rng(42)
+    pods = fixtures.make_generic_pods(PREWARM_DEGRADED_PODS)
+    pools = [fixtures.node_pool(name="default")]
+    ibp = {"default": its}
+    kernels = SchedulerOptions(tpu_min_pods=0)
+    local, _ = solve_in_process(pools, ibp, pods, options=kernels, device=dev)
+    want = results_snapshot(local, pods)
+    aot.prewarm = held
+    srv = SolverServer(os.path.join(sock_dir, "solver.sock"), prewarm=True, device=dev)
+    try:
+        srv.start()
+        c = SolverClient(srv.socket_path, request_timeout=SIDECAR_TIMEOUT)
+        status = c.ping_status()["status"]
+        tr = tracing.new_trace("sidecar_client", side="local")
+        t0 = time.monotonic()
+        got = c.solve(pools, ibp, pods, options=kernels, trace=tr)
+        dt_degraded = time.monotonic() - t0
+        tr.finish("ok")
+        server = [t for t in tracing.RING.find(tr.trace_id) if t.side == "server"]
+        marks = [s_.attrs.get("reason") for t in server for s_ in t.spans if s_.name == "oracle_fallback"]
+        gate.set()
+        ready = srv.ready.wait(COLD_START_TIMEOUT)
+        t0 = time.monotonic()
+        got2 = c.solve(pools, ibp, pods, options=kernels)
+        torch.cuda.synchronize()
+        dt_ready = time.monotonic() - t0
+        status2 = c.ping_status()["status"]
+        c.close()
+    finally:
+        gate.set()
+        aot.prewarm = real
+        srv.stop()
+        shutil.rmtree(sock_dir, ignore_errors=True)
+    same = wire_parts(got, pods) == want and wire_parts(got2, pods) == want
+    log(f"sidecar prewarm on the card: PONG {status!r} mid-prewarm; a {len(pods)}-pod solve then {dt_degraded:.3f}s, "
+        f"used_tpu={got['used_tpu']}, server trace {marks}; ready={ready} after {len(combos_seen)} combos, PONG "
+        f"{status2!r}; the same solve {dt_ready:.3f}s used_tpu={got2['used_tpu']}; both vs solve_in_process: "
+        f"{'equal' if same else 'DIFFERENT'}; degraded solves {srv.oracle_degraded_solves}")
+    if status != "prewarming" or got["used_tpu"] or marks != ["prewarm_degraded"] or srv.oracle_degraded_solves != 1:
+        bad.append("mid-prewarm degrade")
+    if not ready or status2 != "ready" or not got2["used_tpu"] or not same:
+        bad.append("after the prewarm")
+    if aot.PREWARM_READY.value() != 1.0 or tpu_errors():
+        bad.append("prewarm gauge or tpu_error")
+    seconds = time.monotonic() - t_phase
+    log(f"cold start phase: {seconds:.1f}s; {'failed: ' + ', '.join(bad) if bad else 'ok'}")
+    if bad:
+        return None
+    return {"launches_prewarm": a["launches_prewarm"], "seconds": seconds, "prewarm_s": a["prewarm_s"],
+            "first_solve_s": {"prewarm": a["first_solve_s"], "plain": b["first_solve_s"], "steady": steady_s},
+            "combos": sorted(a["combos"])}
+
+
+def operator_cluster(n_pods: int, n_pvc: int, its, dev, force_oracle: bool = False, probe_port=None):
+    """The port's Operator over a KWOK provider holding `its`, with one
+    default NodePool that consolidates at once (consolidateAfter 0, a 100%
+    budget) and entry_cluster's pending pods (the c6 mix at n_pods, n_pvc
+    PVC pods in ENTRY_ZONE); Options(tpu_min_pods=0) on `dev`, or the
+    oracle's with force_oracle."""
+    from karpenter_tpu_torch.api.objects import Budget
+    from karpenter_tpu_torch.controllers.kube import FakeClock
+    from karpenter_tpu_torch.controllers.operator import Operator
+    from karpenter_tpu_torch.options import Options
+    from karpenter_tpu_torch.testing import fixtures
+
+    op = Operator(clock=FakeClock(), options=Options(tpu_min_pods=0, probe_port=probe_port),
+                  force_oracle=force_oracle, device=None if force_oracle else dev)
+    op.raw_cloud.types = its
+    op.raw_cloud._by_name = {it.name: it for it in its}
+    op.kube.create("NodePool", fixtures.node_pool(name="default", budgets=[Budget(nodes="100%")],
+                                                  consolidate_after_seconds=0.0))
+    create_entry_pods(op.kube, n_pods, n_pvc)
+    return op
+
+
+class OperatorRun(NamedTuple):
+    """What operator_run observed: the ticks of each half, host seconds by
+    controller, the launches of each half, the Commands started, the
+    claims after provisioning, the nodes before and after consolidation."""
+
+    settle_ticks: int
+    settled: bool
+    consolidate_ticks: int
+    phases: dict
+    launches_settle: dict
+    launches_consolidate: dict
+    commands: list
+    claims: list
+    nodes_provisioned: set
+    nodes_final: set
+    host_s: dict
+
+
+def node_names(op) -> set:
+    """The names of the Nodes in the Operator's store (read in place: a
+    list() would copy every Node)."""
+    return set(op.kube._store("Node"))
+
+
+def operator_run(op, max_ticks: int, still_ticks: int, consolidate: bool = True, churn: bool = True) -> OperatorRun:
+    """Phase 14's scenario on `op`: run_until_settled (provisioning), then,
+    with `consolidate`, every pod RUNNING, every pod on every second node
+    (by name) deleted (with `churn`), and ticks until the node set holds
+    still for `still_ticks` ticks with no Command pending or in flight and nothing
+    deleting, or `max_ticks` run out; past the budget the controller only
+    finishes what it started (validates a pending Command, drains what is
+    in flight). Each half with its launch counts reset just before and read
+    just after."""
+    import torch
+
+    from karpenter_tpu_torch.api.objects import PodPhase
+
+    phases: dict = {}
+    commands: list = []
+    step, reconcile = op.step, op.disruption.reconcile
+    d = op.disruption
+
+    def timed_step(advance_seconds: float = 1.0) -> None:
+        step(advance_seconds)
+        for k, v in op.last_phases.items():
+            phases[k] = phases.get(k, 0.0) + v
+
+    def recorded_reconcile():
+        cmd = reconcile()
+        if cmd is not None:
+            commands.append(command_record(cmd))
+        return cmd
+
+    def finishing():
+        # past the budget: a pending Command is validated (and started or
+        # dropped); otherwise only the queue runs, so nothing new is proposed
+        if d._pending_validation is not None:
+            return recorded_reconcile()
+        d.queue.reconcile()
+        return None
+
+    def busy() -> bool:
+        return d._pending_validation is not None or d.queue.busy or any(
+            x.metadata.deletion_timestamp is not None
+            for kind in ("Node", "NodeClaim") for x in op.kube._store(kind).values())
+
+    op.step, d.reconcile = timed_step, recorded_reconcile
+    sync = torch.cuda.synchronize if torch.cuda.is_available() else (lambda: None)
+    sync()
+    reset_launches()
+    t0 = time.monotonic()
+    ticks = op.run_until_settled(max_ticks=max_ticks)
+    sync()
+    host = {"settle": time.monotonic() - t0}
+    settled = op.settled()
+    launches_settle = launch_counts()
+    claims = claims_view(op.kube.list("NodeClaim"))
+    provisioned = node_names(op)
+    n = 0
+    launches_consolidate: dict = {}
+    if consolidate:
+        t0 = time.monotonic()
+        for p in op.kube.list("Pod", lambda p: churn and p.phase != PodPhase.RUNNING):
+            p.phase = PodPhase.RUNNING
+            op.kube.update("Pod", p)
+        emptied = set(sorted(provisioned)[1::2]) if churn else set()
+        for p in op.kube.list("Pod", lambda p: p.node_name in emptied):
+            op.kube.delete("Pod", p.name)
+        host["churn"] = time.monotonic() - t0
+        sync()
+        reset_launches()
+        t0 = time.monotonic()
+        still = 0
+        while n < max_ticks and still < still_ticks:
+            before = node_names(op)
+            op.step(2.0)
+            n += 1
+            still = still + 1 if node_names(op) == before and not busy() else 0
+        d.reconcile = finishing
+        wind_down = 0
+        while busy() and wind_down < max_ticks:
+            op.step(2.0)
+            wind_down += 1
+        n += wind_down
+        sync()
+        host["consolidate"] = time.monotonic() - t0
+        launches_consolidate = launch_counts()
+    op.step, d.reconcile = step, reconcile
+    return OperatorRun(ticks, settled, n, phases, launches_settle, launches_consolidate, commands, claims, provisioned,
+                       node_names(op), host)
+
+
+def operator_checks(op, run: OperatorRun, n_pvc: int = 0, provisioning: bool = True, sweep: bool = False,
+                    decode_kernel: bool = True) -> list:
+    """Phase 14's checks on a finished operator_run, each a failure's name:
+    with `provisioning`, the settle's (settled, one node a claim, the
+    kernel route: K1, K3, K4, and K5 with `decode_kernel`, which decodes
+    from tpu._DEDUP_DECODE_MIN claim slots up; the PVC pods in
+    ENTRY_ZONE); where the consolidation half ran, a Command executed and
+    its nodes drained and gone (with `sweep`, K8 or K6 launched in the
+    run: a Command's search may start in the settle's last tick); always, every pod bound to a
+    live node within its allocatable, nothing pending, every claim
+    launched, registered and initialized."""
+    from karpenter_tpu_torch.api import labels as well_known
+    from karpenter_tpu_torch.api.objects import COND_INITIALIZED, COND_LAUNCHED, COND_REGISTERED
+    from karpenter_tpu_torch.utils import resources as res
+
+    bad = []
+    if provisioning:
+        if not run.settled:
+            bad.append("not settled")
+        if not run.claims or len(run.nodes_provisioned) != len(run.claims):
+            bad.append("claims and nodes")
+        k_runs = run.launches_settle.get("run_step", 0) + run.launches_settle.get("run_step_relax", 0)
+        needed = ("typeok_screen", "run_arrays") + (("dedup_rows",) if decode_kernel else ())
+        if min(run.launches_settle.get(k, 0) for k in needed) < 1 or not k_runs:
+            bad.append("provisioning launches")
+        if op.provisioner.last_solver_used != "tpu":
+            bad.append("route")
+    if tpu_errors():
+        bad.append("tpu_error")
+    if run.consolidate_ticks:
+        if not run.commands:
+            bad.append("no Command executed")
+        removed = {name for cmd in run.commands for name in cmd["nodes"]}
+        terminated = {e.name for e in op.recorder.for_reason("Terminated")}
+        if not removed <= terminated or removed & run.nodes_final:
+            bad.append("the Commands' nodes not drained and removed")
+        k_sweep = sum(counts.get(k, 0) for counts in (run.launches_settle, run.launches_consolidate)
+                      for k in ("set_sweep", "fast_sweep"))
+        if sweep and not k_sweep:
+            bad.append("no K8 or K6 launch")
+    if op.kube.pending_pods():
+        bad.append("pending pods")
+    live = {n.name: n for n in op.kube.list("Node")}
+    used: dict = {}
+    pods = op.kube.list("Pod")
+    for p in pods:
+        if p.node_name not in live:
+            bad.append("a pod off the live nodes")
+            break
+        used[p.node_name] = res.merge(used.get(p.node_name, {}), p.requests)
+    if any(not res.fits(u, live[n].allocatable) for n, u in used.items() if n in live):
+        bad.append("a node's pods exceed its allocatable")
+    conds = (COND_LAUNCHED, COND_REGISTERED, COND_INITIALIZED)
+    if any(tuple(c.status.conditions.get(k) for k in conds) != ("True",) * 3 for c in op.kube.list("NodeClaim")):
+        bad.append("a claim not launched, registered and initialized")
+    if provisioning and not run.consolidate_ticks:
+        stateful = [p for p in pods if p.name.startswith("stateful-")]
+        zones = {live[p.node_name].metadata.labels.get(well_known.TOPOLOGY_ZONE_LABEL_KEY)
+                 for p in stateful if p.node_name in live}
+        if n_pvc and (zones != {ENTRY_ZONE} or len(stateful) != n_pvc):
+            bad.append(f"PVC pods' zones {sorted(map(str, zones))} ({len(stateful)} of {n_pvc})")
+    return bad
+
+
+def command_record(cmd) -> dict:
+    """A started Command as phase 14 keeps it (taken when it starts: its
+    candidates' state goes with their nodes)."""
+    from karpenter_tpu_torch.controllers.disruption.types import command_savings
+
+    return {"view": command_view(cmd), "nodes": [c.name for c in cmd.candidates], "reason": cmd.reason,
+            "decision": cmd.decision, "replacements": len(cmd.replacements),
+            "usd_per_hour": round(command_savings(cmd), 6)}
+
+
+def show_commands(commands) -> list:
+    return [{k: (len(v) if k == "nodes" else v) for k, v in c.items() if k != "view"} for c in commands]
+
+
+class PartitionReferee:
+    """(c)'s oracle side, as a context manager: a force_oracle
+    TorchHybridScheduler solves by solve_partition, the referee's rule for
+    the kernel route, so that its claims come in the kernels' order and its
+    stateful pods after the rest. Without it the Provisioner would name the
+    same claims differently, and a later round, which sees nodes by name,
+    would decide differently. The kernel route's own solves are left as
+    they are."""
+
+    def __enter__(self):
+        from karpenter_tpu_torch.solver import hybrid as H
+
+        self._cls = H.TorchHybridScheduler
+        orig = self._orig = self._cls._oracle_solve
+
+        def oracle_solve(sched, tr, pods):
+            if sched.tpu is not None:  # the kernel route's continuation
+                return orig(sched, tr, pods)
+            return solve_partition(lambda ps: orig(sched, tr, ps), sched.oracle, pods,
+                                   sched.opts.ignore_preferences)
+
+        self._cls._oracle_solve = oracle_solve
+        return self
+
+    def __exit__(self, *exc):
+        self._cls._oracle_solve = self._orig
+        return False
+
+
+def operator_oracle_run() -> dict:
+    """(c)'s oracle side: the DECISIONS_PODS scenario through the port's
+    Operator(force_oracle=True) under the PartitionReferee, its claims named
+    from OPERATOR_CLAIM_SEQ0 like the card's; what (c) compares and shows of
+    it."""
+    from karpenter_tpu_torch.controllers import provisioning as P
+
+    P._claim_name_seq[0] = OPERATOR_CLAIM_SEQ0
+    t0 = time.monotonic()
+    its = build_universe(HEADLINE_TYPES)
+    o = operator_cluster(*DECISIONS_PODS, its, None, force_oracle=True)
+    with PartitionReferee():
+        r = operator_run(o, OPERATOR_TICKS, OPERATOR_STILL_TICKS)
+    o.stop()
+    return {"claims": r.claims, "first_command": [c["view"] for c in r.commands[:1]],
+            "nodes": sorted(r.nodes_final), "commands": show_commands(r.commands), "ticks": [r.settle_ticks,
+            r.consolidate_ticks], "nodes_provisioned": len(r.nodes_provisioned), "seconds": time.monotonic() - t0,
+            "host_s": r.host_s}
+
+
+def operator_oracle_worker() -> int:
+    """`python3 chip_smoke.py --operator-oracle`: operator_oracle_run in this
+    process (the oracle alone: no card), printed as one OPERATOR_ORACLE
+    line."""
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    print("OPERATOR_ORACLE " + json.dumps(operator_oracle_run()), flush=True)
+    return 0
+
+
+class OperatorOracle:
+    """(c)'s oracle side in a process of its own (operator_oracle_worker).
+    It is host work alone, so it is started as soon as the kernels are built
+    and runs beside the card's phases; `close` stops it on any way out."""
+
+    def __init__(self):
+        self.proc = None
+        self.log = None
+        self.t_start = 0.0
+
+    def start(self) -> None:
+        os.makedirs("build", exist_ok=True)
+        # its log goes to a file: a pipe nobody reads until the end would fill
+        self.log = open(os.path.join("build", "operator-oracle.log"), "w+")
+        self.t_start = time.monotonic()
+        self.proc = subprocess.Popen([sys.executable, os.path.abspath(__file__), "--operator-oracle"],
+                                     cwd=os.path.dirname(os.path.abspath(__file__)), stdout=subprocess.PIPE,
+                                     stderr=self.log, text=True)
+
+    def result(self) -> Optional[dict]:
+        """Its OPERATOR_ORACLE record, waited for at most
+        OPERATOR_ORACLE_TIMEOUT seconds; None (and its log's tail printed)
+        when it failed."""
+        if self.proc is None:
+            log("operator (c) oracle process: never started")
+            return None
+        t0 = time.monotonic()
+        try:
+            out, _ = self.proc.communicate(timeout=OPERATOR_ORACLE_TIMEOUT)
+        except subprocess.TimeoutExpired:
+            self.proc.kill()
+            out, _ = self.proc.communicate()
+        line = next((ln for ln in out.splitlines() if ln.startswith("OPERATOR_ORACLE ")), None)
+        if self.proc.returncode != 0 or line is None:
+            self.log.seek(0)
+            log(f"operator (c) oracle process: exit {self.proc.returncode}; {self.log.read()[-2000:]}")
+            return None
+        rec = json.loads(line[len("OPERATOR_ORACLE "):])
+        rec["waited_s"] = time.monotonic() - t0
+        rec["started_s"] = self.t_start - _T0
+        return rec
+
+    def close(self) -> None:
+        if self.proc is not None and self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.communicate()
+        if self.log is not None:
+            self.log.close()
+
+
+def operator_phase(dev, its, oracle: OperatorOracle) -> Optional[dict]:
+    """Phase 14b-d: the port's Operator on the card, with
+    Options(tpu_min_pods=0), over the headline's types and
+    operator_cluster's pool (consolidateAfter 0, a 100% budget).
+
+    (b) The c6 mix at C6_PODS plus ENTRY_PVC_PODS PVC pods:
+        run_until_settled binds every pod within its node's allocatable on
+        the kernel route (K1, K3, K4, K5), the PVC pods in ENTRY_ZONE, every
+        claim launched, registered and initialized by the lifecycle
+        controller. The consolidation half (the host's ticks at the full
+        width would not fit the run's time) runs on (c)'s card cluster and
+        on an under-utilized fleet of OPERATOR_FLEET_NODES one-pod nodes
+        (fixtures.underutilized_operator): on each a Command proposed,
+        validated and executed by the OrchestrationQueue, its nodes drained
+        by NodeTermination and gone, every surviving pod bound; on the
+        fleet through K8 or K6 (the c6 mix fails the sweeps' fast gates,
+        so its multi-node search bisects on simulations, which run on the
+        kernels).
+    (c) DECISIONS_PODS through the card's Operator and through the port's
+        Operator(force_oracle=True) under the PartitionReferee (`oracle`,
+        started earlier in a process of its own), on fresh clusters: equal
+        claims after provisioning, an equal first Command, an equal final
+        node set.
+    (d) (b)'s probe server: /readyz 200, /debug/programs with the
+        prewarm's combos, /metrics with karpenter_solver_prewarm_ready 1;
+        two headline solves under profiling.device_trace write a Chrome
+        trace that names the kernels they launched.
+
+    Returns {"launches", "seconds", ...}, or None on a failed check."""
+    import urllib.error
+    import urllib.request
+
+    from karpenter_tpu_torch import profiling
+    from karpenter_tpu_torch.controllers import provisioning as P
+    from karpenter_tpu_torch.options import Options
+    from karpenter_tpu_torch.solver.hybrid import solve_in_process
+    from karpenter_tpu_torch.testing import fixtures
+
+    t_phase = time.monotonic()
+    bad = []
+    launches_op: dict = {}
+    phases: dict = {}
+    n_ticks = 0
+
+    def add(run):
+        nonlocal n_ticks
+        for counts in (run.launches_settle, run.launches_consolidate):
+            for k, v in counts.items():
+                launches_op[k] = launches_op.get(k, 0) + v
+        for k, v in run.phases.items():
+            phases[k] = phases.get(k, 0.0) + v
+        n_ticks += run.settle_ticks + run.consolidate_ticks
+
+    # (b) provisioning at full width, and (d) its probes
+    t0 = time.monotonic()
+    op = operator_cluster(C6_PODS, ENTRY_PVC_PODS, its, dev, probe_port=0)
+    log(f"operator (b): Operator and {C6_PODS + ENTRY_PVC_PODS} pending pods built in {time.monotonic() - t0:.1f}s")
+    try:
+        run = operator_run(op, OPERATOR_TICKS, OPERATOR_STILL_TICKS, consolidate=False)
+        add(run)
+        bad += [f"(b) {b}" for b in operator_checks(op, run, ENTRY_PVC_PODS)]
+        log(f"operator (b) run_until_settled: settled={run.settled} in {run.settle_ticks} ticks, "
+            f"{run.host_s['settle']:.2f}s host; {len(run.claims)} claims, {len(run.nodes_provisioned)} nodes; "
+            f"route {op.provisioner.last_solver_used}; launches {run.launches_settle}; Commands during the settle "
+            f"{json.dumps(show_commands(run.commands))}")
+        log(f"operator (b) host seconds a tick by controller (mean of {run.settle_ticks} ticks): "
+            + json.dumps({k: round(v / max(run.settle_ticks, 1), 4) for k, v in run.phases.items()}))
+        base = f"http://127.0.0.1:{op.probes.port}"
+
+        def get(path):
+            try:
+                with urllib.request.urlopen(base + path, timeout=30) as r:
+                    return r.status, r.read().decode()
+            except urllib.error.HTTPError as e:
+                return e.code, e.read().decode()
+
+        ready = get("/readyz")[0]
+        code, body = get("/debug/programs")
+        programs = json.loads(body).get("programs", {}) if code == 200 else {}
+        metrics_ok = "karpenter_solver_prewarm_ready 1" in get("/metrics")[1]
+        log(f"operator (d) probes: /readyz {ready}; /debug/programs {code} with {len(programs)} combos; "
+            f"/metrics has karpenter_solver_prewarm_ready 1: {metrics_ok}")
+        if ready != 200 or not programs or not metrics_ok:
+            bad.append("(d) probes")
+    finally:
+        op.stop()
+    del op
+
+    # (d) a solve under the device trace
+    logdir = os.path.join("build", "device_trace")
+    t0 = time.monotonic()
+    with profiling.device_trace(logdir):
+        # two solves: the trace has dropped a kernel's event before (PERF.md §7)
+        for _ in range(2):
+            w = headline_world(HEADLINE_PODS, its)
+            solve_in_process(w.pools, w.ibp, w.pods, device=dev)
+    with open(os.path.join(logdir, profiling.TRACE_NAME)) as f:
+        events = json.load(f).get("traceEvents", [])
+    names = {e.get("name", "") for e in events if e.get("cat") == "kernel"}
+    traced = sorted(k for k in TRACE_KERNELS if any(k in n for n in names))
+    log(f"operator (d) device_trace: {time.monotonic() - t0:.1f}s, {len(events)} events, {len(names)} kernel names; "
+        f"the path's kernels named: {traced} of {list(TRACE_KERNELS)}")
+    if traced != sorted(TRACE_KERNELS):
+        bad.append("(d) device_trace")
+
+    # (b) the consolidation half where the sweeps apply: an under-utilized
+    # fleet of one-pod nodes provisioned through the Operator (the
+    # fixtures' underutilized_operator), ticked until it holds still
+    t0 = time.monotonic()
+    fop = fixtures.underutilized_operator(OPERATOR_FLEET_NODES, device=dev, force_oracle=False,
+                                          options=Options(tpu_min_pods=0))
+    built_s = time.monotonic() - t0
+    fr = operator_run(fop, OPERATOR_TICKS, OPERATOR_STILL_TICKS, churn=False)
+    fop.stop()
+    add(fr)
+    bad += [f"(b) fleet {b}" for b in operator_checks(fop, fr, provisioning=False, sweep=True)]
+    log(f"operator (b) under-utilized fleet of {OPERATOR_FLEET_NODES} nodes (built through the Operator in "
+        f"{built_s:.1f}s): {fr.consolidate_ticks} ticks, {fr.host_s['consolidate']:.2f}s host; "
+        f"{len(fr.nodes_provisioned)} -> {len(fr.nodes_final)} nodes; Commands {json.dumps(show_commands(fr.commands))}; "
+        f"launches {fr.launches_consolidate}")
+    del fop
+
+    # (c) the card's Operator against the oracle's; the card's run is (b)'s
+    # consolidation half
+    n, n_pvc = DECISIONS_PODS
+    P._claim_name_seq[0] = OPERATOR_CLAIM_SEQ0
+    t0 = time.monotonic()
+    o = operator_cluster(n, n_pvc, its, dev)
+    r = operator_run(o, OPERATOR_TICKS, OPERATOR_STILL_TICKS)
+    o.stop()
+    add(r)
+    bad += [f"(b, c) {b}" for b in operator_checks(o, r, n_pvc, decode_kernel=False)]
+    # as the oracle's process printed its own (JSON: tuples become lists)
+    card = (r.claims, json.loads(json.dumps([c["view"] for c in r.commands[:1]])), sorted(r.nodes_final))
+    log(f"operator (c) card: {n} + {n_pvc} pods, {r.settle_ticks} + {r.consolidate_ticks} ticks, "
+        f"{time.monotonic() - t0:.1f}s ({json.dumps({k: round(v, 2) for k, v in r.host_s.items()})} host); "
+        f"{len(r.claims)} claims; {len(r.nodes_provisioned)} -> {len(r.nodes_final)} nodes; Commands "
+        f"{json.dumps(show_commands(r.commands))}; launches {r.launches_settle} then {r.launches_consolidate}")
+    log(f"operator (c) card host seconds a tick by controller (mean of {r.settle_ticks + r.consolidate_ticks} ticks): "
+        + json.dumps({k: round(v / max(r.settle_ticks + r.consolidate_ticks, 1), 4) for k, v in r.phases.items()}))
+    del o
+    orc = oracle.result()
+    if orc is None:
+        return None
+    log(f"operator (c) oracle (its own process, started at {orc['started_s']:.1f}s, waited {orc['waited_s']:.1f}s "
+        f"for): {orc['ticks'][0]} + {orc['ticks'][1]} ticks, {orc['seconds']:.1f}s "
+        f"({json.dumps({k: round(v, 2) for k, v in orc['host_s'].items()})} host); {len(orc['claims'])} claims; "
+        f"{orc['nodes_provisioned']} -> {len(orc['nodes'])} nodes; Commands {json.dumps(orc['commands'])}")
+    orc_views = (orc["claims"], orc["first_command"], orc["nodes"])
+    same = [card[i] == orc_views[i] for i in range(3)]
+    log(f"operator (c) card vs oracle Operator: claims {'equal' if same[0] else 'DIFFERENT'}, first Command "
+        f"{'equal' if same[1] else 'DIFFERENT'}, final nodes {'equal' if same[2] else 'DIFFERENT'}")
+    if not all(same):
+        bad.append("(c) card against the oracle")
+        if not same[0]:
+            only_card, only_orc = sorted(set(card[0]) - set(orc_views[0])), sorted(set(orc_views[0]) - set(card[0]))
+            log(f"operator (c) claims only the card made: {len(only_card)}, only the oracle: {len(only_orc)}; "
+                f"first of each: {only_card[:1]} / {only_orc[:1]}")
+        if not same[1]:
+            log(f"operator (c) first Commands: card {card[1]} / oracle {orc_views[1]}")
+        if not same[2]:
+            log(f"operator (c) final nodes only the card kept: {sorted(set(card[2]) - set(orc_views[2]))[:20]}, "
+                f"only the oracle: {sorted(set(orc_views[2]) - set(card[2]))[:20]}")
+    log(f"operator host seconds by controller over its {n_ticks} card ticks: "
+        + json.dumps({k: round(v, 3) for k, v in phases.items()}))
+    seconds = time.monotonic() - t_phase
+    log(f"operator phase: {seconds:.1f}s; launches on its main paths {json.dumps(launches_op)}; "
+        f"{'failed: ' + ', '.join(bad) if bad else 'ok'}")
+    if bad:
+        return None
+    return {"launches": launches_op, "seconds": seconds, "ticks": n_ticks, "commands": show_commands(r.commands)}
+
+
 def device_failure_check(dev, its) -> bool:
     """A failure of the card inside a solve propagates out of
     TorchHybridScheduler.solve instead of being re-solved on the oracle:
@@ -2990,6 +3735,14 @@ def device_failure_check(dev, its) -> bool:
 
 
 def main() -> int:
+    oracle = OperatorOracle()
+    try:
+        return _main(oracle)
+    finally:
+        oracle.close()
+
+
+def _main(oracle: OperatorOracle) -> int:
     try:
         import torch
     except ImportError:
@@ -3026,6 +3779,7 @@ def main() -> int:
         snc_fleet = single_node_world()
         log(f"sweep fleets built on the host while nvcc runs: {time.monotonic() - t0:.1f}s")
         built = building.result()
+    oracle.start()  # phase 14c's oracle side: host work alone, beside the card's phases
     log(f"build: {time.monotonic() - t0:.1f}s wall for {len(built)} libraries (parallel nvcc)")
     for name, info in built.items():
         log(f"  {name}: {info['seconds']:.1f}s")
@@ -3680,6 +4434,15 @@ def main() -> int:
     if sidecar is None:
         return 1
 
+    # ---- 13c. process start: fresh processes' first solve with and without
+    # the prewarm, the sidecar's prewarm; then the Operator's control loop ----
+    cold = cold_start_phase(dev, its, med)
+    if cold is None:
+        return 1
+    operator = operator_phase(dev, its, oracle)
+    if operator is None:
+        return 1
+
     # ---- 14. K1, K4 and K5 apart: device time (profiler) and the wrapper's
     # host time a call, beside the launch floor (an empty kernel) ----
     floor = {"device_ms": device_ms(lambda: T.empty_launch(dev), 200, ("empty_kernel",)),
@@ -3750,6 +4513,8 @@ def main() -> int:
         if r["name"] in CONSOLIDATION_ROWS:
             r["launches_consolidation"] = sum(consolidation["launches"].get(k, 0) for k in CONSOLIDATION_ROWS[r["name"]])
         r["launches_sidecar"] = sum(sidecar["launches"].get(k, 0) for k in SIDECAR_ROWS.get(r["name"], ()))
+        r["launches_operator"] = sum(operator["launches"].get(k, 0) for k in ROW_COUNTERS.get(r["name"], ()))
+        r["launches_prewarm"] = sum(cold["launches_prewarm"].get(k, 0) for k in ROW_COUNTERS.get(r["name"], ()))
     log(f"chip_smoke: {time.monotonic() - t_start:.1f}s in all")
     print(json.dumps({"kernels": kernels}))
     print(smi)
@@ -3765,4 +4530,8 @@ def _small_types(sizes=(2, 8, 32)):
 
 
 if __name__ == "__main__":
+    if len(sys.argv) == 3 and sys.argv[1] == "--cold-start":
+        sys.exit(cold_start_worker(sys.argv[2]))
+    if len(sys.argv) == 2 and sys.argv[1] == "--operator-oracle":
+        sys.exit(operator_oracle_worker())
     sys.exit(main())

@@ -17,6 +17,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -80,7 +81,12 @@ _LOCK = threading.RLock()
 
 def build_all() -> dict:
     """Compile every source not yet built for this hash, all at once.
-    Returns {name: {"path", "seconds", "log"}} (seconds 0 when reused)."""
+    Returns {name: {"path", "seconds", "log"}} (seconds 0 when reused; the
+    log is the compiler's, kept in `<hash>.logs/` beside the libraries).
+
+    This hash-keyed directory is the port's persistent build cache (the
+    counterpart of the JAX package's compilation cache): a process that
+    finds it filled invokes no nvcc."""
     with _LOCK:
         return _build_all()
 
@@ -95,7 +101,9 @@ def _build_all() -> dict:
     for name in SOURCES:
         lib = out_dir / f"lib{name}.so"
         if lib.exists():
-            results[name] = {"path": str(lib), "seconds": 0.0, "log": ""}
+            log_file = _log_path(name)
+            log = log_file.read_text(errors="replace") if log_file.exists() else ""
+            results[name] = {"path": str(lib), "seconds": 0.0, "log": log}
             continue
         tmp = out_dir / f"lib{name}.{os.getpid()}.tmp.so"
         cmd = nvcc_command(CSRC / f"{name}.cu", tmp)
@@ -108,6 +116,13 @@ def _build_all() -> dict:
         if proc.returncode != 0:
             failed.append(f"{name}.cu (exit {proc.returncode}):\n{text}")
             continue
+        # the compiler's log (ptxas's registers and shared memory a kernel)
+        # is kept before the library lands, so a reused build still has it
+        log_file = _log_path(name)
+        log_file.parent.mkdir(parents=True, exist_ok=True)
+        log_tmp = log_file.with_name(f"{log_file.name}.{os.getpid()}.tmp")
+        log_tmp.write_text(text)
+        os.replace(log_tmp, log_file)
         os.replace(tmp, lib)  # atomic: concurrent builders never load a partial file
         results[name] = {
             "path": str(lib),
@@ -117,6 +132,48 @@ def _build_all() -> dict:
     if failed:
         raise BuildError("nvcc failed for " + "\n".join(failed))
     return results
+
+
+def _log_path(name: str) -> Path:
+    """Where one source's compiler log is kept: beside the hash directory
+    (`<hash>.logs/`), which holds the libraries alone."""
+    d = build_dir()
+    return d.with_name(d.name + ".logs") / f"lib{name}.log"
+
+
+_ENTRY_RE = re.compile(r"Compiling entry function '([^']+)'")
+_USED_RE = re.compile(r"Used (\d+) registers")
+_SMEM_RE = re.compile(r"(\d+) bytes smem")
+
+
+def _demangle(symbol: str) -> str:
+    """`_Z15run_step_kernelv` -> `run_step_kernel` (the length-prefixed
+    name of an Itanium-mangled function; anything else as it is)."""
+    m = re.match(r"_Z(\d+)", symbol)
+    if not m:
+        return symbol
+    start = m.end()
+    return symbol[start : start + int(m.group(1))]
+
+
+def ptxas_resources(log: str) -> dict:
+    """{kernel: {"registers": n, "smem_bytes": m}} from an `nvcc -Xptxas -v`
+    log: each entry function's registers and static shared memory, as
+    ptxas reports them for the build's architecture (dynamic shared memory,
+    sized at launch, is not in the log)."""
+    out: dict = {}
+    current = None
+    for line in log.splitlines():
+        m = _ENTRY_RE.search(line)
+        if m:
+            current = _demangle(m.group(1))
+            continue
+        u = _USED_RE.search(line)
+        if u and current is not None:
+            s = _SMEM_RE.search(line)
+            out[current] = {"registers": int(u.group(1)), "smem_bytes": int(s.group(1)) if s else 0}
+            current = None
+    return out
 
 
 def library(name: str) -> ctypes.CDLL:

@@ -67,6 +67,12 @@ class NodeSelectorRequirement:
     # nodepool.go NodeSelectorRequirementWithMinValues).
     min_values: Optional[int] = None
 
+    def __deepcopy__(self, memo) -> "NodeSelectorRequirement":
+        # the values are strings, so a new list is a deep copy; a claim's
+        # instance-type requirement holds hundreds of them, and the API
+        # store copies every object it hands out
+        return NodeSelectorRequirement(self.key, self.operator, list(self.values), self.min_values)
+
 
 @dataclass
 class LabelSelectorRequirement:

@@ -192,21 +192,23 @@ class KwokCloudProvider:
         from karpenter_tpu_torch.scheduling import ALLOW_UNDEFINED_WELL_KNOWN_LABELS
 
         reqs = Reqs_.from_node_selector_requirements(node_claim.requirements)
+        # the cheapest compatible offering, the first of the catalog's order
+        # among equal prices: walk the available offerings by price (a
+        # stable sort keeps that order among ties) and stop at the first
+        # compatible one, checking each type once
+        offers = sorted(
+            ((o.price, it, o) for it in self.types for o in it.offerings if o.available),
+            key=lambda c: c[0],
+        )
+        type_ok: dict[int, bool] = {}
         best = None  # (price, it, offering)
-        for it in self.types:
-            if not reqs.is_compatible(
-                it.requirements, ALLOW_UNDEFINED_WELL_KNOWN_LABELS
-            ):
-                continue
-            for o in it.offerings:
-                if not o.available:
-                    continue
-                if not reqs.is_compatible(
-                    o.requirements, ALLOW_UNDEFINED_WELL_KNOWN_LABELS
-                ):
-                    continue
-                if best is None or o.price < best[0]:
-                    best = (o.price, it, o)
+        for price, it, o in offers:
+            ok = type_ok.get(id(it))
+            if ok is None:
+                ok = type_ok[id(it)] = reqs.is_compatible(it.requirements, ALLOW_UNDEFINED_WELL_KNOWN_LABELS)
+            if ok and reqs.is_compatible(o.requirements, ALLOW_UNDEFINED_WELL_KNOWN_LABELS):
+                best = (price, it, o)
+                break
         if best is None:
             raise CreateError(
                 "no instance type offering satisfies the claim requirements",

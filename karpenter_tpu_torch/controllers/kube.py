@@ -203,10 +203,10 @@ class SimKube:
 
     def list(self, kind: str, filter: Optional[Callable[[object], bool]] = None):
         with self._lock:
-            out = [copy.deepcopy(o) for o in self._store(kind).values()]
-            if filter is not None:
-                out = [o for o in out if filter(o)]
-            return out
+            # the filter reads the stored objects (it must not mutate
+            # them), so only the objects it keeps are copied
+            objs = self._store(kind).values()
+            return [copy.deepcopy(o) for o in objs if filter is None or filter(o)]
 
     def update(self, kind: str, obj):
         """Optimistic-concurrency update; finalizer-clearing completes a

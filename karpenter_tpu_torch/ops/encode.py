@@ -169,21 +169,21 @@ def decode_row(vocab: Vocab, reqs: Reqs) -> Requirements:
     values are in the vocab).
     """
     out = Requirements()
+    shifts = np.arange(WORD_BITS, dtype=np.uint32)
     for kid, key in enumerate(vocab.keys):
         if not reqs.defined[kid]:
             continue
         off, words = vocab.word_offset[kid], vocab.words_per_key[kid]
         vals = vocab.values[kid]
 
-        def bit(flat: np.ndarray, vid: int) -> bool:
-            return bool(
-                flat[off + vid // WORD_BITS] >> np.uint32(vid % WORD_BITS)
-                & np.uint32(1)
-            )
+        def set_values(flat: np.ndarray) -> list:
+            # value vid is bit vid % WORD_BITS of word off + vid // WORD_BITS
+            bits = (flat[off:off + words, None] >> shifts) & np.uint32(1)
+            return [vals[vid] for vid in np.flatnonzero(bits.ravel()[:len(vals)])]
 
         minv = None if reqs.minv[kid] < 0 else int(reqs.minv[kid])
         if reqs.other[kid]:
-            excluded = {v for vid, v in enumerate(vals) if bit(reqs.exmask, vid)}
+            excluded = set(set_values(reqs.exmask))
             r = Requirement._raw(
                 key,
                 True,
@@ -193,7 +193,7 @@ def decode_row(vocab: Vocab, reqs: Reqs) -> Requirements:
                 minv,
             )
         else:
-            allowed = [v for vid, v in enumerate(vals) if bit(reqs.mask, vid)]
+            allowed = set_values(reqs.mask)
             r = Requirement(key, Operator.IN, allowed, minv)
         out.add(r)
     return out

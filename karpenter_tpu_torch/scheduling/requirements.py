@@ -178,10 +178,11 @@ class Requirement:
                 v not in other.values and _within_bounds(v, greater_than, less_than)
                 for v in self.values
             )
-        return any(
-            v in other.values and _within_bounds(v, greater_than, less_than)
-            for v in self.values
+        # both In: a shared value within the bounds; walk the smaller set
+        small, large = (
+            (self.values, other.values) if len(self.values) <= len(other.values) else (other.values, self.values)
         )
+        return any(v in large and _within_bounds(v, greater_than, less_than) for v in small)
 
     def has(self, value: str) -> bool:
         """True if the requirement allows the value (requirement.go:252)."""
@@ -377,6 +378,19 @@ class Requirements:
         Custom labels must be *defined* on self; labels in `allow_undefined`
         (usually the well-known set) may be undefined.
         """
+        return self._undefined_error(requirements, allow_undefined) or self.intersects(requirements)
+
+    def is_compatible(
+        self, requirements: "Requirements", allow_undefined: Optional[set[str]] = None
+    ) -> bool:
+        """`compatible(...) is None`, without building the error text."""
+        return self._undefined_error(requirements, allow_undefined) is None and next(
+            self._conflicts(requirements), None
+        ) is None
+
+    def _undefined_error(self, requirements: "Requirements", allow_undefined: Optional[set[str]]) -> Optional[str]:
+        """The first incoming custom label self does not define (and that
+        does not merely exclude values), as compatible's error."""
         if allow_undefined is ALLOW_UNDEFINED_WELL_KNOWN_LABELS:
             allow_undefined = well_known.WELL_KNOWN_LABELS
         allow = allow_undefined or set()
@@ -387,21 +401,22 @@ class Requirements:
             if self.has(key) or op in (Operator.NOT_IN, Operator.DOES_NOT_EXIST):
                 continue
             return f'label "{key}" does not have known values'
-        return self.intersects(requirements)
-
-    def is_compatible(
-        self, requirements: "Requirements", allow_undefined: Optional[set[str]] = None
-    ) -> bool:
-        return self.compatible(requirements, allow_undefined) is None
+        return None
 
     def intersects(self, requirements: "Requirements") -> Optional[str]:
         """Error if shared keys have no overlapping values (requirements.go:248).
         Undefined keys are allowed. NotIn/DoesNotExist-vs-NotIn/DoesNotExist
         disagreements are tolerated."""
+        errs = [f"key {key}, {incoming!r} not in {existing!r}" for key, existing, incoming in self._conflicts(requirements)]
+        return "; ".join(errs) if errs else None
+
+    def _conflicts(self, requirements: "Requirements"):
+        """(key, existing, incoming) of each shared key whose values do not
+        overlap, in intersects' order (lazily: a caller that needs only
+        whether there is one stops at the first)."""
         small, large = (
             (self, requirements) if len(self._reqs) <= len(requirements._reqs) else (requirements, self)
         )
-        errs = []
         for key in small._reqs:
             if key not in large._reqs:
                 continue
@@ -413,8 +428,7 @@ class Requirements:
                     ex_op = existing.operator()
                     if ex_op in (Operator.NOT_IN, Operator.DOES_NOT_EXIST):
                         continue
-                errs.append(f"key {key}, {incoming!r} not in {existing!r}")
-        return "; ".join(errs) if errs else None
+                yield key, existing, incoming
 
     def labels(self) -> dict[str, str]:
         """Representative node labels (requirements.go:270 Labels)."""

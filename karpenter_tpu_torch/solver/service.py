@@ -100,7 +100,8 @@ Fault envelope:
 
 Prewarm keeps the reference's hooks (`prewarm=`, `prewarm_fn=`, the
 readiness event, the mid-prewarm oracle degrade); with no `prewarm_fn`
-the default builds and loads the kernels' libraries (`_build`).
+the default is `aot.prewarm` on the server's device: the kernels' libraries
+built and loaded, then every kernel launched once over the bucket ladder.
 """
 
 from __future__ import annotations
@@ -114,11 +115,10 @@ import threading
 import time
 from typing import Optional
 
-from karpenter_tpu_torch import _build
 from karpenter_tpu_torch import logging as klog
 from karpenter_tpu_torch import tracing
 from karpenter_tpu_torch.analysis import protorec
-from karpenter_tpu_torch.solver import epochs
+from karpenter_tpu_torch.solver import buckets, epochs
 from karpenter_tpu_torch.solver.hybrid import device_failure, solve_in_process
 from karpenter_tpu_torch.solver.oracle import SchedulerOptions
 from karpenter_tpu_torch.wire import _decode_problem_dict, _encode_result, decode_result, encode_problem_dict
@@ -275,8 +275,9 @@ class SolverServer:
     entries are read, never written, by the solves that share them.
 
     Prewarm/readiness: with prewarm=True, start() kicks a background
-    thread that runs `prewarm_fn(stop)` — by default, building and
-    loading the kernels' libraries — BEFORE the server reports ready.
+    thread that runs `prewarm_fn(stop)` — by default `aot.prewarm`, which
+    builds and loads the kernels' libraries and launches every kernel once
+    over the bucket ladder — BEFORE the server reports ready.
     SOLVE requests that arrive mid-prewarm are served immediately but
     degrade to the oracle fallback (force_oracle) — decision-identical,
     never a solve that pays the build — and PONG payloads say
@@ -383,8 +384,8 @@ class SolverServer:
             self._prewarm_thread.start()
 
     def _run_prewarm(self, gen: int, stop: threading.Event) -> None:
-        """Build and load the kernels' libraries (or run `prewarm_fn`),
-        then report ready. A prewarm failure is logged and the server
+        """Run the prewarm (`aot.prewarm`, or `prewarm_fn`), then report
+        ready. A prewarm failure is logged and the server
         reports ready anyway (degraded: first solves pay the build). `gen`
         guards the ready transition: a thread abandoned by stop() must not
         flip readiness during a LATER start()'s prewarm."""
@@ -392,15 +393,29 @@ class SolverServer:
             if self._prewarm_fn is not None:
                 self._prewarm_fn(stop)
             else:
-                t0 = time.monotonic()
-                built = _build.build_all()
-                for name in _build.SOURCES:
-                    _build.library(name)
+                from karpenter_tpu_torch.solver import aot
+
+                # a fleet-serving instance also prewarms the lane kernel
+                # at every pow-2 lane bucket up to its own lane budget, so
+                # a coalesced window's first launch is warm too
+                fleet_buckets = (
+                    tuple(buckets.ladder(2, self.fleet.max_lanes, floor=2))
+                    if self.fleet is not None
+                    else ()
+                )
+                out = aot.prewarm(
+                    stop=stop,
+                    include_fleet=self.fleet is not None,
+                    fleet_lane_buckets=fleet_buckets,
+                    device=self.device,
+                )
                 self.log.info(
                     "prewarm complete",
-                    built=sum(1 for b in built.values() if b["seconds"]),
-                    loaded=len(_build.SOURCES),
-                    seconds=round(time.monotonic() - t0, 1),
+                    built=out["built"],
+                    launched=out["launched"],
+                    skipped=out["skipped"],
+                    completed=out["completed"],
+                    seconds=round(out["seconds"], 1),
                 )
         except Exception as e:
             self.log.error(

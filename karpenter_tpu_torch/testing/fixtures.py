@@ -373,6 +373,89 @@ def make_preference_pods(count: int) -> list[Pod]:
 
 
 
+def make_underutilized_fleet(op, n_nodes: int, rider_requests=None, max_ticks=200, seed_requests=None):
+    """Provision `n_nodes` one-pod nodes through the port's control plane
+    (hostname anti-affinity forces one node per seed pod), then swap each
+    seed for a small bound RUNNING rider — the classic multi-node
+    consolidation setup (an under-utilized fleet a fraction of one big node
+    could absorb). A copy of the JAX package's fixture."""
+    from karpenter_tpu_torch.api.objects import PodPhase
+
+    seeds = []
+    for i in range(n_nodes):
+        p = pod(
+            name=f"seed-{i}",
+            labels={"fleet": "seed"},
+            requests=dict(seed_requests or {"cpu": "700m", "memory": "512Mi"}),
+            pod_anti_requirements=[
+                PodAffinityTerm(
+                    topology_key=well_known.HOSTNAME_LABEL_KEY,
+                    label_selector=LabelSelector(match_labels={"fleet": "seed"}),
+                )
+            ],
+        )
+        seeds.append(p)
+        op.kube.create("Pod", p)
+    op.run_until_settled(max_ticks=max_ticks, advance_seconds=2.0)
+    nodes = op.kube.list("Node")
+    assert len(nodes) >= n_nodes, f"fleet setup made {len(nodes)} nodes"
+    # swap seeds for small bound riders (no anti-affinity -> consolidatable)
+    for i, p in enumerate(seeds):
+        node_name = op.kube.get("Pod", p.name).node_name
+        op.kube.delete("Pod", p.name)
+        rider = pod(
+            name=f"rider-{i}",
+            labels={"fleet": "rider"},
+            requests=dict(rider_requests or {"cpu": "100m", "memory": "128Mi"}),
+        )
+        rider.node_name = node_name
+        rider.phase = PodPhase.RUNNING
+        op.kube.create("Pod", rider)
+    return op
+
+
+def underutilized_operator(
+    n_nodes: int,
+    *,
+    seed: int = 7,
+    sizes: Optional[list[int]] = None,
+    rider_requests=None,
+    seed_requests=None,
+    force_oracle: bool = True,
+    max_ticks: int = 200,
+    options=None,
+    device=None,
+):
+    """The consolidation-fleet bootstrap on the port's Operator: a default
+    NodePool (100% disruption budget), an under-utilized fleet provisioned
+    through the control plane, and the consolidatable-condition reconcile
+    already run. A copy of the JAX package's fixture; `device` (None = the
+    card, "cpu" for the plain versions) goes to the Operator, unless
+    `force_oracle`. `underutilized_world` builds such a fleet without the
+    control plane, faster, for the sweeps."""
+    from karpenter_tpu_torch.cloudprovider.kwok import construct_instance_types
+    from karpenter_tpu_torch.controllers.kube import FakeClock
+    from karpenter_tpu_torch.controllers.operator import Operator as KOperator
+
+    op = KOperator(clock=FakeClock(), force_oracle=force_oracle, options=options, device=device)
+    if sizes is not None:
+        op.raw_cloud.types = construct_instance_types(sizes=sizes)
+        op.raw_cloud._by_name = {it.name: it for it in op.raw_cloud.types}
+    reset_rng(seed)
+    op.kube.create("NodePool", node_pool(name="default", budgets=[Budget(nodes="100%")]))
+    make_underutilized_fleet(
+        op,
+        n_nodes,
+        rider_requests=rider_requests,
+        max_ticks=max_ticks,
+        seed_requests=seed_requests,
+    )
+    op.clock.advance(30.0)
+    op.pod_events.reconcile_all()
+    op.claim_conditions.reconcile_all()
+    return op
+
+
 # ---------------------------------------------------------------------------
 # consolidation fleets
 

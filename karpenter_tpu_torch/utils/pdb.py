@@ -54,7 +54,9 @@ class PDBLimits:
 
     @classmethod
     def from_kube(cls, kube: Any) -> "PDBLimits":
-        return cls(kube.list("PodDisruptionBudget"), kube.list("Pod"))
+        pdbs = kube.list("PodDisruptionBudget")
+        # with no budget to count against, no pod needs listing
+        return cls(pdbs, kube.list("Pod") if pdbs else [])
 
     def _pdbs_for(self, pod: Pod) -> list[PodDisruptionBudget]:
         return [

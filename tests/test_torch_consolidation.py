@@ -22,8 +22,11 @@ and `command_savings` to rel_tol=1e-12.
   (tests/test_disruption.py:359);
 - a `DisruptionController` round trip on both packages in step (propose,
   validate after the TTL, start, delete the originals), and the validation
-  veto on pod churn (:237). The port has no lifecycle controller yet, so
-  the replacements' Initialized condition is set by hand on both sides;
+  veto on pod churn (:237). These drive the controller alone, so the
+  replacements' Initialized condition is set by hand on both sides; the
+  round trip in which the Operator's lifecycle and termination controllers
+  carry a Command through is
+  tests/test_torch_operator.py::test_consolidation_round_trip_removes_nodes;
 - a failure of the card (`_build.DeviceError` from a kernel launch, torch's
   out-of-memory error from a simulation) propagates out of
   `compute_commands` and `DisruptionController.reconcile`.
