@@ -13,7 +13,7 @@ PyTorch version on the card, bit for bit:
 - K2 scan_step on three small problems and a 512-pod prefix of the
   headline round (the whole round is timed too), and with the relax tier
   loop on three small tiered problems (one overflows mid-ladder) and the
-  first 128 positions of the 1000-pod preference round (the whole round
+  first 64 positions of the 1000-pod preference round (the whole round
   is timed);
 - K3 run_step on three small problems (one overflows its 64 claim slots)
   and on the headline's two dispatches (up to the claim-slot overflow,
@@ -40,7 +40,7 @@ PyTorch version on the card, bit for bit:
   singleton lanes) on 64 candidates of a 2000-node fleet whose riders
   carry a zone spread;
 - K7 scan_lanes as the fleet launch (each lane's pod rows its own) on the
-  first 32 positions of 8 fleet lanes of 2000 pods, relax off and on;
+  first 16 positions of 8 fleet lanes of 2000 pods, relax off and on;
 - K3 and K2 at full size on the screens the headline bypasses (2000 pods
   beside 300 existing nodes: host ports, a pool limit, reservations,
   minValues; and existing-node windows) and on a 2048-type catalog whose
@@ -104,8 +104,15 @@ its probe endpoints, a headline solve under `profiling.device_trace`; and a
 2040-pod cluster provisioned, half emptied and consolidated by the card's
 Operator (a Command executed through the OrchestrationQueue and
 NodeTermination) against the oracle's Operator in a process of its own
-(equal claims, first Command and final nodes). It checks decisions against
-the port's oracle on twelve problems, and prints:
+(equal claims, first Command and final nodes). Then the runtime budgets
+(phase 14c, karpenter_tpu_torch/analysis/runtime.py against
+torch_budgets.json): every CPU-scope entry measured on the card, where it
+must read what it reads on the CPU, and every `cuda:` entry: a profiled
+window around each entry's repeat whose hand-kernel records equal the
+wrappers' count, the headline and the c6 mix re-solved under the profiler,
+each kernel's ptxas resources; one {"budgets": ...} line, and any finding
+fails the run. It checks decisions against the port's oracle on twelve
+problems, and prints:
 
 - the card's name and power limit (nvidia-smi),
 - one JSON line {"kernels": [...]} with each kernel's launches on its path
@@ -136,7 +143,7 @@ C6_PARITY_PODS = 2000  # c6 pods solved by the oracle too
 PREF_PODS = 1000  # the preference round (every pod tiered)
 # positions of the preference round K2+relax is held to its plain version on
 # (the plain tier loop takes about 50 ms a position)
-PREF_CHECK_POSITIONS = 128
+PREF_CHECK_POSITIONS = 64
 # The JAX package's kernel odometer for the c6 solve (bench.py
 # build_universe(500) + make_problem(10000, its, pods_realistic), the same
 # construction as c6_world): recorded with `JAX_PLATFORMS=cpu python3
@@ -159,7 +166,7 @@ LANE_CANDIDATES = 64
 RIDER_SPREAD = 4
 # positions of the spread fleet's 64 at which K7 is held to its plain
 # version (the plain version takes about half a second a position)
-LANE_CHECK_POSITIONS = 16
+LANE_CHECK_POSITIONS = 8
 REFEREE_SEEDED = 16  # seeded lanes of each kind held against the referee
 PAST_EDGE = 4  # spread-fleet prefix lanes held past the last verdict change
 # a spread fleet small enough that the referee holds every prefix lane of
@@ -189,7 +196,7 @@ FLEET_PREF_PODS = 200
 FLEET_PREF_SEED = 7
 # FFD positions of each lane K7 is held to its plain version on (the plain
 # version with relax on takes about half a second a position)
-FLEET_CHECK_POSITIONS = 32
+FLEET_CHECK_POSITIONS = 16
 FLEET_CHECK_LANES = 8
 FLEET_WIDE_POSITIONS = 64  # positions of the launch past K7's lane table
 FLEET_ORACLE_LANES = (0, 7)  # lanes of the widest window held against the oracle
@@ -216,7 +223,7 @@ FLEET_JOIN_SECONDS = 300.0
 ENTRY_PVC_PODS = 100
 ENTRY_ZONE = "test-zone-b"
 DECISIONS_PODS = (2000, 40)  # c6 pods, PVC pods: the card's Provisioner against the oracle
-ENTRY_TIMED = 1  # timed entry-point reconciles after the warm-up (each on a fresh 10100-pod cluster)
+ENTRY_TIMED = 1  # timed entry-point reconciles (each on a fresh 10100-pod cluster)
 CROSSOVER_SIZES = (16, 64, 256, 1024, 4096)  # make_generic_pods(n) through solve_in_process
 # the oracle's timed solves where the card wins by more than 5x (3 elsewhere)
 CROSSOVER_ORACLE_REPS = {1024: 1, 4096: 1}
@@ -307,13 +314,9 @@ def log(msg: str) -> None:
 
 def build_universe(n_types: int):
     """The headline's instance types: KWOK families x sizes, cut to n."""
-    from karpenter_tpu_torch.cloudprovider.kwok import KWOK_FAMILIES, construct_instance_types
+    from karpenter_tpu_torch.testing import fixtures
 
-    per_size = len(KWOK_FAMILIES) * 2 * 2
-    n_sizes = max(1, (n_types + per_size - 1) // per_size)
-    sizes = sorted({1, 2, 4, 8, 16, 32, 48, 64, 96, 128, 192, 256} | set(range(3, 3 + n_sizes * 3, 3)))[:n_sizes]
-    its = construct_instance_types(sizes=sizes)
-    return its[:n_types] if len(its) > n_types else its
+    return fixtures.kwok_universe(n_types)
 
 
 class World(NamedTuple):
@@ -344,9 +347,7 @@ def c6_pods(n_pods: int) -> list:
     ladder)."""
     from karpenter_tpu_torch.testing import fixtures
 
-    fixtures.reset_rng(42)
-    pods = fixtures.make_diverse_pods(int(n_pods * 0.98))
-    return pods + fixtures.make_preference_pods(n_pods - len(pods))
+    return fixtures.c6_pods(n_pods)
 
 
 def c6_world(n_pods: int, its) -> World:
@@ -2569,8 +2570,8 @@ def entry_point_phase(dev, its) -> Optional[dict]:
     t0 = time.monotonic()
     prov = entry_cluster(C6_PODS, ENTRY_PVC_PODS, its, dev)
     log(f"entry point: cluster of {n_total} pending pods built in {time.monotonic() - t0:.1f}s (host)")
-    reconcile(prov)  # warm-up
-    prov = entry_cluster(C6_PODS, ENTRY_PVC_PODS, its, dev)
+    # no warm-up reconcile: the kernels and the solve path are warm from the
+    # headline and c6 phases
     reset_launches()
     result, dt = reconcile(prov)
     launches = {k: v for counts in (T.LAUNCHES, K.LAUNCHES, KR.LAUNCHES) for k, v in counts.items() if v}
@@ -3734,6 +3735,43 @@ def device_failure_check(dev, its) -> bool:
     return ok
 
 
+def budgets_phase(dev, its, smi: str) -> Optional[dict]:
+    """Phase 14c: the port's runtime budgets (karpenter_tpu_torch/analysis/
+    runtime.py against torch_budgets.json). Every CPU-scope entry measured
+    on the card, where it must read what it reads on the CPU, and every
+    `cuda:` entry: a profiled window around each entry's repeat (the hand
+    kernels' records held to the wrappers' count), the headline and the c6
+    mix re-solved at full width under the profiler, each kernel's ptxas
+    resources. Prints one {"budgets": ...} line with every measured value,
+    the census behind each window and the card; None on any finding."""
+    from karpenter_tpu_torch.analysis import budgets as B
+    from karpenter_tpu_torch.analysis import runtime as R
+
+    t0 = time.monotonic()
+    worlds = {
+        "headline": lambda: scheduler_for(headline_world(HEADLINE_PODS, its), dev),
+        "c6": lambda: scheduler_for(c6_world(C6_PODS, its), dev),
+    }
+    try:
+        cpu, cuda, detail = R.measure_cuda_scope(dev, worlds)
+    except Exception as e:  # noqa: BLE001 - a measurement that raised fails the phase
+        log(f"budgets: the measurement raised {type(e).__name__}: {e}")
+        return None
+    manifest = B.BudgetManifest.load(os.path.join(os.path.dirname(os.path.abspath(__file__)), B.DEFAULT_MANIFEST))
+    cmp = manifest.check(cpu, cuda)
+    issues, slack = [i.render() for i in cmp.issues], [i.render() for i in cmp.improvements]
+    seconds = time.monotonic() - t0
+    print(json.dumps({"budgets": {
+        "card": smi, "seconds": round(seconds, 3), "measured": {**cpu, **cuda}, "issues": issues, "slack": slack,
+        "detail": detail,
+    }}, sort_keys=True), flush=True)
+    log(f"budgets: {len(cpu)} CPU-scope and {len(cuda)} cuda: entries on the card in {seconds:.1f}s, "
+        f"{len(issues)} findings, {len(slack)} under their ceilings")
+    for line in issues:
+        log(f"  budget finding: {line}")
+    return None if issues else {"seconds": seconds}
+
+
 def main() -> int:
     oracle = OperatorOracle()
     try:
@@ -4473,6 +4511,10 @@ def _main(oracle: OperatorOracle) -> int:
     # ---- 14b. a failure of the card inside a solve is not hidden by the
     # hybrid scheduler's last-resort guard (last: it fills the card) ----
     if not device_failure_check(dev, its):
+        return 1
+
+    # ---- 14c. the runtime budgets (torch_budgets.json) on the card ----
+    if budgets_phase(dev, its, smi) is None:
         return 1
 
     # ---- 15. the kernels line ----

@@ -73,6 +73,9 @@ def build_dir() -> Path:
     return BUILD_ROOT / _source_hash()
 
 
+# nvcc processes started by this process (the budgets' rebuild count)
+NVCC_STARTS = 0
+
 # held around the first build and load: functools.lru_cache alone lets two
 # threads that miss together both run the body (two nvcc into one
 # directory); re-entrant because `library` calls `build_all`
@@ -93,6 +96,7 @@ def build_all() -> dict:
 
 @functools.lru_cache(maxsize=None)
 def _build_all() -> dict:
+    global NVCC_STARTS
     out_dir = build_dir()
     out_dir.mkdir(parents=True, exist_ok=True)
     procs = {}
@@ -109,6 +113,7 @@ def _build_all() -> dict:
         cmd = nvcc_command(CSRC / f"{name}.cu", tmp)
         starts[name] = time.monotonic()
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT), tmp, lib)
+        NVCC_STARTS += 1
     failed = []
     for name, (proc, tmp, lib) in procs.items():
         log, _ = proc.communicate()
@@ -142,6 +147,8 @@ def _log_path(name: str) -> Path:
 
 
 _ENTRY_RE = re.compile(r"Compiling entry function '([^']+)'")
+_PROPS_RE = re.compile(r"Function properties for (\S+)")
+_FRAME_RE = re.compile(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads")
 _USED_RE = re.compile(r"Used (\d+) registers")
 _SMEM_RE = re.compile(r"(\d+) bytes smem")
 
@@ -157,21 +164,42 @@ def _demangle(symbol: str) -> str:
 
 
 def ptxas_resources(log: str) -> dict:
-    """{kernel: {"registers": n, "smem_bytes": m}} from an `nvcc -Xptxas -v`
-    log: each entry function's registers and static shared memory, as
-    ptxas reports them for the build's architecture (dynamic shared memory,
-    sized at launch, is not in the log)."""
+    """{kernel: {"registers", "smem_bytes", "stack_bytes",
+    "spill_store_bytes", "spill_load_bytes"}} from an `nvcc -Xptxas -v`
+    log: each entry function's registers, static shared memory, stack
+    frame and spills, as ptxas reports them for the build's architecture
+    (dynamic shared memory, sized at launch, is not in the log). The
+    instances of a template share one name and keep the largest of each."""
     out: dict = {}
-    current = None
+    current = props = None
+    frame = (0, 0, 0)
     for line in log.splitlines():
         m = _ENTRY_RE.search(line)
         if m:
-            current = _demangle(m.group(1))
+            current, frame = m.group(1), (0, 0, 0)
+            continue
+        p = _PROPS_RE.search(line)
+        if p:
+            props = p.group(1)
+            continue
+        f = _FRAME_RE.search(line)
+        if f:
+            if props == current:
+                frame = tuple(int(g) for g in f.groups())
             continue
         u = _USED_RE.search(line)
         if u and current is not None:
             s = _SMEM_RE.search(line)
-            out[current] = {"registers": int(u.group(1)), "smem_bytes": int(s.group(1)) if s else 0}
+            got = {
+                "registers": int(u.group(1)),
+                "smem_bytes": int(s.group(1)) if s else 0,
+                "stack_bytes": frame[0],
+                "spill_store_bytes": frame[1],
+                "spill_load_bytes": frame[2],
+            }
+            name = _demangle(current)
+            had = out.get(name, {})
+            out[name] = {k: max(v, had.get(k, 0)) for k, v in got.items()}
             current = None
     return out
 

@@ -46,6 +46,7 @@ import numpy as np
 import torch
 
 from karpenter_tpu_torch import tracing
+from karpenter_tpu_torch.analysis import runtime as budgets
 
 from karpenter_tpu_torch.controllers.disruption.sweep import (
     SweepUnsupported,
@@ -103,6 +104,7 @@ def set_sweep(tb, st, xs, avail0, slot_cand, member, base_counts, percand_counts
     """(feasible [B] bool, steps) of the removal-set sweep for the pod in
     row 0 of the batch `xs`, and the leftovers [B, C] with `with_left`.
     CPU tensors take the plain version; CUDA tensors launch K8."""
+    budgets.seam("set_sweep")
     if st.rank.device.type == "cpu":
         return set_sweep_plain(
             tb, st, _row0(xs), avail0, slot_cand, member, base_counts, percand_counts, sizes, with_left
@@ -116,6 +118,7 @@ def set_sweep(tb, st, xs, avail0, slot_cand, member, base_counts, percand_counts
     lanes = {"slot_cand": slot_cand, "member": member, "base_counts": base_counts, "percand": percand_counts}
     out = launch_sweep("set_sweep", tb, st, xs, avail0, sizes, B, lanes, with_left, J=J)
     LAUNCHES["set_sweep"] += 1
+    budgets.launched("set_sweep")
     return out
 
 

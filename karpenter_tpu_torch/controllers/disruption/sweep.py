@@ -54,6 +54,7 @@ import numpy as np
 import torch
 
 from karpenter_tpu_torch import _build, tracing
+from karpenter_tpu_torch.analysis import runtime as budgets
 from karpenter_tpu_torch.controllers.disruption.types import Candidate
 from karpenter_tpu_torch.controllers.state import cluster_source, is_reschedulable
 from karpenter_tpu_torch.device import unpack
@@ -181,6 +182,7 @@ def fast_sweep(
     """(feasible [B] bool, steps) of the delta-state sweep for the pod in
     row 0 of the batch `xs`, and the leftovers [B, C] with `with_left`.
     CPU tensors take the plain version; CUDA tensors launch K6."""
+    budgets.seam("fast_sweep")
     if st.rank.device.type == "cpu":
         return fast_sweep_plain(tb, st, _row0(xs), avail0, cand_idx, counts, sizes, singleton, with_left)
     lanes = {"cand_idx": cand_idx, "counts": counts}
@@ -188,6 +190,7 @@ def fast_sweep(
         "fast_sweep", tb, st, xs, avail0, sizes, counts.shape[0], lanes, with_left, singleton=int(singleton)
     )
     LAUNCHES["fast_sweep_singleton" if singleton else "fast_sweep"] += 1
+    budgets.launched("fast_sweep")
     return out
 
 

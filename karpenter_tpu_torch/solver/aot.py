@@ -157,12 +157,13 @@ def _device_name(dev: torch.device) -> str:
     return torch.cuda.get_device_name(dev) if dev.type == "cuda" else dev.type
 
 
-def _representative(kind: str, device="cpu", n_existing: int = 3):
+def _representative(kind: str, device="cpu", n_existing: int = 3, n_pods: int = 6, table_cache=None):
     """(sched, problem, order) for one representative family: a generic
-    zero-preference mix (the plain step) or a mixed relaxable batch (the
-    tier loop), beside `n_existing` existing nodes. The same construction
-    as the JAX package's prewarm, so the buckets agree. The tables are not
-    built yet (that is K1's launch)."""
+    zero-preference mix of `n_pods` (the plain step) or a mixed relaxable
+    batch, half of it preference pods (the tier loop), beside
+    `n_existing` existing nodes. The same construction as the JAX
+    package's prewarm, so the buckets agree. The tables are not built yet
+    (that is K1's launch); `table_cache` goes to the scheduler."""
     from karpenter_tpu_torch.api import labels as well_known
     from karpenter_tpu_torch.cloudprovider.kwok import construct_instance_types
     from karpenter_tpu_torch.solver.nodes import StateNodeView
@@ -175,9 +176,9 @@ def _representative(kind: str, device="cpu", n_existing: int = 3):
     its = construct_instance_types(sizes=[2])
     pool = fixtures.node_pool(name="default")
     if kind == "generic":
-        pods = fixtures.make_generic_pods(6)
+        pods = fixtures.make_generic_pods(n_pods)
     else:
-        pods = fixtures.make_generic_pods(3) + fixtures.make_preference_pods(3)
+        pods = fixtures.make_generic_pods(n_pods // 2) + fixtures.make_preference_pods(n_pods - n_pods // 2)
     views = None
     if n_existing:
         it = its[0]
@@ -197,7 +198,7 @@ def _representative(kind: str, device="cpu", n_existing: int = 3):
             for i in range(n_existing)
         ]
     topo = Topology([pool], {"default": its}, pods, state_node_views=views)
-    sched = TorchScheduler([pool], {"default": its}, topo, views, device=device)
+    sched = TorchScheduler([pool], {"default": its}, topo, views, device=device, table_cache=table_cache)
     problem = encode_problem(sched.oracle, pods)
     order = sched._order_pods(problem)
     return sched, problem, order

@@ -58,6 +58,7 @@ import numpy as np
 import torch
 
 from karpenter_tpu_torch import _build, tracing
+from karpenter_tpu_torch.analysis import runtime as budgets
 from karpenter_tpu_torch.api import labels as well_known
 from karpenter_tpu_torch.api.objects import NodePool, Operator, Pod
 from karpenter_tpu_torch.cloudprovider.types import InstanceTypes
@@ -218,6 +219,7 @@ def _typeok_types(ireq: Reqs, va: VocabArrays, dev: torch.device) -> _TypeHalf:
 def typeok_screen(ireq: Reqs, va: VocabArrays, preq_rows: Reqs, iw: int) -> torch.Tensor:
     """[B, IW] int32 words. CPU tensors take the plain version; CUDA
     tensors launch the kernel."""
+    budgets.seam("typeok_screen")
     dev = ireq.mask.device
     if dev.type == "cpu":
         return typeok_plain(ireq, va, preq_rows, iw)
@@ -236,6 +238,7 @@ def typeok_screen(ireq: Reqs, va: VocabArrays, preq_rows: Reqs, iw: int) -> torc
     )
     _build.check_launch("typeok_screen", code)
     LAUNCHES["typeok_screen"] += 1
+    budgets.launched("typeok")
     return out
 
 
@@ -370,6 +373,7 @@ def _small_lib(name: str, args_type):
 def run_arrays(cls_d, bulk_c, aff_c, idx, n: int):
     """run_arrays_plain's contract. CPU tensors take the plain version;
     CUDA tensors launch the kernel."""
+    budgets.seam("run_arrays")
     dev = idx.device
     if dev.type == "cpu":
         return run_arrays_plain(cls_d, bulk_c, aff_c, idx, n)
@@ -389,6 +393,7 @@ def run_arrays(cls_d, bulk_c, aff_c, idx, n: int):
     code = lib.run_arrays_launch(ctypes.byref(args), ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
     _build.check_launch("run_arrays", code)
     LAUNCHES["run_arrays"] += 1
+    budgets.launched("run_arrays")
     return arrays
 
 
@@ -510,6 +515,7 @@ def dedup_columns(cols, n: int, prof: Optional[torch.Tensor] = None):
     Up to 8192 rows the launch is one kernel and `prof` (an int64 [11] on
     the device, or None) takes its CTA 0's clock64 at each phase mark
     (`dedup_breakdown`)."""
+    budgets.seam("dedup_columns")
     dev = cols[0].device
     if dev.type == "cpu":
         return dedup_columns_plain(cols, n)
@@ -542,6 +548,7 @@ def dedup_columns(cols, n: int, prof: Optional[torch.Tensor] = None):
     code = lib.dedup_rows_launch(ctypes.byref(args), ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
     _build.check_launch("dedup_rows", code)
     LAUNCHES["dedup_rows"] += 1
+    budgets.launched("dedup_rows", n=n)
     return n_uniq, inv, compact
 
 

@@ -47,6 +47,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from karpenter_tpu_torch import _build
+from karpenter_tpu_torch.analysis import runtime as budgets
 from karpenter_tpu_torch.device import gather_bits, pack, unpack
 from karpenter_tpu_torch.ops.encode import GT_NONE, LT_NONE, Reqs
 from karpenter_tpu_torch.ops.kernels import (
@@ -825,6 +826,7 @@ def solve_scan(tb: Tables, st: State, xs: PodX, relax: bool = False, prof: Optio
     CPU tensors take the plain version. CUDA tensors launch the
     `scan_step` kernel, which updates a copy of `st` in place; a `prof`
     buffer (`prof_buffer`) gets its per-phase clock breakdown."""
+    budgets.seam("solve_scan")
     if st.rank.device.type == "cpu":
         return solve_scan_plain(tb, st, xs, relax)
     return _launch_scan_step(tb, _clone_state(st), xs, relax, prof)
@@ -888,6 +890,7 @@ def scan_lanes(tb: Tables, st: State, xs: PodX, valid, relax: bool = False):
     Bound on an H100: bytes (each lane reads its state and the shared
     tables once per pod); the lanes run in parallel on the SMs, each a
     dependent chain of K2's block reductions."""
+    budgets.seam("scan_lanes")
     if st.rank.device.type == "cpu":
         return scan_lanes_plain(tb, st, xs, valid, relax)
     return _launch_lanes(tb, _clone_state(st), xs._replace(valid=valid), ("valid",), relax, "scan_lanes")
@@ -921,6 +924,7 @@ def solve_scan_lanes(tb: Tables, st: State, xs: PodX, relax: bool = False, prof:
     Bound on an H100: bytes (the tables once, and each lane's State read
     and written once, its pod rows read once, its kinds and slots
     written); each lane is K2's dependent chain on its own SM."""
+    budgets.seam("solve_scan_lanes")
     if st.rank.device.type == "cpu":
         return solve_scan_lanes_plain(tb, st, xs, relax)
     return _launch_lanes(tb, _clone_state(st), xs, PodX._fields, relax, "fleet_lanes", prof)
@@ -1264,6 +1268,7 @@ def _launch_scan_step(tb: Tables, st: State, xs: PodX, relax: bool, prof: Option
     vals["scratch"] = scratch.data_ptr()
     launch_step(lib, "scan_step", args_type, vals, dev)
     LAUNCHES["scan_step_relax" if relax else "scan_step"] += 1
+    budgets.launched("scan_step")
     return st, kinds, slots, counters[0] != 0, counters_odometer(counters, dev)
 
 
@@ -1393,4 +1398,5 @@ def _launch_lanes(tb: Tables, st: State, xs: PodX, lane_fields, relax: bool, key
     _build.check_launch("scan_lanes", code)
     kinds, slots, counters = outs["kinds"], outs["slots"], outs["counters"]
     LAUNCHES[key + "_relax" if relax else key] += 1
+    budgets.launched("scan_lanes", lanes=B)
     return st, kinds, slots, counters[:, 0] != 0, counters_odometer(counters, dev)

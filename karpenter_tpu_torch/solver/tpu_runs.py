@@ -48,6 +48,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from karpenter_tpu_torch.analysis import runtime as budgets
 from karpenter_tpu_torch.device import gather_bits, pack, unpack
 from karpenter_tpu_torch.ops.encode import Reqs
 from karpenter_tpu_torch.ops.kernels import compat, intersect, intersects_only
@@ -662,6 +663,7 @@ def solve_runs(
     CUDA tensors launch the `run_step` kernel on copies of `st` and
     `seq`; a `prof` buffer (`tpu_kernel.prof_buffer`) gets its per-phase
     clock breakdown."""
+    budgets.seam("solve_runs")
     if st.rank.device.type == "cpu":
         return solve_runs_plain(tb, st, rx, seq, next_seq, n_valid, relax)
     return _launch_run_step(tb, K._clone_state(st), rx, seq.clone(), next_seq, n_valid, relax, prof)
@@ -701,4 +703,5 @@ def _launch_run_step(tb: Tables, st: State, rx: RunX, seq, next_seq, n_valid: in
         vals["prof"] = K.checked_prof(prof, "run_step", dev)
     K.launch_step(lib, "run_step", args_type, vals, dev)
     LAUNCHES["run_step_relax" if relax else "run_step"] += 1
+    budgets.launched("run_step")
     return st, seq, counters[3], kinds, slots, counters[0] != 0, K.counters_odometer(counters, dev), counters[4]

@@ -372,6 +372,24 @@ def make_preference_pods(count: int) -> list[Pod]:
     return out
 
 
+def c6_pods(count: int) -> list[Pod]:
+    """The benchmark's c6 realistic mix: the diverse mix for 98% of the
+    pods, then a tail of preference pods (each climbs a 4-tier ladder)."""
+    reset_rng(42)
+    pods = make_diverse_pods(int(count * 0.98))
+    return pods + make_preference_pods(count - len(pods))
+
+
+def kwok_universe(n_types: int):
+    """The headline's instance types: KWOK families x sizes, cut to n."""
+    from karpenter_tpu_torch.cloudprovider.kwok import KWOK_FAMILIES, construct_instance_types
+
+    per_size = len(KWOK_FAMILIES) * 2 * 2
+    n_sizes = max(1, (n_types + per_size - 1) // per_size)
+    sizes = sorted({1, 2, 4, 8, 16, 32, 48, 64, 96, 128, 192, 256} | set(range(3, 3 + n_sizes * 3, 3)))[:n_sizes]
+    its = construct_instance_types(sizes=sizes)
+    return its[:n_types] if len(its) > n_types else its
+
 
 def make_underutilized_fleet(op, n_nodes: int, rider_requests=None, max_ticks=200, seed_requests=None):
     """Provision `n_nodes` one-pod nodes through the port's control plane
