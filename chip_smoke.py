@@ -6,15 +6,23 @@ Run from the repository root on a machine with one NVIDIA card:
     python3 chip_smoke.py
 
 It builds the eight CUDA kernels from csrc/ and holds each against its plain
-PyTorch version on the card, bit for bit:
+PyTorch version, bit for bit: on the card, or, for the five deepest checks
+(K2's 2048-pod headline prefix, the preference round's first 1000
+positions and the full-size screens world's 2048, K7 on all 64 positions
+of the sweep lanes and the first 256 of the fleet lanes), in a process of
+its own beside the card's phases (`--host-checks`, HostChecks): the main
+process writes the cut's inputs and the kernel's outputs to build/, the
+side process runs the plain version on the CPU and writes its verdict,
+and a mismatch, a missing verdict or a dead side process fails the run.
+The same side process takes the fuzz cases' oracle snapshots first.
 
 - K1 typeok_screen on the headline's class rows, the c6 mix's tier rows,
   the full-size screens world's class rows and a 2048-type catalog's;
-- K2 scan_step on three small problems and a 512-pod prefix of the
+- K2 scan_step on three small problems and a 2048-pod prefix of the
   headline round (the whole round is timed too), and with the relax tier
   loop on three small tiered problems (one overflows mid-ladder) and the
-  first 64 positions of the 1000-pod preference round (the whole round
-  is timed);
+  first 1000 positions of the 1000-pod preference round, with its ladders
+  and with one trip a pod (the whole round is timed);
 - K3 run_step on three small problems (one overflows its 64 claim slots)
   and on the headline's two dispatches (up to the claim-slot overflow,
   then the rest after the state grows), and with the relax tier loop on
@@ -38,9 +46,9 @@ PyTorch version on the card, bit for bit:
   2000-node c0 fleet, where a lane's first leftover class is a class no
   template fits or the riders' one, by lane; K7 scan_lanes (prefix and
   singleton lanes) on 64 candidates of a 2000-node fleet whose riders
-  carry a zone spread;
+  carry a zone spread (every position of every lane);
 - K7 scan_lanes as the fleet launch (each lane's pod rows its own) on the
-  first 16 positions of 8 fleet lanes of 2000 pods, relax off and on;
+  first 256 positions of 8 fleet lanes of 2000 pods, relax off and on;
 - K3 and K2 at full size on the screens the headline bypasses (2000 pods
   beside 300 existing nodes: host ports, a pool limit, reservations,
   minValues; and existing-node windows) and on a 2048-type catalog whose
@@ -55,6 +63,18 @@ dispatches), K2 (a 1024-pod headline prefix) and K7 at one lane beside K2
 on the same fleet lane, each profiled launch held bit for bit to the same
 launch without it, where each launch table lived (shared or device
 memory), and the sweep kernels' cache and lane launches apart.
+
+After the K3 checks, the runs-path stall case (`fixtures.runs_stall_case`:
+the c6 mix's 50 pods over 40 KWOK types, and the two pods `fuzz.shrink` left
+of it), on which a walk that dropped a bulk head's exclusions spun: K3
+relax off and on, each launch given STALL_LAUNCH_SECONDS before the run
+fails, held bit for bit to the plain walk with its stall counter 0, and
+solve_in_process on the card equal to the port's oracle. Then the fuzz
+phase: FUZZ_SEEDS seeded cases, the corpus of tests/fuzz_corpus and the
+shrunk stall case through the port's `fuzz.check_parity` on the card (the
+kernel path, a forced scan solve, a tight claim-slot pool, relax off)
+against the side process's oracle snapshots, and every case through
+`fuzz.solve_hybrid` with no invariant or odometer violation.
 
 Then it drives the provisioning solve end to end, each path with the launch
 counts set to 0 just before and read just after: the headline
@@ -129,6 +149,7 @@ from __future__ import annotations
 import copy
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -137,13 +158,15 @@ from typing import NamedTuple, Optional
 HEADLINE_PODS = 10000
 HEADLINE_TYPES = 500
 PARITY_PODS = 1000
-K2_PREFIX = 512  # headline pods K2 is held against its plain version on
+# headline pods K2 is held against its plain version on (the side process's
+# check: HostChecks)
+K2_PREFIX = 2048
 C6_PODS = 10000
 C6_PARITY_PODS = 2000  # c6 pods solved by the oracle too
 PREF_PODS = 1000  # the preference round (every pod tiered)
 # positions of the preference round K2+relax is held to its plain version on
-# (the plain tier loop takes about 50 ms a position)
-PREF_CHECK_POSITIONS = 64
+# (the plain tier loop takes about 50 ms a position; the side process's check)
+PREF_CHECK_POSITIONS = 1000
 # The JAX package's kernel odometer for the c6 solve (bench.py
 # build_universe(500) + make_problem(10000, its, pods_realistic), the same
 # construction as c6_world): recorded with `JAX_PLATFORMS=cpu python3
@@ -165,8 +188,9 @@ SET_LANES = 1024
 LANE_CANDIDATES = 64
 RIDER_SPREAD = 4
 # positions of the spread fleet's 64 at which K7 is held to its plain
-# version (the plain version takes about half a second a position)
-LANE_CHECK_POSITIONS = 8
+# version (the plain version takes about half a second a position; the
+# side process's check)
+LANE_CHECK_POSITIONS = 64
 REFEREE_SEEDED = 16  # seeded lanes of each kind held against the referee
 PAST_EDGE = 4  # spread-fleet prefix lanes held past the last verdict change
 # a spread fleet small enough that the referee holds every prefix lane of
@@ -195,8 +219,9 @@ FLEET_RELAX_LANES = 4  # a window whose lanes add the same preference pods
 FLEET_PREF_PODS = 200
 FLEET_PREF_SEED = 7
 # FFD positions of each lane K7 is held to its plain version on (the plain
-# version with relax on takes about half a second a position)
-FLEET_CHECK_POSITIONS = 16
+# version with relax on takes about half a second a position; the side
+# process's check)
+FLEET_CHECK_POSITIONS = 256
 FLEET_CHECK_LANES = 8
 FLEET_WIDE_POSITIONS = 64  # positions of the launch past K7's lane table
 FLEET_ORACLE_LANES = (0, 7)  # lanes of the widest window held against the oracle
@@ -210,8 +235,9 @@ FLEET_FOLLOW = (4, 20)  # lanes, follower pods a lane
 FULL_PODS = 2000
 FULL_NODES = 300
 # positions of the screens world's round K2 is held to its plain version on
-# (of its 2048; the plain version takes about 9 ms a position)
-FULL_K2_CHECK_POSITIONS = 512
+# (of its 2048; the plain version takes about 9 ms a position; the side
+# process's check)
+FULL_K2_CHECK_POSITIONS = 2048
 # a catalog too large for the type tables' shared memory (the kernels then
 # read the mask words and offerings from device memory)
 LARGE_CATALOG_TYPES = 2048
@@ -290,6 +316,18 @@ OPERATOR_ORACLE_TIMEOUT = 600.0
 OPERATOR_CLAIM_SEQ0 = 50000  # (c)'s claims are named from here on both sides
 OPERATOR_FLEET_NODES = 200  # the under-utilized fleet whose consolidation runs the sweeps
 OPERATOR_STILL_TICKS = 10  # ticks the node set holds still to end the run
+# the side process (HostChecks, `--host-checks`): the oracle's snapshots of
+# the fuzz cases, then the plain versions of the five deep checks on the CPU
+# against the card's outputs; its torch threads, and the seconds the main
+# process waits for its verdicts at the end at most
+HOST_CHECK_THREADS = 2
+HOST_CHECKS_TIMEOUT = 600.0
+# the fuzz phase (fuzz_phase): seeds from fuzz.fuzz_seed_base(), the corpus
+# of tests/fuzz_corpus and the shrunk runs-path stall case
+FUZZ_SEEDS = 128
+# the stall phase (stall_phase): the seconds a K3 launch on the stall case
+# may take before the run fails
+STALL_LAUNCH_SECONDS = 60.0
 # the main path's kernels as the profiler names them (the device trace check)
 TRACE_KERNELS = ("typeok_kernel", "run_arrays_kernel", "run_step_kernel", "dedup_cluster_kernel")
 # each kernels-line row's launch counters (launches_operator, launches_prewarm)
@@ -991,14 +1029,32 @@ def runs_round(world: World, dev, claim_slot_div: Optional[int] = None, exact_on
 
 
 def runs_mismatches(got, want) -> list[str]:
-    """Field names where two solve_runs results differ."""
+    """Field names where two solve_runs results differ (the counter block
+    holds the overflow flag, ptr, the odometer and the stall counter)."""
     import torch
 
     bad = state_mismatches(got[0], want[0])
-    for i, name in ((1, "seq"), (2, "next_seq"), (3, "kinds"), (4, "slots"), (5, "overflow"), (7, "ptr")):
+    for i, name in ((1, "seq"), (2, "next_seq"), (3, "kinds"), (4, "slots"), (5, "counters")):
         if not torch.equal(got[i], want[i]):
             bad.append(name)
-    return bad + odometer_mismatches(got[6], want[6])
+    return bad
+
+
+class RunsStatus(NamedTuple):
+    over: bool
+    ptr: int
+    stalled: bool
+    steps: int
+    bulk_steps: int
+    tier_steps: int
+
+
+def runs_status(got) -> RunsStatus:
+    """The counter block of a solve_runs result, fetched once."""
+    from karpenter_tpu_torch.solver import tpu_kernel as K
+
+    over, ptr, stalled, odo = K.counter_fields(got[5].tolist())
+    return RunsStatus(over, ptr, stalled, odo["steps"], odo["bulk_steps"], odo["tier_steps"])
 
 
 def dedup_mismatches(got, want) -> list[str]:
@@ -1098,16 +1154,17 @@ def phase_breakdown(world, dev) -> dict:
         xs, idx_d = sched._pod_xs_with_idx(problem, batch)
         rx = sched._run_x(xs, idx_d, len(batch))
         mark("pod_xs_run_arrays")
-        st, seq, nseq, got_k, got_s, over, _, ptr = KR.solve_runs(tb, st, rx, seq, nseq, len(batch), relax)
-        n_done = int(ptr) if bool(over) else len(batch)
+        st, seq, nseq, got_k, got_s, counters = KR.solve_runs(tb, st, rx, seq, nseq, len(batch), relax)
+        over, ptr, _, _ = K.counter_fields(counters.tolist())
+        n_done = ptr if over else len(batch)
         kinds[batch[:n_done]] = got_k[:n_done].cpu().numpy()
         slots[batch[:n_done]] = got_s[:n_done].cpu().numpy()
-        if bool(over):
+        if over:
             st, seq = sched._grow(problem, st, seq, N)
             N *= 2
             offset += n_done
         mark("run_step_dispatches_regrow")
-        if not bool(over):
+        if not over:
             break
     if (kinds == K.KIND_FAIL).any():
         raise RuntimeError("phase breakdown needs a one-round solve")
@@ -1194,10 +1251,11 @@ def runs_checked(world: World, dev, exact_only: bool = False, device_tables: boo
             got0, out["layout0"] = device_tables_launch("run_step", lambda: KR.solve_runs(*args))
             out["bad"] += [f"{f} (tables in device memory)" for f in runs_mismatches(got0, want)]
         out["ms"] += cuda_ms(lambda: KR.solve_runs(*args), 2)
-        out["steps"].append([int(got[6].steps), int(got[6].bulk_steps), int(got[6].tier_steps)])
-        done = int(got[7]) if bool(got[5]) else len(batch)
+        rs = runs_status(got)
+        out["steps"].append([rs.steps, rs.bulk_steps, rs.tier_steps])
+        done = rs.ptr if rs.over else len(batch)
         out["kinds"] += got[3][:done].cpu().tolist()
-        if not bool(got[5]):
+        if not rs.over:
             out["held_bits"] = int(D.popcount(got[0].held).sum())
             break
         st, seq = rr.sched._grow(rr.problem, got[0], got[1], N)
@@ -1208,12 +1266,13 @@ def runs_checked(world: World, dev, exact_only: bool = False, device_tables: boo
     return out
 
 
-def scan_checked(world: World, dev, n_slots: int, device_tables: bool = False, prefix: Optional[int] = None) -> dict:
+def scan_checked(world: World, dev, n_slots: int, device_tables: bool = False, prefix: Optional[int] = None,
+                 host: Optional["HostChecks"] = None, name: str = "") -> dict:
     """K2 over a world's first round (its first `prefix` pods, or all) with
     `n_slots` claim slots (the tier loop on when the round has tiers), held
-    bit for bit to its plain version; with `device_tables` a second launch
-    reads every table from device memory and is held to the same plain
-    result."""
+    bit for bit to its plain version (with `host`, the side process's check
+    `name`, and plain_ms None); with `device_tables` a second launch reads
+    every table from device memory and is held to the same result."""
     import torch
 
     from karpenter_tpu_torch.solver import tpu_kernel as K
@@ -1222,11 +1281,16 @@ def scan_checked(world: World, dev, n_slots: int, device_tables: bool = False, p
     relax = bool((xs.ntiers > 1).any())
     got = K.solve_scan(tb, st, xs, relax=relax)
     layout = K.last_layout("scan_step")
-    t0 = time.monotonic()
-    want = K.solve_scan_plain(tb, st, xs, relax=relax)
-    torch.cuda.synchronize()
-    plain_ms = (time.monotonic() - t0) * 1e3
-    bad, layout0 = scan_mismatches(got, want), None
+    if host is not None:
+        host.submit(name, "solve_scan", (tb, st, xs), got, relax=relax)
+        want, plain_ms, bad = got, None, []
+    else:
+        t0 = time.monotonic()
+        want = K.solve_scan_plain(tb, st, xs, relax=relax)
+        torch.cuda.synchronize()
+        plain_ms = (time.monotonic() - t0) * 1e3
+        bad = scan_mismatches(got, want)
+    layout0 = None
     if device_tables:
         got0, layout0 = device_tables_launch("scan_step", lambda: K.solve_scan(tb, st, xs, relax=relax))
         bad += [f"{f} (tables in device memory)" for f in scan_mismatches(got0, want)]
@@ -1237,11 +1301,12 @@ def scan_checked(world: World, dev, n_slots: int, device_tables: bool = False, p
     }
 
 
-def full_size_phase(dev) -> Optional[dict]:
+def full_size_phase(dev, host: "HostChecks") -> Optional[dict]:
     """The screens the headline bypasses at full size, with the solves'
     decisions equal to the port's oracle: the screens world (pool limit,
     reservations, minValues; the bulk gates send its solve down the scan
-    path) through K2 (the round's first FULL_K2_CHECK_POSITIONS pods) and
+    path) through K2 (the round's first FULL_K2_CHECK_POSITIONS pods, its
+    plain version in the side process) and
     K3 (every dispatch, every pod on its exact step), each held bit for
     bit to its plain version, and again
     with every launch table read from device memory; and the bulk world
@@ -1279,12 +1344,13 @@ def full_size_phase(dev) -> Optional[dict]:
         # K2 against its plain version where it is the main path (the screens
         # world); the bulk world's forced scan solve is held to the oracle
         k2 = scan_checked(full_world(screens), dev, _pow2(FULL_PODS), device_tables=True,
-                          prefix=FULL_K2_CHECK_POSITIONS) if screens else None
+                          prefix=FULL_K2_CHECK_POSITIONS, host=host, name="K2 full-size screens") if screens else None
         if k2:
             log(
                 f"K2 scan_step full-size {label} (P={k2['P']}, N={k2['N']}, relax={k2['relax']}, over={k2['over']}, "
-                f"tier_steps={k2['tier_steps']}): kernel {k2['ms']:.3f} ms, plain {k2['plain_ms']:.1f} ms, "
-                f"tables {k2['layout']}, again with tables {k2['layout0']}, mismatches={k2['bad'] or 'none'}"
+                f"tier_steps={k2['tier_steps']}): kernel {k2['ms']:.3f} ms, plain in the side process, "
+                f"tables {k2['layout']}, again with tables {k2['layout0']} (against the first launch), "
+                f"mismatches={k2['bad'] or 'none'}"
             )
             if k2["bad"] or k2["over"] or any(k2["layout0"]["shared"].values()):
                 return None
@@ -1638,7 +1704,7 @@ def spread_referee_check(dev, w) -> bool:
     return not bad
 
 
-def sweep_phase(dev, worlds: Optional[list] = None) -> Optional[list]:
+def sweep_phase(dev, worlds: Optional[list], host: "HostChecks") -> Optional[list]:
     """The consolidation sweeps on the card: the fast path (K6, prefix and
     singleton lanes) and the removal-set sweep (K8) at the c4 shape, where
     every lane places all its pods on existing nodes, and on a leftover
@@ -1649,7 +1715,8 @@ def sweep_phase(dev, worlds: Optional[list] = None) -> Optional[list]:
     version on the same inputs, verdicts held against the sequential
     referee, every prefix lane on the small spread fleet
     (spread_referee_check). The fleets are `worlds` (sweep_worlds(), built
-    here when None).
+    here when None). K7's plain version runs in the side process `host`
+    (the K7 row's plain_ms then comes from its verdicts).
     Returns the kernels-line rows, or None when a check failed."""
     import torch
 
@@ -1684,7 +1751,8 @@ def sweep_phase(dev, worlds: Optional[list] = None) -> Optional[list]:
     cands2 = sweep_candidates(w2, LANE_CANDIDATES)
     log(f"lane world: {SWEEP_NODES} nodes, riders with a zone spread (max skew {RIDER_SPREAD}), "
         f"{len(cands2)} candidates")
-    k7_ms, k7_plain_ms, k7_mism, k7_launch, nb, ops = 0.0, 0.0, 0, 0, 0, 0
+    k7_ms, k7_launch, nb, ops = 0.0, 0, 0, 0
+    plain_jobs: list = []  # the side process's K7 checks
     for singleton in (False, True):
         reset_launches()
         t0 = time.monotonic()
@@ -1703,19 +1771,12 @@ def sweep_phase(dev, worlds: Optional[list] = None) -> Optional[list]:
         xs_c = cut_positions(xs, LANE_CHECK_POSITIONS, axis=0)
         valid_c = valid_b[:, :LANE_CHECK_POSITIONS].contiguous()
         got_c = K.scan_lanes(u2.tb, st_b, xs_c, valid_c, relax)
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        want = K.scan_lanes_plain(u2.tb, st_b, xs_c, valid_c, relax)
-        end.record()
-        torch.cuda.synchronize()
-        k7_plain_ms += start.elapsed_time(end)
-        bad_fields = lanes_mismatches(got_c, want)
-        log(f"K7 scan_lanes ({'singleton' if singleton else 'prefix'}; B={valid_b.shape[0]}, P={valid_b.shape[1]}, "
-            f"E={st_b.eavail.shape[1]}, N={st_b.active.shape[1]}, relax={relax}): mismatched {bad_fields or 'nothing'} "
-            f"vs plain on the first {LANE_CHECK_POSITIONS} positions ({start.elapsed_time(end):.1f} ms plain)")
-        k7_mism += len(bad_fields)
-        if bad_fields:
-            return None
+        job = f"K7 sweep lanes ({'singleton' if singleton else 'prefix'})"
+        host.submit(job, "scan_lanes", (u2.tb, st_b, xs_c, valid_c, relax), got_c)
+        plain_jobs.append(job)
+        log(f"{job}: B={valid_b.shape[0]}, P={valid_b.shape[1]}, E={st_b.eavail.shape[1]}, "
+            f"N={st_b.active.shape[1]}, relax={relax}; its plain version on the first {LANE_CHECK_POSITIONS} "
+            f"positions in the side process")
         k7_ms += cuda_ms(lambda: K.scan_lanes(u2.tb, st_b, xs, valid_b, relax), 3)
         # (the K7 row is appended after both lane kinds, at this index)
         profiled.append((len(rows_out), lambda a=(u2.tb, st_b, xs, valid_b, relax): K.scan_lanes(*a), 3,
@@ -1740,11 +1801,10 @@ def sweep_phase(dev, worlds: Optional[list] = None) -> Optional[list]:
         if bad:
             return None
     b_ms, b_by = bound(nb, ops)
-    log(f"K7 scan_lanes prefix + singleton: kernel {k7_ms:.3f} ms, plain {k7_plain_ms:.1f} ms, "
-        f"bound {b_ms:.6f} ms ({b_by})")
+    log(f"K7 scan_lanes prefix + singleton: kernel {k7_ms:.3f} ms, bound {b_ms:.6f} ms ({b_by})")
     rows_out.append(dict(row("scan_lanes", "scan_lanes.cu", "karpenter_tpu/controllers/disruption/sweep.py:690",
-                             k7_launch, k7_mism, k7_ms, k7_plain_ms, b_ms, b_by),
-                         plain_positions=LANE_CHECK_POSITIONS))
+                             k7_launch, 0, k7_ms, None, b_ms, b_by),
+                         plain_positions=LANE_CHECK_POSITIONS, plain_jobs=plain_jobs))
 
     if not spread_referee_check(dev, worlds.pop(0)):
         return None
@@ -2172,7 +2232,7 @@ def fleet_bound(tb, st_b, xs_b) -> tuple[float, str]:
     return bound(nb, ops)
 
 
-def fleet_phase(dev, its) -> Optional[dict]:
+def fleet_phase(dev, its, host: "HostChecks") -> Optional[dict]:
     """Fleet lanes on the card: windows of 2, 5 and 8 concurrent scan-path
     solves (relax off), a window of FLEET_RELAX_LANES lanes with
     preference ladders and a window whose lanes' follower pods requeue
@@ -2187,8 +2247,10 @@ def fleet_phase(dev, its) -> Optional[dict]:
     equal its solo solve. Measures each window's launch (events and the
     profiler), its wall time against the sum of its solo solves and its
     host phases, and K7 at B=1 against K2 on one lane, with both
-    kernels' clock breakdowns there. Returns the kernels-line row, or None
-    when a check failed."""
+    kernels' clock breakdowns there. The fleet launch's plain version runs
+    in the side process `host` (the row's plain_ms then comes from its
+    verdicts). Returns the kernels-line row, or None when a check
+    failed."""
     import torch
 
     from karpenter_tpu_torch.solver import fleet as F
@@ -2273,26 +2335,18 @@ def fleet_phase(dev, its) -> Optional[dict]:
                     return None
 
     # the fleet launch against its plain version, B=8, relax off and on
-    mism, plain_ms, ms_cut, cut_bound, cut_args = 0, 0.0, 0.0, None, None
+    ms_cut, cut_bound, cut_args = 0.0, None, None
     relax_worlds = [fleet_world(its, f"{k + 1}00m", FLEET_PODS, FLEET_PREF_PODS) for k in range(FLEET_CHECK_LANES)]
     for tb, st_b, xs_b, relax in (inputs_b8, fleet_inputs(relax_worlds, dev)):
         xs_c = cut_positions(xs_b, FLEET_CHECK_POSITIONS)
         got = K.solve_scan_lanes(tb, st_b, xs_c, relax)
-        torch.cuda.synchronize()
-        t0 = time.monotonic()
-        want = K.solve_scan_lanes_plain(tb, st_b, xs_c, relax)
-        torch.cuda.synchronize()
-        p_ms = (time.monotonic() - t0) * 1e3
-        bad = lanes_mismatches(got, want)
+        job = f"K7 fleet lanes (relax {'on' if relax else 'off'})"
+        host.submit(job, "solve_scan_lanes", (tb, st_b, xs_c, relax), got)
         k_ms = cuda_ms(lambda: K.solve_scan_lanes(tb, st_b, xs_c, relax), 3)
-        log(f"K7 fleet lanes vs plain (B={xs_c.valid.shape[0]}, first {FLEET_CHECK_POSITIONS} positions, "
-            f"N={st_b.active.shape[1]}, relax={relax}, tier_steps={got[4].tier_steps.tolist()}): kernel {k_ms:.3f} ms, "
-            f"plain {p_ms:.1f} ms, mismatched {bad or 'nothing'}")
-        mism += len(bad)
-        if bad:
-            return None
+        log(f"{job}: B={xs_c.valid.shape[0]}, first {FLEET_CHECK_POSITIONS} positions, N={st_b.active.shape[1]}, "
+            f"tier_steps={got[4].tier_steps.tolist()}: kernel {k_ms:.3f} ms; its plain version in the side process")
         if not relax:
-            plain_ms, ms_cut, cut_bound, cut_args = p_ms, k_ms, fleet_bound(tb, st_b, xs_c), (tb, st_b, xs_c, relax)
+            plain_job, ms_cut, cut_bound, cut_args = job, k_ms, fleet_bound(tb, st_b, xs_c), (tb, st_b, xs_c, relax)
         elif not int(got[4].tier_steps.sum()):
             return None  # the relax check must run the tier loop
 
@@ -2371,12 +2425,13 @@ def fleet_phase(dev, its) -> Optional[dict]:
     # the first FLEET_CHECK_POSITIONS positions); each window's own launch
     # under "windows"
     out = dict(
-        row("fleet_lanes", "scan_lanes.cu", "karpenter_tpu/solver/fleet.py:164", total_launches, mism,
-            ms_cut, plain_ms, *cut_bound),
+        row("fleet_lanes", "scan_lanes.cu", "karpenter_tpu/solver/fleet.py:164", total_launches, 0,
+            ms_cut, None, *cut_bound),
         device_ms=device_ms(lambda: K.solve_scan_lanes(*cut_args), 3, ("scan_lanes_kernel",)), windows=windows,
         k7_b1_vs_k2={"k7_ms": k7_one, "k2_ms": k2_one, "k7_device_ms": k7_one_dev, "k2_device_ms": k2_one_dev,
                      "in_turns_device_ms": sweep, "breakdown": breakdowns},
     )
+    out["plain_jobs"] = [plain_job]
     log(f"fleet phase: {time.monotonic() - t_phase:.1f}s")
     return out
 
@@ -3463,24 +3518,63 @@ def operator_oracle_worker() -> int:
     return 0
 
 
-class OperatorOracle:
-    """(c)'s oracle side in a process of its own (operator_oracle_worker).
-    It is host work alone, so it is started as soon as the kernels are built
-    and runs beside the card's phases; `close` stops it on any way out."""
+class SideProcess:
+    """`python3 chip_smoke.py ARGS` in a process of its own, beside the
+    card's phases: its output in build/LOG (a pipe nobody reads until the
+    end would fill), `threads` torch threads when set, stopped by `close`
+    on any way out."""
 
-    def __init__(self):
+    def __init__(self, args: tuple, log_name: str, threads: Optional[int] = None):
+        self.args, self.log_name, self.threads = args, log_name, threads
         self.proc = None
         self.log = None
         self.t_start = 0.0
 
     def start(self) -> None:
         os.makedirs("build", exist_ok=True)
-        # its log goes to a file: a pipe nobody reads until the end would fill
-        self.log = open(os.path.join("build", "operator-oracle.log"), "w+")
+        self.log = open(os.path.join("build", self.log_name), "w+")
+        env = dict(os.environ)
+        if self.threads is not None:
+            env["OMP_NUM_THREADS"] = str(self.threads)
         self.t_start = time.monotonic()
-        self.proc = subprocess.Popen([sys.executable, os.path.abspath(__file__), "--operator-oracle"],
-                                     cwd=os.path.dirname(os.path.abspath(__file__)), stdout=subprocess.PIPE,
-                                     stderr=self.log, text=True)
+        self.proc = subprocess.Popen([sys.executable, os.path.abspath(__file__), *self.args],
+                                     cwd=os.path.dirname(os.path.abspath(__file__)), stdout=self.log,
+                                     stderr=subprocess.STDOUT, text=True, env=env)
+
+    def alive(self) -> bool:
+        return self.proc is not None and self.proc.poll() is None
+
+    def wait(self, timeout: float) -> tuple:
+        """(seconds waited, its whole log) once it has ended, killed after
+        `timeout` seconds."""
+        t0 = time.monotonic()
+        try:
+            self.proc.wait(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            self.proc.kill()
+            self.proc.wait()
+        waited = time.monotonic() - t0
+        self.log.seek(0)
+        return waited, self.log.read()
+
+    def log_tail(self, what: str) -> None:
+        self.log.seek(0)
+        log(f"{what}; {self.log.read()[-2000:]}")
+
+    def close(self) -> None:
+        if self.proc is not None and self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+        if self.log is not None:
+            self.log.close()
+
+
+class OperatorOracle(SideProcess):
+    """(c)'s oracle side (operator_oracle_worker). It is host work alone, so
+    it is started as soon as the kernels are built."""
+
+    def __init__(self):
+        super().__init__(("--operator-oracle",), "operator-oracle.log")
 
     def result(self) -> Optional[dict]:
         """Its OPERATOR_ORACLE record, waited for at most
@@ -3489,28 +3583,342 @@ class OperatorOracle:
         if self.proc is None:
             log("operator (c) oracle process: never started")
             return None
-        t0 = time.monotonic()
-        try:
-            out, _ = self.proc.communicate(timeout=OPERATOR_ORACLE_TIMEOUT)
-        except subprocess.TimeoutExpired:
-            self.proc.kill()
-            out, _ = self.proc.communicate()
-        line = next((ln for ln in out.splitlines() if ln.startswith("OPERATOR_ORACLE ")), None)
+        waited, text = self.wait(OPERATOR_ORACLE_TIMEOUT)
+        line = next((ln for ln in text.splitlines() if ln.startswith("OPERATOR_ORACLE ")), None)
         if self.proc.returncode != 0 or line is None:
-            self.log.seek(0)
-            log(f"operator (c) oracle process: exit {self.proc.returncode}; {self.log.read()[-2000:]}")
+            self.log_tail(f"operator (c) oracle process: exit {self.proc.returncode}")
             return None
         rec = json.loads(line[len("OPERATOR_ORACLE "):])
-        rec["waited_s"] = time.monotonic() - t0
+        rec["waited_s"] = waited
         rec["started_s"] = self.t_start - _T0
         return rec
 
+
+# ---------------------------------------------------------------------------
+# the side process: the fuzz cases' oracle snapshots and the deep plain checks
+
+
+# the side processes of a run (OperatorOracle, HostChecks), stopped on
+# every way out
+_CHILDREN: list = []
+
+
+def abort_run(code: int) -> None:
+    """End the run at once, side processes stopped: a kernel that spins
+    would hold the interpreter's own shutdown."""
+    for child in _CHILDREN:
+        child.close()
+    sys.stdout.flush()
+    sys.stderr.flush()
+    os._exit(code)
+
+
+def fuzz_cases() -> list:
+    """(label, fuzz.FuzzCase) of the fuzz phase: FUZZ_SEEDS seeds from
+    fuzz.fuzz_seed_base(), the corpus of tests/fuzz_corpus (read as data)
+    and the shrunk runs-path stall case."""
+    from karpenter_tpu_torch.testing import fixtures, fuzz
+
+    base = fuzz.fuzz_seed_base()
+    cases = [(f"seed {s}", fuzz.generate_case(s)) for s in range(base, base + FUZZ_SEEDS)]
+    cases += [(f"corpus {fn}", fuzz.corpus_case(entry)) for fn, entry in fuzz.load_corpus()]
+    return cases + [("runs stall (shrunk)", fixtures.runs_stall_case(shrunk=True))]
+
+
+def to_cpu(tree):
+    """A copy of a tree of tensors (NamedTuples, tuples, lists, dicts) with
+    every tensor on the CPU."""
+    import torch
+
+    if isinstance(tree, torch.Tensor):
+        return tree.cpu()
+    if isinstance(tree, tuple):
+        items = [to_cpu(x) for x in tree]
+        return type(tree)(*items) if hasattr(tree, "_fields") else tuple(items)
+    if isinstance(tree, list):
+        return [to_cpu(x) for x in tree]
+    if isinstance(tree, dict):
+        return {k: to_cpu(v) for k, v in tree.items()}
+    return tree
+
+
+def plain_check(fn: str):
+    """(the plain version, the mismatch function) of a deep check's kind."""
+    from karpenter_tpu_torch.solver import tpu_kernel as K
+
+    return {
+        "solve_scan": (K.solve_scan_plain, scan_mismatches),
+        "scan_lanes": (K.scan_lanes_plain, lanes_mismatches),
+        "solve_scan_lanes": (K.solve_scan_lanes_plain, lanes_mismatches),
+    }[fn]
+
+
+def host_checks_worker(dirpath: str) -> int:
+    """`python3 chip_smoke.py --host-checks DIR`: first the port's oracle
+    snapshots of every kernel-supported fuzz case (`fuzz.oracle_snapshots`,
+    pickled to DIR/oracle.pkl), then each deep check the main process
+    writes to DIR (job-*.pt: the cut's inputs and the kernel's outputs, on
+    the CPU) through its plain version on the CPU, a verdict (job-*.json:
+    the fields that differ, the plain version's ms) for each, until DIR/done
+    lists the jobs and every one has its verdict. Needs no card."""
+    import pickle
+
+    import torch
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    torch.set_num_threads(HOST_CHECK_THREADS)
+    from karpenter_tpu_torch.testing import fuzz
+
+    t0 = time.monotonic()
+    snaps = {}
+    for label, case in fuzz_cases():
+        if fuzz.kernel_supported(case):
+            snaps[label] = fuzz.oracle_snapshots(case)
+    with open(os.path.join(dirpath, "oracle.pkl.tmp"), "wb") as f:
+        pickle.dump(snaps, f)
+    os.replace(os.path.join(dirpath, "oracle.pkl.tmp"), os.path.join(dirpath, "oracle.pkl"))
+    print(f"HOST_CHECKS oracle {len(snaps)} cases {time.monotonic() - t0:.1f}s", flush=True)
+    done = set()
+    while True:
+        listed = None
+        if os.path.exists(os.path.join(dirpath, "done")):
+            with open(os.path.join(dirpath, "done")) as f:
+                listed = set(json.load(f))
+        pending = sorted(fn[4:-3] for fn in os.listdir(dirpath) if fn.startswith("job-") and fn.endswith(".pt"))
+        todo = [j for j in pending if j not in done]
+        for job in todo:
+            spec = torch.load(os.path.join(dirpath, f"job-{job}.pt"), weights_only=False)
+            plain, mismatches = plain_check(spec["fn"])
+            t1 = time.monotonic()
+            want = plain(*spec["args"], **spec["kwargs"])
+            verdict = {"name": spec["name"], "bad": mismatches(spec["got"], want),
+                       "plain_ms": (time.monotonic() - t1) * 1e3}
+            with open(os.path.join(dirpath, f"job-{job}.json.tmp"), "w") as f:
+                json.dump(verdict, f)
+            os.replace(os.path.join(dirpath, f"job-{job}.json.tmp"), os.path.join(dirpath, f"job-{job}.json"))
+            print(f"HOST_CHECKS job {spec['name']}: {verdict['bad'] or 'equal'} ({verdict['plain_ms']:.0f} ms)",
+                  flush=True)
+            done.add(job)
+        if listed is not None and listed <= done:
+            break
+        if not todo:
+            time.sleep(0.5)
+    print(f"HOST_CHECKS cpu_s {time.process_time():.1f} wall_s {time.monotonic() - t0:.1f}", flush=True)
+    return 0
+
+
+class HostChecks(SideProcess):
+    """The side process (host_checks_worker), started as soon as the kernels
+    are built, with HOST_CHECK_THREADS torch threads. The main process hands
+    it each deep check (`submit`), reads the fuzz cases' oracle snapshots
+    from it (`oracle_snapshots`), and at the end waits for every verdict
+    (`finish`): a mismatch, a missing verdict or a dead process fails the
+    run."""
+
+    def __init__(self):
+        self.dir = os.path.join("build", f"host-checks-{os.getpid()}")
+        super().__init__(("--host-checks", self.dir), "host-checks.log", HOST_CHECK_THREADS)
+        self.jobs: dict = {}  # job id -> the check's name
+
+    def start(self) -> None:
+        os.makedirs(self.dir, exist_ok=True)
+        super().start()
+
+    def submit(self, name: str, fn: str, args: tuple, got, **kwargs) -> None:
+        """One deep check: the plain version `fn` (plain_check) on `args`
+        against the kernel's outputs `got`, all copied to the CPU."""
+        import torch
+
+        job = f"{len(self.jobs):03d}"
+        spec = {"name": name, "fn": fn, "args": to_cpu(args), "kwargs": kwargs, "got": to_cpu(got)}
+        tmp = os.path.join(self.dir, f"job-{job}.tmp")
+        torch.save(spec, tmp)
+        os.replace(tmp, os.path.join(self.dir, f"job-{job}.pt"))
+        self.jobs[job] = name
+        log(f"host checks: {name} handed to the side process")
+
+    def oracle_snapshots(self, timeout: float = HOST_CHECKS_TIMEOUT) -> Optional[dict]:
+        import pickle
+
+        path = os.path.join(self.dir, "oracle.pkl")
+        deadline = time.monotonic() + timeout
+        while not os.path.exists(path):
+            if not self.alive() or time.monotonic() > deadline:
+                self.log_tail("host checks: oracle snapshots never came")
+                return None
+            time.sleep(0.2)
+        with open(path, "rb") as f:
+            return pickle.load(f)
+
+    def finish(self) -> Optional[dict]:
+        """Every job's verdict by name, with the side's own numbers; None
+        (its log's tail printed) when a verdict is missing or the process
+        failed. The job directory is removed once its verdicts are read."""
+        with open(os.path.join(self.dir, "done"), "w") as f:
+            json.dump(sorted(self.jobs), f)
+        waited, text = self.wait(HOST_CHECKS_TIMEOUT)
+        out = {"waited_s": waited, "started_s": self.t_start - _T0, "verdicts": {}}
+        for job, name in self.jobs.items():
+            path = os.path.join(self.dir, f"job-{job}.json")
+            if os.path.exists(path):
+                with open(path) as f:
+                    out["verdicts"][name] = json.load(f)
+        shutil.rmtree(self.dir, ignore_errors=True)
+        cpu = [ln.split() for ln in text.splitlines() if ln.startswith("HOST_CHECKS cpu_s ")]
+        if self.proc.returncode != 0 or len(out["verdicts"]) != len(self.jobs) or not cpu:
+            self.log_tail(f"host checks: exit {self.proc.returncode}, "
+                          f"{len(out['verdicts'])} of {len(self.jobs)} verdicts")
+            return None
+        out["cpu_s"], out["wall_s"] = float(cpu[-1][2]), float(cpu[-1][4])
+        return out
+
     def close(self) -> None:
-        if self.proc is not None and self.proc.poll() is None:
-            self.proc.kill()
-            self.proc.communicate()
-        if self.log is not None:
-            self.log.close()
+        super().close()
+        shutil.rmtree(self.dir, ignore_errors=True)
+
+
+def case_world(case) -> World:
+    """A fuzz case as a World (fresh objects)."""
+    from karpenter_tpu_torch.solver.topology import Topology
+
+    pools, ibp, pods, views, _daemons, options, source = case.materialize()
+    topo = Topology(pools, ibp, pods, cluster=source, state_node_views=views,
+                    ignore_preferences=options.ignore_preferences)
+    return World(pools, ibp, pods, views, options, topo)
+
+
+def finished_within(seconds: float) -> bool:
+    """Whether the work queued on the current stream ends within `seconds`
+    (an event polled on the host: a kernel that spins does not wedge the
+    run's host)."""
+    import torch
+
+    ev = torch.cuda.Event()
+    ev.record()
+    deadline = time.monotonic() + seconds
+    while not ev.query():
+        if time.monotonic() > deadline:
+            return False
+        time.sleep(0.005)
+    return True
+
+
+def stall_phase(dev) -> Optional[dict]:
+    """The runs-path stall case on the card: `fixtures.runs_stall_case`
+    (the c6 mix's 50 pods over 40 KWOK types, and its shrunk two pods),
+    whose walk retries a bulk head after a step that commits nothing. K3
+    relax off and on, each launch given STALL_LAUNCH_SECONDS (a K3 that
+    spins ends the run at once), held bit for bit to the plain walk:
+    kinds, slots, state, the odometer and the counter block with its
+    stall counter 0; then solve_in_process on the card against the port's
+    oracle, on the kernel route through K3. None on a failed check."""
+    import torch
+
+    from karpenter_tpu_torch.solver import tpu_kernel as K
+    from karpenter_tpu_torch.solver import tpu_runs as KR
+    from karpenter_tpu_torch.solver.hybrid import solve_in_process
+    from karpenter_tpu_torch.testing import fixtures, fuzz
+
+    t0 = time.monotonic()
+    out = {"launches": {}}
+    for shrunk in (False, True):
+        label = "shrunk" if shrunk else "c6_pods(50)"
+        case = fixtures.runs_stall_case(shrunk)
+        rr = runs_round(case_world(case), dev)
+        n = len(rr.order)
+        for relax in (False, True):
+            args = (rr.tb, rr.st, rr.rx, rr.seq, torch.zeros((), dtype=torch.int32, device=dev), n, relax)
+            got = KR.solve_runs(*args)
+            if not finished_within(STALL_LAUNCH_SECONDS):
+                log(f"stall phase: K3 on the {label} stall case (relax={relax}) still runs after "
+                    f"{STALL_LAUNCH_SECONDS:.0f}s: it spins")
+                abort_run(1)
+            want = KR.solve_runs_plain(*args)
+            bad = runs_mismatches(got, want)
+            rs = runs_status(got)
+            stall = int(rs.stalled)
+            log(f"stall phase: K3 run_step on the {label} case (P={rr.rx.is_head.shape[0]}, n={n}, "
+                f"N={rr.st.active.shape[0]}, relax={relax}): steps={rs.steps} "
+                f"bulk_steps={rs.bulk_steps} ptr={rs.ptr} over={rs.over} stall counter={stall}; "
+                f"mismatches={bad or 'none'}")
+            if bad or stall or rs.ptr != n:
+                return None
+        pools, ibp, pods, views, daemons, options, source = case.materialize()
+        reset_launches()
+        r, h = solve_in_process(pools, ibp, pods, views, daemons, options, cluster=source, device=dev)
+        got_snap = fuzz.results_snapshot(r, pods)
+        launches = {k: v for c in (K.LAUNCHES, KR.LAUNCHES) for k, v in c.items() if v}
+        pools, ibp, pods, views, daemons, options, source = case.materialize()
+        ro, _ = solve_in_process(pools, ibp, pods, views, daemons, options, cluster=source, force_oracle=True,
+                                 device=dev)
+        same = got_snap == fuzz.results_snapshot(ro, pods)
+        log(f"stall phase: solve_in_process on the {label} case: used_tpu={h.used_tpu} "
+            f"fallback={h.fallback_kind} runs path={h.tpu.last_used_runs} launches {launches}; against the "
+            f"port's oracle: {'equal' if same else 'DIFFERENT'}")
+        if not (same and h.used_tpu and h.fallback_kind is None and h.tpu.last_used_runs):
+            return None
+        if not launches.get("run_step", 0) + launches.get("run_step_relax", 0):
+            return None
+        for k, v in launches.items():
+            out["launches"][k] = out["launches"].get(k, 0) + v
+    out["seconds"] = time.monotonic() - t0
+    log(f"stall phase: {out['seconds']:.1f}s")
+    return out
+
+
+def fuzz_phase(dev, host: HostChecks) -> Optional[dict]:
+    """The fuzz cases (fuzz_cases) on the card: each kernel-supported case
+    through the port's fuzz.check_parity (its kernel path, the forced scan
+    path after a runs-path solve, a tight claim-slot pool and the relax-off
+    solve, with K1 and K4) against the side process's oracle snapshots, and
+    every case through fuzz.solve_hybrid with no invariant or odometer
+    violation. Returns the counts, or None on any violation (each logged
+    with its repro command)."""
+    from karpenter_tpu_torch.testing import fuzz
+
+    t0 = time.monotonic()
+    cases = fuzz_cases()
+    t_cases = time.monotonic()
+    snaps = host.oracle_snapshots()
+    if snaps is None:
+        return None
+    t_wait = time.monotonic() - t_cases
+    reset_launches()
+    from karpenter_tpu_torch.solver import tpu as T
+    from karpenter_tpu_torch.solver import tpu_kernel as K
+    from karpenter_tpu_torch.solver import tpu_runs as KR
+
+    supported, violations, fallbacks = 0, [], {}
+    errors_before = tpu_errors()
+    for label, case in cases:
+        found = []
+        if fuzz.kernel_supported(case):
+            supported += 1
+            want, want_ni = snaps[label]
+            found += fuzz.check_parity(case, device=dev, want_snap=want, want_snap_relax_off=want_ni)
+        r, pods, h = fuzz.solve_hybrid(case, device=dev)
+        found += fuzz.invariant_violations(case, r, pods) + fuzz.odometer_violations(h)
+        kind = h.fallback_kind or ("none" if h.used_tpu else "oracle")
+        fallbacks[kind] = fallbacks.get(kind, 0) + 1
+        if kind == "tpu_error":
+            # the guard re-solved on the oracle, whose answer passes every
+            # invariant: the kernel path's error is the finding
+            found.append(f"the kernel path raised and the hybrid fell back to the oracle: {h.fallback_reason}")
+        for v in found:
+            violations.append(v)
+            repro = (fuzz.repro_command(case.seed) if label.startswith("seed")
+                     else f"{label} (replay it with corpus_case)" if label.startswith("corpus")
+                     else "fixtures.runs_stall_case(shrunk=True)")
+            log(f"fuzz phase: VIOLATION on {label}: {v[:600]}; repro: {repro}")
+    launches = {k: v for c in (T.LAUNCHES, K.LAUNCHES, KR.LAUNCHES) for k, v in c.items() if v}
+    errors = tpu_errors() - errors_before
+    out = {"cases": len(cases), "supported": supported, "fallbacks": fallbacks, "tpu_errors": errors,
+           "violations": len(violations), "launches": launches,
+           "seconds": time.monotonic() - t0, "cases_s": t_cases - t0, "oracle_wait_s": t_wait}
+    log(f"fuzz phase: {json.dumps(out)}")
+    if violations or errors or supported == 0 or not launches.get("run_step") or not launches.get("scan_step"):
+        return None
+    return out
 
 
 def operator_phase(dev, its, oracle: OperatorOracle) -> Optional[dict]:
@@ -3773,14 +4181,16 @@ def budgets_phase(dev, its, smi: str) -> Optional[dict]:
 
 
 def main() -> int:
-    oracle = OperatorOracle()
+    oracle, host = OperatorOracle(), HostChecks()
+    _CHILDREN.extend((oracle, host))
     try:
-        return _main(oracle)
+        return _main(oracle, host)
     finally:
-        oracle.close()
+        for child in _CHILDREN:
+            child.close()
 
 
-def _main(oracle: OperatorOracle) -> int:
+def _main(oracle: OperatorOracle, host: HostChecks) -> int:
     try:
         import torch
     except ImportError:
@@ -3818,6 +4228,7 @@ def _main(oracle: OperatorOracle) -> int:
         log(f"sweep fleets built on the host while nvcc runs: {time.monotonic() - t0:.1f}s")
         built = building.result()
     oracle.start()  # phase 14c's oracle side: host work alone, beside the card's phases
+    host.start()  # the fuzz cases' oracle snapshots, then the deep plain checks
     log(f"build: {time.monotonic() - t0:.1f}s wall for {len(built)} libraries (parallel nvcc)")
     for name, info in built.items():
         log(f"  {name}: {info['seconds']:.1f}s")
@@ -3879,27 +4290,21 @@ def _main(oracle: OperatorOracle) -> int:
         return 1
 
     # K2 over a prefix of the headline round at full width (the plain
-    # version takes about 11 ms a pod), and over the whole round for speed
+    # version, about 11 ms a pod, runs in the side process), and over the
+    # whole round for speed
     tb_h, st_h, xs_h = step_inputs(headline_world(HEADLINE_PODS, its), dev, prefix=K2_PREFIX)
     P_h = xs_h.valid.shape[0]
     k2_ms = cuda_ms(lambda: K.solve_scan(tb_h, st_h, xs_h), 3)
-    st_k, kinds_k, slots_k, over_k, odo_k = K.solve_scan(tb_h, st_h, xs_h)
-    t0 = time.monotonic()
-    st_p, kinds_p, slots_p, over_p, odo_p = K.solve_scan_plain(tb_h, st_h, xs_h)
-    torch.cuda.synchronize()
-    k2_plain_ms = (time.monotonic() - t0) * 1e3
-    bad = state_mismatches(st_k, st_p)
-    if not (torch.equal(kinds_k, kinds_p) and torch.equal(slots_k, slots_p)):
-        bad.append("kinds/slots")
-    if bool(over_k) != bool(over_p) or int(odo_k.steps) != int(odo_p.steps):
-        bad.append("overflow/steps")
+    got_h = K.solve_scan(tb_h, st_h, xs_h)
+    st_k, kinds_k, slots_k, over_k, odo_k = got_h
     k2_layout = K.last_layout("scan_step")
+    host.submit("K2 headline prefix", "solve_scan", (tb_h, st_h, xs_h), got_h)
     log(
         f"K2 scan_step headline prefix (P={P_h}, N={st_h.active.shape[0]}): kernel {k2_ms:.3f} ms, "
-        f"plain {k2_plain_ms:.1f} ms, tables {k2_layout}, mismatches={bad or 'none'}"
+        f"tables {k2_layout}; its plain version in the side process"
     )
     # at the headline's shapes every type table lives in shared memory
-    if bad or not all(k2_layout["shared"].values()):
+    if not all(k2_layout["shared"].values()):
         return 1
     # the least time for the same work: every input read once, the state
     # and the outputs written once, and the (pod, open claim) pairs the
@@ -3926,11 +4331,12 @@ def _main(oracle: OperatorOracle) -> int:
         want = KR.solve_runs_plain(rr.tb, rr.st, rr.rx, rr.seq, nseq0, n)
         torch.cuda.synchronize()
         bad = runs_mismatches(got, want)
+        rs = runs_status(got)
         kinds = got[3].cpu().tolist()
         log(
             f"K3 run_step {label}: P={rr.rx.is_head.shape[0]} n={n} E={rr.st.eavail.shape[0]} "
-            f"N={rr.st.active.shape[0]} steps={int(got[6].steps)} bulk_steps={int(got[6].bulk_steps)} "
-            f"over={bool(got[5])} ptr={int(got[7])} kinds(existing/claim/new/fail)={[kinds.count(k) for k in range(4)]} "
+            f"N={rr.st.active.shape[0]} steps={rs.steps} bulk_steps={rs.bulk_steps} "
+            f"over={rs.over} ptr={rs.ptr} kinds(existing/claim/new/fail)={[kinds.count(k) for k in range(4)]} "
             f"mismatches={bad or 'none'}"
         )
         k3_mism += len(bad)
@@ -3948,9 +4354,10 @@ def _main(oracle: OperatorOracle) -> int:
     torch.cuda.synchronize()
     k3_plain_ms = (time.monotonic() - t0) * 1e3
     bad = runs_mismatches(got1, want1)
-    if not bool(got1[5]):
+    rs1 = runs_status(got1)
+    if not rs1.over:
         bad.append("no overflow in the first dispatch")
-    ptr1 = int(got1[7])
+    ptr1 = rs1.ptr
     N1 = rr.st.active.shape[0]
     st2, seq2 = rr.sched._grow(rr.problem, got1[0], got1[1], N1)
     batch = rr.order[ptr1:]
@@ -3963,25 +4370,34 @@ def _main(oracle: OperatorOracle) -> int:
     torch.cuda.synchronize()
     k3_plain_ms += (time.monotonic() - t0) * 1e3
     bad += runs_mismatches(got2, want2)
+    rs2 = runs_status(got2)
     k3_ms = cuda_ms(lambda: KR.solve_runs(*first_args), 3) + cuda_ms(lambda: KR.solve_runs(*cont_args), 3)
     k3_layout = K.last_layout("run_step")
     log(
-        f"K3 run_step headline: dispatch 1 N={N1} stops at ptr={ptr1} (steps={int(got1[6].steps)}, "
-        f"bulk_steps={int(got1[6].bulk_steps)}); dispatch 2 N={2 * N1} over {len(batch)} pods "
-        f"(steps={int(got2[6].steps)}, bulk_steps={int(got2[6].bulk_steps)}, over={bool(got2[5])}); "
+        f"K3 run_step headline: dispatch 1 N={N1} stops at ptr={ptr1} (steps={rs1.steps}, "
+        f"bulk_steps={rs1.bulk_steps}); dispatch 2 N={2 * N1} over {len(batch)} pods "
+        f"(steps={rs2.steps}, bulk_steps={rs2.bulk_steps}, over={rs2.over}); "
         f"kernel {k3_ms:.3f} ms, plain {k3_plain_ms:.1f} ms, tables {k3_layout}, mismatches={bad or 'none'}"
     )
     if bad or not all(k3_layout["shared"].values()):
         return 1
-    k3_iters = int(got1[6].steps) + int(got2[6].steps)
+    k3_iters = rs1.steps + rs2.steps
     R_h = rr.tb.ialloc.shape[1]
     # every input read once, state and outputs written once; each
     # iteration's feasibility screen over the claim slots (fits: R
     # compares, type screen: IW words)
     k3_bound, k3_by = bound(
         nbytes(rr.tb, rr.st, rr.rx) + nbytes(st2) + nbytes(rx2) + 2 * 4 * (n + len(batch)),
-        int(got1[6].steps) * N1 * (R_h + IW) + int(got2[6].steps) * 2 * N1 * (R_h + IW),
+        rs1.steps * N1 * (R_h + IW) + rs2.steps * 2 * N1 * (R_h + IW),
     )
+
+    # ---- 5b. the runs-path stall case (K3 under a wall-clock limit), then
+    # the fuzz cases on the card against the side process's oracle ----
+    if stall_phase(dev) is None:
+        return 1
+    fuzz_out = fuzz_phase(dev, host)
+    if fuzz_out is None:
+        return 1
 
     # ---- 6. K4 run_arrays vs its plain version: both headline rounds, the edges ----
     cls_d = rr.sched._dev_tables["cls"]
@@ -4193,31 +4609,23 @@ def _main(oracle: OperatorOracle) -> int:
     k2r_ms = cuda_ms(lambda: K.solve_scan(tb_p, st_p, xs_p, relax=True), 2)
     k2one_ms = cuda_ms(lambda: K.solve_scan(tb_p, st_p, xs_one, relax=True), 2)
     got_p = K.solve_scan(tb_p, st_p, xs_p, relax=True)
-    # the plain version on the round's first PREF_CHECK_POSITIONS positions,
-    # against the kernel on the same positions
+    # the kernel on the round's first PREF_CHECK_POSITIONS positions, with
+    # its tier ladders and with one trip a pod, each against the plain
+    # version in the side process
     xs_pc, xs_onec = (cut_positions(x, PREF_CHECK_POSITIONS, axis=0) for x in (xs_p, xs_one))
-    got_pc = K.solve_scan(tb_p, st_p, xs_pc, relax=True)
-    t0 = time.monotonic()
-    want_pc = K.solve_scan_plain(tb_p, st_p, xs_pc, relax=True)
-    torch.cuda.synchronize()
-    k2r_plain_ms = (time.monotonic() - t0) * 1e3
-    t0 = time.monotonic()
-    K.solve_scan_plain(tb_p, st_p, xs_onec, relax=True)
-    torch.cuda.synchronize()
-    k2one_plain_ms = (time.monotonic() - t0) * 1e3
-    bad = scan_mismatches(got_pc, want_pc)
+    host.submit("K2+relax preference round", "solve_scan", (tb_p, st_p, xs_pc),
+                K.solve_scan(tb_p, st_p, xs_pc, relax=True), relax=True)
+    host.submit("K2+relax preference round, one trip a pod", "solve_scan", (tb_p, st_p, xs_onec),
+                K.solve_scan(tb_p, st_p, xs_onec, relax=True), relax=True)
     P_p, N_p = xs_p.valid.shape[0], st_p.active.shape[0]
     n_valid_p = int(xs_p.valid.sum())
     pref_trips = int(got_p[4].tier_steps)
     pref_hist = got_p[4].tier_hist.tolist()
     log(
         f"K2 scan_step+relax preference round (P={P_p}, {n_valid_p} pods, N={N_p}): kernel {k2r_ms:.3f} ms "
-        f"(one trip a pod: {k2one_ms:.3f} ms), plain on the first {PREF_CHECK_POSITIONS} positions "
-        f"{k2r_plain_ms:.1f} ms (one trip a pod: {k2one_plain_ms:.1f} ms), "
-        f"over={bool(got_p[3])} tier_steps={pref_trips} tier_hist={pref_hist} mismatches={bad or 'none'}"
+        f"(one trip a pod: {k2one_ms:.3f} ms); the plain version on the first {PREF_CHECK_POSITIONS} positions in "
+        f"the side process; over={bool(got_p[3])} tier_steps={pref_trips} tier_hist={pref_hist}"
     )
-    if bad:
-        return 1
     # K2's bound as before (inputs, state and outputs once; the (pod, open
     # claim) pairs its screens visit), with the tier tables read once too;
     # the tier loop's bound: what the trips past a pod's first must do at
@@ -4244,12 +4652,12 @@ def _main(oracle: OperatorOracle) -> int:
         args_s = (rr_s.tb, rr_s.st, rr_s.rx, rr_s.seq, nseq0, n_s, True)
         got = KR.solve_runs(*args_s)
         bad = runs_mismatches(got, KR.solve_runs_plain(*args_s))
-        torch.cuda.synchronize()
-        ptr_s = int(got[7])
+        rs = runs_status(got)
+        ptr_s = rs.ptr
         log(
             f"K3 run_step+relax {label}: P={rr_s.rx.is_head.shape[0]} n={n_s} N={rr_s.st.active.shape[0]} "
-            f"steps={int(got[6].steps)} bulk_steps={int(got[6].bulk_steps)} tier_steps={int(got[6].tier_steps)} "
-            f"over={bool(got[5])} ptr={ptr_s} (ntiers there: {int(rr_s.rx.x.ntiers[min(ptr_s, n_s - 1)])}) "
+            f"steps={rs.steps} bulk_steps={rs.bulk_steps} tier_steps={rs.tier_steps} "
+            f"over={rs.over} ptr={ptr_s} (ntiers there: {int(rr_s.rx.x.ntiers[min(ptr_s, n_s - 1)])}) "
             f"mismatches={bad or 'none'}"
         )
         k3r_mism += len(bad)
@@ -4269,7 +4677,8 @@ def _main(oracle: OperatorOracle) -> int:
     torch.cuda.synchronize()
     k3r_plain_ms = (time.monotonic() - t0) * 1e3
     bad = runs_mismatches(got61, want61)
-    ptr61 = int(got61[7])
+    rs61 = runs_status(got61)
+    ptr61 = rs61.ptr
     N61 = rr6.st.active.shape[0]
     st62, seq62 = rr6.sched._grow(rr6.problem, got61[0], got61[1], N61)
     batch6 = rr6.order[ptr61:]
@@ -4294,16 +4703,17 @@ def _main(oracle: OperatorOracle) -> int:
     torch.cuda.synchronize()
     k3r_plain_ms += (time.monotonic() - t0) * 1e3
     bad += runs_mismatches(got62, want62)
+    rs62 = runs_status(got62)
     k3r_ms = cuda_ms(lambda: KR.solve_runs(*first6), 3) + cuda_ms(lambda: KR.solve_runs(*cont6), 3)
-    c6_trips = int(got61[6].tier_steps) + int(got62[6].tier_steps)
+    c6_trips = rs61.tier_steps + rs62.tier_steps
     log(
-        f"K3 run_step+relax c6: dispatch 1 N={N61} stops at ptr={ptr61} (steps={int(got61[6].steps)}, "
-        f"bulk_steps={int(got61[6].bulk_steps)}, tier_steps={int(got61[6].tier_steps)}); dispatch 2 N={2 * N61} over "
-        f"{len(batch6)} pods (steps={int(got62[6].steps)}, bulk_steps={int(got62[6].bulk_steps)}, "
-        f"tier_steps={int(got62[6].tier_steps)}, over={bool(got62[5])}); kernel {k3r_ms:.3f} ms, "
+        f"K3 run_step+relax c6: dispatch 1 N={N61} stops at ptr={ptr61} (steps={rs61.steps}, "
+        f"bulk_steps={rs61.bulk_steps}, tier_steps={rs61.tier_steps}); dispatch 2 N={2 * N61} over "
+        f"{len(batch6)} pods (steps={rs62.steps}, bulk_steps={rs62.bulk_steps}, "
+        f"tier_steps={rs62.tier_steps}, over={rs62.over}); kernel {k3r_ms:.3f} ms, "
         f"plain {k3r_plain_ms:.1f} ms, mismatches={bad or 'none'}"
     )
-    if bad or not bool(got61[5]):
+    if bad or not rs61.over:
         return 1
     R6 = rr6.tb.ialloc.shape[1]
     # K5 on the c6 mix's final claim state
@@ -4334,7 +4744,7 @@ def _main(oracle: OperatorOracle) -> int:
         return 1
     k3r_bound, k3r_by = bound(
         nbytes(rr6.tb, rr6.st, rr6.rx) + nbytes(st62) + nbytes(rx62) + 2 * 4 * (n6 + len(batch6)),
-        int(got61[6].steps) * N61 * (R6 + IW) + int(got62[6].steps) * 2 * N61 * (R6 + IW),
+        rs61.steps * N61 * (R6 + IW) + rs62.steps * 2 * N61 * (R6 + IW),
     )
 
     # ---- 11. the c6 mix end to end: the runs path with the tier loop ----
@@ -4443,14 +4853,14 @@ def _main(oracle: OperatorOracle) -> int:
 
     # ---- 11b. existing nodes, host ports, limits, reservations and
     # minValues at full size; a catalog past the shared-memory budget ----
-    full = full_size_phase(dev)
+    full = full_size_phase(dev, host)
     if full is None:
         return 1
 
     # ---- 12. the consolidation sweeps (K6, K7, K8) ----
     c4_fleet = fleets[0]
     c4_digest = fleet_digest(c4_fleet)
-    sweep_rows = sweep_phase(dev, fleets)
+    sweep_rows = sweep_phase(dev, fleets, host)
     del fleets
     if sweep_rows is None:
         return 1
@@ -4462,7 +4872,7 @@ def _main(oracle: OperatorOracle) -> int:
         return 1
 
     # ---- 13. fleet lanes (K7 with each lane's own pod rows) ----
-    fleet_row = fleet_phase(dev, its)
+    fleet_row = fleet_phase(dev, its, host)
     if fleet_row is None:
         return 1
 
@@ -4517,6 +4927,19 @@ def _main(oracle: OperatorOracle) -> int:
     if budgets_phase(dev, its, smi) is None:
         return 1
 
+    # ---- 14d. the side process's verdicts on the deep plain checks ----
+    checks = host.finish()
+    if checks is None:
+        return 1
+    verdicts = checks.pop("verdicts")
+    log(f"host checks: {json.dumps({n: (v['bad'] or 'equal', round(v['plain_ms'], 1)) for n, v in verdicts.items()})}; "
+        f"side process {json.dumps(checks)}")
+    if any(v["bad"] for v in verdicts.values()):
+        return 1
+    k2_plain_ms = verdicts["K2 headline prefix"]["plain_ms"]
+    k2r_plain_ms = verdicts["K2+relax preference round"]["plain_ms"]
+    k2one_plain_ms = verdicts["K2+relax preference round, one trip a pod"]["plain_ms"]
+
     # ---- 15. the kernels line ----
     kernels = [
         row("typeok_screen", "typeok.cu", "karpenter_tpu/solver/tpu.py:61", launches["typeok_screen"], k1_mism,
@@ -4551,6 +4974,13 @@ def _main(oracle: OperatorOracle) -> int:
         ),
     ] + sweep_rows + [fleet_row]
     for r in kernels:
+        # the rows whose plain version ran in the side process, on the CPU
+        jobs = r.pop("plain_jobs", None)
+        if jobs:
+            r["plain_ms"] = sum(verdicts[j]["plain_ms"] for j in jobs)
+        if jobs or r["name"] in ("scan_step", "scan_step+relax", "relax_step"):
+            r["plain_device"] = "cpu (side process)"
+        r["launches_fuzz"] = sum(fuzz_out["launches"].get(k, 0) for k in ROW_COUNTERS.get(r["name"], ()))
         r.update(apart.get(r["name"], {}))
         if r["name"] in CONSOLIDATION_ROWS:
             r["launches_consolidation"] = sum(consolidation["launches"].get(k, 0) for k in CONSOLIDATION_ROWS[r["name"]])
@@ -4576,4 +5006,6 @@ if __name__ == "__main__":
         sys.exit(cold_start_worker(sys.argv[2]))
     if len(sys.argv) == 2 and sys.argv[1] == "--operator-oracle":
         sys.exit(operator_oracle_worker())
+    if len(sys.argv) == 3 and sys.argv[1] == "--host-checks":
+        sys.exit(host_checks_worker(sys.argv[2]))
     sys.exit(main())

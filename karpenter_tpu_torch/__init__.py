@@ -8,19 +8,30 @@ scheduling, cloudprovider, encode, oracle) are kept as copies.
 
 Layout:
   api/, utils/, scheduling/, cloudprovider/             host copies
+  cloudprovider/fake.py                                 the fake provider and
+                                                        instance-type factories
   metrics.py, logging.py, events.py, options.py         host copies (options:
                                                         the card's crossover)
   tracing.py                                            solve traces, the trace
                                                         ring, the solve metrics
   analysis/protorec.py                                  the protocol recorder
-  testing/                                              fixtures (host copies and
-                                                        underutilized_world)
+  analysis/runtime.py, budgets.py                       launches, syncs, copies
+                                                        and uploads per solve;
+                                                        torch_budgets.json
+  testing/fixtures.py                                   fixtures (host copies,
+                                                        underutilized_world, the
+                                                        runs-path stall case)
+  testing/fuzz.py                                       the fuzz harness: seeded
+                                                        cases, parity, invariants,
+                                                        chaos, shrink, the corpus
+  testing/faults.py                                     the fault proxy (stdlib)
   ops/vocab.py, ops/encode.py                           host encoding copies
   ops/kernels.py                                        requirement algebra
   device.py                                             device choice, bit words
   solver/tpu_kernel.py                                  the per-pod step (K2) and
                                                         its lane grid (K7)
-  solver/tpu_runs.py                                    the run kernel (K3)
+  solver/tpu_runs.py                                    the run kernel (K3), its
+                                                        retry and stall guard
   solver/tpu.py                                         TorchScheduler (K1, K4, K5)
   solver/hybrid.py                                      TorchHybridScheduler and
                                                         solve_in_process: the
@@ -35,12 +46,27 @@ Layout:
                                                         on the card, admission
   solver/service.py                                     the sidecar: SolverServer,
                                                         SolverClient
+  solver/aot.py                                         the prewarm over the
+                                                        bucket ladder
   controllers/kube.py, state.py                         API store, cluster cache
                                                         (host copies)
   controllers/provisioning.py                           Batcher, VolumeTopology,
                                                         the Provisioner
-  controllers/nodepool_aux.py                           the requirement validator
-  controllers/static.py                                 the pools' node limit
+  controllers/operator.py                               the Operator: every
+                                                        controller a tick
+  controllers/lifecycle.py, termination.py              claim launch to
+                                                        initialization; the drain
+  controllers/nodeclaim_aux.py                          disruption conditions,
+                                                        expiration, GC, pod
+                                                        events, consistency,
+                                                        hydration
+  controllers/nodepool_aux.py                           the NodePool hash,
+                                                        counter, readiness,
+                                                        validation; node repair
+  controllers/static.py                                 static-capacity pools
+  controllers/nodeoverlay.py                            price and capacity
+                                                        overlays
+  controllers/metrics_controllers.py, probes.py         gauges; the HTTP probes
   controllers/disruption/                               candidates, budgets, the
                                                         referee, sweep.py (K6,
                                                         K7), setsweep.py (K8),

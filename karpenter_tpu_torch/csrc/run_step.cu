@@ -506,17 +506,22 @@ __global__ void __launch_bounds__(NT, 1) run_step_kernel() {
   __syncthreads();
   prof_mark(PH_prologue);
   int ptr = 0, over = 0, steps = 0, bulk_steps = 0;
+  // built_at: the head whose run cache is live; idle: steps in a row that
+  // committed nothing (the progress guard's count)
+  int built_at = -1, idle = 0, stalled = 0;
   bool rc_active = false;
   while (ptr < A.n_valid && !over) {
     const bool head = U8(is_head)[ptr], is_bulk = U8(bulk)[ptr], is_aff = U8(aff)[ptr], valid = U8(valid)[ptr];
     stage_pod(ptr);
     prof_mark(PH_stage_pod);
     // non-affinity bulk heads build the cache up front and commit their own
-    // pod through the bulk window
+    // pod through the bulk window; a retry at the same head keeps the cache,
+    // so the claims the last step excluded stay excluded
     const bool head_build = head && is_bulk && !is_aff && valid;
-    if (head_build) {
+    if (head_build && ptr != built_at) {
       build_cache(ptr, S);
       rc_active = true;
+      built_at = ptr;
     }
     int k, oflow = 0;
     if (rc_active && is_bulk && (head_build || !head)) {
@@ -558,6 +563,13 @@ __global__ void __launch_bounds__(NT, 1) run_step_kernel() {
       k = oflow ? 0 : 1;
     }
     ++steps;
+    // the progress guard: each step that commits nothing excludes a claim,
+    // so more than N + 1 in a row at one ptr is a walk gone wrong
+    idle = (k == 0 && !oflow) ? idle + 1 : 0;
+    if (idle > N + 1) {
+      stalled = 1;
+      break;
+    }
     ptr += k;
     over |= oflow;
     __syncthreads();
@@ -569,6 +581,7 @@ __global__ void __launch_bounds__(NT, 1) run_step_kernel() {
     I32(counters)[2] = bulk_steps;
     I32(counters)[3] = sh.nseq;
     I32(counters)[4] = ptr;
+    I32(counters)[KTPU_CNT_STALL] = stalled;
   }
   prof_end();
 }

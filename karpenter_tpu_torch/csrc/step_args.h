@@ -83,10 +83,11 @@ struct StepArgs {
 #define KTPU_MAX_T 64
 #define KTPU_MAX_NRESW 32
 // the counter block: overflow, steps, bulk_steps, next_seq, ptr,
-// tier_steps, then the KTPU_TIER_BINS tier_hist bins (tpu_kernel.py
-// N_COUNTERS)
+// tier_steps, then the KTPU_TIER_BINS tier_hist bins, then the runs walk's
+// stall counter (tpu_kernel.py N_COUNTERS)
 #define KTPU_CNT_TIER_STEPS 5
 #define KTPU_TIER_BINS 8
+#define KTPU_CNT_STALL (KTPU_CNT_TIER_STEPS + 1 + KTPU_TIER_BINS)
 // the run kernel's bulk window (tpu_runs.py W)
 #define KTPU_RUN_W 64
 

@@ -899,7 +899,7 @@ class TorchScheduler:
                                 xs, idx_d = self._pod_xs_with_idx(problem, batch)
                                 rx = self._run_x(xs, idx_d, len(batch))
                             with prof.span("kernel", detail=True):
-                                st, seq, next_seq, got_kinds, got_slots, got_over, got_odo, got_ptr = KR.solve_runs(
+                                st, seq, next_seq, got_kinds, got_slots, got_status = KR.solve_runs(
                                     tb, st, rx, seq, next_seq, len(batch), relax
                                 )
                         else:
@@ -911,8 +911,15 @@ class TorchScheduler:
                         with prof.span("fetch", detail=True):
                             got_kinds = got_kinds.cpu().numpy()
                             got_slots = got_slots.cpu().numpy()
-                            got_over = bool(got_over)
+                            if use_runs:
+                                # the overflow flag, ptr, stall counter and
+                                # odometer come back in one copy
+                                got_over, got_ptr, stalled, got_odo = K.counter_fields(got_status.tolist())
+                            else:
+                                got_over = bool(got_over)
                             dsp["kernel"] = _fold_odo(odo, got_odo, path)
+                    if use_runs and stalled:
+                        raise KR.RunsStallError(f"runs walk stalled at pod {got_ptr} of a {len(batch)}-pod dispatch")
                     prof.count("dispatches")
                     tracing.SOLVE_DISPATCHES.inc({"path": path})
                     if got_over:
@@ -923,7 +930,7 @@ class TorchScheduler:
                         break
                     # runs path: commit the pods before the overflowing one,
                     # grow the state, go on from that pod
-                    n_done = int(got_ptr) if got_over else len(batch)
+                    n_done = got_ptr if got_over else len(batch)
                     done = batch[:n_done]
                     kinds[done] = got_kinds[:n_done]
                     slots[done] = got_slots[:n_done]

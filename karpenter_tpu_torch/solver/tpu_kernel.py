@@ -936,9 +936,26 @@ def solve_scan_lanes(tb: Tables, st: State, xs: PodX, relax: bool = False, prof:
 
 # the kernels' shared-memory staging limits (csrc/step_args.h)
 _LIMITS = {"TW": 128, "K": 64, "C": 8, "IW": 128, "R": 32, "Gv": 64, "Gh": 64, "HPW": 32, "T": 64, "NRESW": 32}
-# the counter block both step kernels write: overflow, steps, bulk_steps,
-# next_seq, ptr, tier_steps, then the ODO_TIER_BINS tier_hist bins
-N_COUNTERS = 6 + ODO_TIER_BINS
+# the counter block the step kernels write: overflow, steps, bulk_steps,
+# next_seq, ptr, tier_steps, then the ODO_TIER_BINS tier_hist bins, then
+# the runs walk's stall counter (K3 only)
+CNT_STALL = 6 + ODO_TIER_BINS
+N_COUNTERS = CNT_STALL + 1
+
+
+def counter_block(over, steps, bulk_steps, next_seq, ptr, tier_steps, tier_hist, stalled, dev) -> torch.Tensor:
+    """A counter block ([N_COUNTERS] int32) from a plain walk's ints."""
+    vals = [int(over), steps, bulk_steps, next_seq, ptr, tier_steps, *tier_hist, int(stalled)]
+    return torch.tensor(vals, dtype=torch.int32, device=dev)
+
+
+def counter_fields(block: list) -> tuple:
+    """(overflowed, ptr, stalled, odometer dict) of one fetched counter
+    block (`block.tolist()`): the runs path reads them in one fetch."""
+    odo = {"steps": block[1], "bulk_steps": block[2], "tier_steps": block[5]}
+    if odo["tier_steps"]:
+        odo["tier_hist"] = list(block[6:CNT_STALL])
+    return bool(block[0]), block[4], bool(block[CNT_STALL]), odo
 
 
 @functools.lru_cache(maxsize=None)
@@ -1220,7 +1237,7 @@ def counters_odometer(counters: torch.Tensor, dev) -> Odometer:
     """The Odometer of a step kernel's counter block ([N_COUNTERS], or
     [B, N_COUNTERS] for B lanes: then every field has a leading lane
     axis)."""
-    return odometer(counters[..., 1], counters[..., 2], dev, counters[..., 5], counters[..., 6:])
+    return odometer(counters[..., 1], counters[..., 2], dev, counters[..., 5], counters[..., 6:CNT_STALL])
 
 
 def step_args(name: str, args_type, vals: dict):

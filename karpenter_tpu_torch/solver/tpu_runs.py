@@ -87,6 +87,13 @@ _CASE_SOLO = 2
 _CASE_NEW = 3
 _CASE_FAIL = 4
 
+
+class RunsStallError(RuntimeError):
+    """A runs walk made more than N + 1 steps in a row at one pod without
+    committing it (the stall counter of its counter block). Not a failure
+    of the card: the hybrid guard re-solves on the oracle."""
+
+
 # launches of the CUDA run kernel (one per solve_runs call on the card)
 LAUNCHES = {"run_step": 0, "run_step_relax": 0}
 
@@ -623,37 +630,43 @@ class _Walk:
 
 def solve_runs_plain(tb: Tables, st: State, rx: RunX, seq, next_seq, n_valid: int, relax: bool = False):
     """The plain version. Returns (state, seq, next_seq, kinds[P],
-    slots[P], overflowed, odometer, ptr); pods at index >= n_valid are
-    shape padding and are never visited. An overflow stops the walk with
-    ptr on the overflowing pod: everything before it is decided and does
-    not depend on the slot count, so the host grows the state and goes on
-    from ptr (a tiered pod then starts again at tier 0). With `relax` the
-    exact step is the tier loop."""
+    slots[P], counters); pods at index >= n_valid are shape padding and
+    are never visited. `counters` is K3's counter block
+    (`tpu_kernel.N_COUNTERS`: the overflow flag, the odometer, next_seq,
+    ptr and the stall counter), which the host reads in one fetch
+    (`tpu_kernel.counter_fields`; `counters_odometer` on the device). An
+    overflow stops the walk with ptr on the overflowing pod: everything
+    before it is decided and does not depend on the slot count, so the
+    host grows the state and goes on from ptr (a tiered pod then starts
+    again at tier 0). With `relax` the exact step is the tier loop. A
+    walk that makes more than N + 1 steps in a row without committing a
+    pod ends with the stall counter set (`RunsStallError` on the host)."""
     w = _Walk(tb, st, rx, seq, next_seq, relax)
-    ptr, over = 0, False
+    ptr, over, stalled = 0, False, False
+    built_at, idle = -1, 0
     while ptr < n_valid and not over:
         # non-affinity bulk heads build the cache up front and commit their
-        # own pod through the bulk machinery
+        # own pod through the bulk machinery; a retry at the same head keeps
+        # the cache, so the claims the last step excluded stay excluded
         head_build = w.is_head[ptr] and w.bulk[ptr] and not w.aff[ptr] and w.valid[ptr]
-        if head_build:
+        if head_build and ptr != built_at:
             w.rc = _build_cache(tb, w.st, w.xrow(ptr))
+            built_at = ptr
         if w.rc.active and w.bulk[ptr] and (head_build or not w.is_head[ptr]):
             k, oflow = w.bulk_step(ptr)
         else:
             k, oflow = w.single_step(ptr)
+        # the progress guard: each step that commits nothing excludes a
+        # claim, so more than N + 1 in a row at one ptr is a walk gone wrong
+        idle = idle + 1 if k == 0 and not oflow else 0
+        if idle > w.N + 1:
+            stalled = True
+            break
         ptr += k
         over = over or oflow
     dev = w.dev
-    return (
-        w.st,
-        w.seq,
-        _i32(w.nseq, dev),
-        w.kinds[: w.P],
-        w.slots[: w.P],
-        torch.tensor(over, device=dev),
-        K.odometer(w.steps, w.bulk_steps, dev, w.tier_steps, w.tier_hist),
-        _i32(ptr, dev),
-    )
+    counters = K.counter_block(over, w.steps, w.bulk_steps, w.nseq, ptr, w.tier_steps, w.tier_hist, stalled, dev)
+    return w.st, w.seq, _i32(w.nseq, dev), w.kinds[: w.P], w.slots[: w.P], counters
 
 
 def solve_runs(
@@ -704,4 +717,4 @@ def _launch_run_step(tb: Tables, st: State, rx: RunX, seq, next_seq, n_valid: in
     K.launch_step(lib, "run_step", args_type, vals, dev)
     LAUNCHES["run_step_relax" if relax else "run_step"] += 1
     budgets.launched("run_step")
-    return st, seq, counters[3], kinds, slots, counters[0] != 0, K.counters_odometer(counters, dev), counters[4]
+    return st, seq, counters[3], kinds, slots, counters

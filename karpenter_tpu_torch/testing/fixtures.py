@@ -631,3 +631,46 @@ def underutilized_world(
         )
     clock.advance(30.0)
     return World(kube, cluster, clock, cloud)
+
+
+# the shrunk runs-path stall case: the second pod (zone affinity to its own
+# label) heads a bulk run whose one feasible claim holds none of it, so the
+# bulk step commits nothing
+_RUNS_STALL_PODS = (
+    ("tsc-hostname-6", "00000000-0000-0018-4850-b60de193491d", {"my-label": "b"}, False),
+    ("aff-3", "00000000-0000-001e-c7b6-4561ac194201", {"my-affininity": "b"}, True),
+)
+
+
+def runs_stall_case(shrunk: bool = True):
+    """The case on which a runs walk that rebuilt its run cache at every
+    arrival at a head spun forever: `c6_pods(50)` over `kwok_universe(40)`
+    with one default NodePool and `tpu_min_pods=0`, or (`shrunk`) the two
+    pods `fuzz.shrink` left of it (1500m and 4Gi each, two classes, the
+    second with a zone affinity to itself). A `fuzz.FuzzCase` (seed 0:
+    not a generated seed)."""
+    from karpenter_tpu_torch.solver.oracle import SchedulerOptions
+    from karpenter_tpu_torch.solver.topology import ClusterSource
+    from karpenter_tpu_torch.testing import fuzz
+
+    if shrunk:
+        pods = []
+        for name, uid, labels, self_affine in _RUNS_STALL_PODS:
+            selector = LabelSelector(match_labels=dict(labels))
+            aff = [PodAffinityTerm(topology_key=well_known.TOPOLOGY_ZONE_LABEL_KEY, label_selector=selector)]
+            p = pod(
+                name=name,
+                labels=dict(labels),
+                requests={"cpu": "1500m", "memory": "4Gi"},
+                pod_requirements=aff if self_affine else None,
+            )
+            p.metadata.uid = uid
+            pods.append(p)
+    else:
+        pods = c6_pods(50)
+    pool = node_pool(name="default")
+    pool.metadata.uid = "runs-stall-pool-0"
+    problem = fuzz.encode_case_problem(
+        [pool], {"default": kwok_universe(40)}, pods, None, None, SchedulerOptions(tpu_min_pods=0), ClusterSource()
+    )
+    return fuzz.FuzzCase(seed=0, families=["runs_stall"], problem=problem)

@@ -37,6 +37,7 @@ from karpenter_tpu_torch.solver import hybrid as phybrid
 from karpenter_tpu_torch.solver.topology import Topology
 from karpenter_tpu_torch.solver.tpu import TorchScheduler
 from karpenter_tpu_torch.solver.tpu_problem import UnsupportedBySolver
+from karpenter_tpu_torch.testing import fuzz as pfuzz
 
 # fuzz seeds whose cases mix kernel-supported pods with volume-claim pods,
 # and the route each takes: the partitioned continuation (across existing
@@ -107,9 +108,15 @@ def port_hybrid(case, force_oracle=False):
     return res, pods, h, _delta(before, _counts(phybrid.SOLVE_FALLBACKS))
 
 
+def port_invariants(case, res, pods) -> list:
+    """The port's `fuzz.invariant_violations` on one of its own Results
+    (no oracle in the loop), on the same wire payload."""
+    return pfuzz.invariant_violations(pfuzz.FuzzCase(seed=case.seed, problem=case.problem), res, pods)
+
+
 def twin(case, force_oracle=False):
     """Both dispatches on one case; returns the port's scheduler after
-    holding it to the reference's."""
+    holding it to the reference's and its Results to the fuzz invariants."""
     want, wpods, rh, rkinds = ref_hybrid(case, force_oracle)
     got, gpods, ph, pkinds = port_hybrid(case, force_oracle)
     assert ph.used_tpu is rh.used_tpu
@@ -117,6 +124,7 @@ def twin(case, force_oracle=False):
     assert pkinds == rkinds
     assert ({ph.fallback_kind: 1.0} if ph.fallback_kind else {}) == rkinds
     assert fuzz.results_snapshot(got, gpods) == fuzz.results_snapshot(want, wpods)
+    assert port_invariants(case, got, gpods) == []
     return ph
 
 
@@ -378,6 +386,7 @@ def _hold_to_solve_hybrid(case):
     assert ph.used_tpu is rh.used_tpu
     assert ph.fallback_reason == rh.fallback_reason
     assert fuzz.results_snapshot(got, gpods) == fuzz.results_snapshot(want, wpods)
+    assert port_invariants(case, got, gpods) == []
     assert set(ph.last_phases) >= {"topology"}
     return ph
 

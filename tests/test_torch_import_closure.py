@@ -36,6 +36,29 @@ def test_importing_every_module_loads_no_jax_or_reference():
     assert bad == "[]"
 
 
+_HARNESS_PROBE = """
+import sys
+from karpenter_tpu_torch.cloudprovider import fake
+from karpenter_tpu_torch.testing import faults, fixtures, fuzz
+case = fixtures.runs_stall_case(shrunk=True)
+fuzz.check_parity(case, device="cpu")
+fuzz.check_invariants(case, device="cpu")
+print(sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "karpenter_tpu.")) or m == "karpenter_tpu"))
+"""
+
+
+def test_fuzz_harness_loads_no_jax_or_reference():
+    """The fuzz harness, the fake cloud provider and the fault proxy, with
+    a parity and an invariant check run, load neither jax nor the JAX
+    package."""
+    out = subprocess.run(
+        [sys.executable, "-c", _HARNESS_PROBE], cwd=ROOT, capture_output=True, text=True, timeout=120,
+        env={k: v for k, v in os.environ.items() if k != "PYTHONPATH"},
+    )
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+
+
 def _forbidden(name: str) -> bool:
     return name in ("jax", "karpenter_tpu") or name.startswith(("jax.", "karpenter_tpu."))
 

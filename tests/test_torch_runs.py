@@ -111,13 +111,16 @@ def _check_runs(tb, st, rx, n):
         torch.zeros(N, dtype=torch.int32), torch.tensor(0, dtype=torch.int32), n,
     )
     jst, jseq, jnseq, jkinds, jslots, jover, jodo, jptr = jout
-    pst, pseq, pnseq, pkinds, pslots, pover, podo, pptr = pout
+    pst, pseq, pnseq, pkinds, pslots, pcounters = pout
+    pover, pptr, pstalled, _ = PK.counter_fields(pcounters.tolist())
+    podo = PK.counters_odometer(pcounters, "cpu")
+    assert not pstalled and int(pnseq) == int(pcounters[3])
     assert np.array_equal(np.asarray(jkinds), pkinds.numpy())
     assert np.array_equal(np.asarray(jslots), pslots.numpy())
     assert np.array_equal(np.asarray(jseq), pseq.numpy())
     assert int(jnseq) == int(pnseq)
-    assert bool(jover) == bool(pover)
-    assert int(jptr) == int(pptr)
+    assert bool(jover) == pover
+    assert int(jptr) == pptr
     assert int(jodo.steps) == int(podo.steps)
     assert int(jodo.bulk_steps) == int(podo.bulk_steps)
     _assert_states_equal(convert.state(jst), pst)
@@ -210,8 +213,8 @@ def test_mid_run_overflow_stops_like_reference():
     same pod with identical partial state."""
     tb, st, rx, n, _, _ = _run_inputs(_diverse_case(400), claim_slot_div=10_000)
     assert st.active.shape[0] == 64
-    out = _check_runs(tb, st, rx, n)
-    assert bool(out[5]) and 0 < int(out[7]) < n
+    over, ptr, _, _ = PK.counter_fields(_check_runs(tb, st, rx, n)[5].tolist())
+    assert over and 0 < ptr < n
 
 
 def _solve_port(case: fuzz.FuzzCase, claim_slot_div=None, force_scan=False):

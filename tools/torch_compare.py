@@ -144,6 +144,7 @@ def headline_dispatches(rr, dev) -> tuple[list, object]:
     the rest after a claim-slot regrow), and the final state."""
     import torch
 
+    from karpenter_tpu_torch.solver import tpu_kernel as K
     from karpenter_tpu_torch.solver import tpu_runs as KR
 
     n = len(rr.order)
@@ -151,8 +152,8 @@ def headline_dispatches(rr, dev) -> tuple[list, object]:
     first = (rr.tb, rr.st, rr.rx, rr.seq, nseq0, n, rr.relax)
     got = KR.solve_runs(*first)
     launches = [first]
-    if bool(got[5]):  # the claim slots overflowed: the rest after the regrow
-        ptr1 = int(got[7])
+    over, ptr1, _, _ = K.counter_fields(got[5].tolist())
+    if over:  # the claim slots overflowed: the rest after the regrow
         st2, seq2 = rr.sched._grow(rr.problem, got[0], got[1], rr.st.active.shape[0])
         batch = rr.order[ptr1:]
         xs2, idx2 = rr.sched._pod_xs_with_idx(rr.problem, batch)
