@@ -14,7 +14,12 @@ its own beside the card's phases (`--host-checks`, HostChecks): the main
 process writes the cut's inputs and the kernel's outputs to build/, the
 side process runs the plain version on the CPU and writes its verdict,
 and a mismatch, a missing verdict or a dead side process fails the run.
-The same side process takes the fuzz cases' oracle snapshots first.
+The same side process takes the fuzz cases' oracle snapshots first. Every
+check that is host work alone against a referee (the sweep lanes' sequential
+referee, the oracle parities, the fleet lanes' and the decisions phase's
+oracle) runs in a child forked off the main process (HostChecks.fork: the
+objects as they are, no rebuild), beside the card's phases; its verdict is
+read at the end like the side process's.
 
 - K1 typeok_screen on the headline's class rows, the c6 mix's tier rows,
   the full-size screens world's class rows and a 2048-type catalog's;
@@ -84,7 +89,19 @@ pods, whose decisions must equal the runs path's; the c6 realistic mix
 (bench.py `pods_realistic(10000)`: 98% diverse, a 2% tail of preference
 pods) through the runs path with the tier loop, whose odometer must equal
 the JAX package's; and the 1000-pod preference round through the scan path
-with the tier loop; then the provisioning entry point: Provisioner.reconcile()
+with the tier loop; then BASELINE.json's provisioning configs at full width
+(`baseline_phase`, karpenter_tpu_torch/testing/configs.py: c1 500 pods of
+requests only on 50 types, c2 10000 pods with zone nodeSelectors and a
+toleration under a default and a tainted NodePool, c3 5000 pods half zone
+spread and half hostname anti-affinity under a three-zone NodePool, c5 50000
+pods of the diverse mix on 1000 types), each solve equal to the JAX
+package's (BASELINE_JAX: path, claims, errors, odometer and the decisions'
+digest, recorded by tools/reference_configs.py), also through
+solve_in_process and with every launch table in device memory, c1's and
+c2's partitions equal to the port's oracle and K5 on the decodes of c3 and
+c5 equal to its plain version in the side process, each config's median
+pods/s, host phases and peak device bytes; then the provisioning entry
+point: Provisioner.reconcile()
 on a SimKube cluster whose pending pods are the c6 mix plus 100 pods with a
 PVC each of a zonal StorageClass (the supported pods on K1, K3, K4 and K5, the
 100 continued on the oracle, each on a claim in the StorageClass's zone; no
@@ -175,6 +192,46 @@ C6_JAX_ODOMETER = {
     "steps": 1709, "bulk_steps": 1019, "tier_steps": 1290, "tier_hist": [690, 200, 200, 200, 0, 0, 0, 0],
     "dispatches": 2, "overflow_signals": 1, "regrows": 1, "claims_opened": 1962, "claim_slots": 2048,
 }
+# the baseline configs phase (baseline_phase): BASELINE.json's provisioning
+# configs at their full widths (karpenter_tpu_torch.testing.configs), each
+# held to the JAX package's solve of the same problem, recorded with
+# `JAX_PLATFORMS=cpu python3 tools/reference_configs.py` on a CPU: the path,
+# the claim and error counts, the odometer's structure counts and the
+# decisions' digest (`fuzz.snapshot_digest` of `fuzz.results_snapshot`)
+BASELINE_JAX = {
+    "c1_500x50_requests_only": {
+        "runs_path": True, "relax": False, "claims": 61, "errors": 0,
+        "odometer": {"steps": 95, "bulk_steps": 95, "tier_steps": 0, "tier_hist": [0, 0, 0, 0, 0, 0, 0, 0],
+                     "dispatches": 1, "overflow_signals": 0, "regrows": 0, "claims_opened": 61, "claim_slots": 64},
+        "digest": "ff25145c1488aecafc30934bd9602e3a69e83a5bf581f05be6e50770f8990bbb",
+    },
+    "c2_10kx500_selector_taints": {
+        "runs_path": True, "relax": False, "claims": 68, "errors": 0,
+        "odometer": {"steps": 1271, "bulk_steps": 1271, "tier_steps": 0, "tier_hist": [0, 0, 0, 0, 0, 0, 0, 0],
+                     "dispatches": 1, "overflow_signals": 0, "regrows": 0, "claims_opened": 68, "claim_slots": 1024},
+        "digest": "c8c118b517ee5184e206fee19042a74bc5407876e6ba114df3707fed072e4602",
+    },
+    "c3_5k_topology_heavy": {
+        "runs_path": True, "relax": False, "claims": 2500, "errors": 0,
+        "odometer": {"steps": 656, "bulk_steps": 293, "tier_steps": 0, "tier_hist": [0, 0, 0, 0, 0, 0, 0, 0],
+                     "dispatches": 4, "overflow_signals": 3, "regrows": 3, "claims_opened": 2500, "claim_slots": 4096},
+        "digest": "f6368f2d1ab56a8f17480e56b45d32b040b2ef3940f2e4e792beaa242232976d",
+    },
+    "c5_50kx1k_mixed": {
+        "runs_path": True, "relax": False, "claims": 10000, "errors": 0,
+        "odometer": {"steps": 3107, "bulk_steps": 1512, "tier_steps": 0, "tier_hist": [0, 0, 0, 0, 0, 0, 0, 0],
+                     "dispatches": 3, "overflow_signals": 2, "regrows": 2, "claims_opened": 10000,
+                     "claim_slots": 16384},
+        "digest": "8cfa1f7e187fd030e478c0b06d0de024df350155c10df97b0e2848184d1cbda1",
+    },
+}
+# the configs whose full-width solve the port's oracle referees in the side
+# process (the others' oracle takes longer than the run: their referee is
+# the JAX package's digest)
+BASELINE_ORACLE = ("c1_500x50_requests_only", "c2_10kx500_selector_taints")
+BASELINE_TIMED = 3  # timed solves a config (the median's)
+# past this many seconds of the run, the largest config takes one timed solve
+BASELINE_LATE_S = 1000.0
 # the consolidation sweeps (the reference's c4 bench shape, sweep.py:763
 # bench_sweep and setsweep.py:557 bench_set_sweep): an under-utilized
 # fleet, its top candidates by (disruption cost, name), pending pods of a
@@ -322,6 +379,10 @@ OPERATOR_STILL_TICKS = 10  # ticks the node set holds still to end the run
 # process waits for its verdicts at the end at most
 HOST_CHECK_THREADS = 2
 HOST_CHECKS_TIMEOUT = 600.0
+# the referee checks forked off the main process (HostChecks.fork): at most
+# this many children at once (each a copy-on-write image of the main
+# process's heap)
+FORK_LIMIT = 2
 # the fuzz phase (fuzz_phase): seeds from fuzz.fuzz_seed_base(), the corpus
 # of tests/fuzz_corpus and the shrunk runs-path stall case
 FUZZ_SEEDS = 128
@@ -352,9 +413,9 @@ def log(msg: str) -> None:
 
 def build_universe(n_types: int):
     """The headline's instance types: KWOK families x sizes, cut to n."""
-    from karpenter_tpu_torch.testing import fixtures
+    from karpenter_tpu_torch.testing import configs
 
-    return fixtures.kwok_universe(n_types)
+    return configs.build_universe(n_types)
 
 
 class World(NamedTuple):
@@ -366,6 +427,14 @@ class World(NamedTuple):
     views: Optional[list]
     options: object
     topo: object
+
+
+def baseline_world(name: str) -> World:
+    """A BASELINE.json config at its full width (testing/configs.py)."""
+    from karpenter_tpu_torch.testing import configs
+
+    pools, ibp, pods, topo = configs.build(name)
+    return World(pools, ibp, pods, None, None, topo)
 
 
 def headline_world(n_pods: int, its) -> World:
@@ -791,18 +860,26 @@ def results_snapshot(r, pods) -> tuple:
     return claims, existing, errors, bool(r.timed_out)
 
 
-def oracle_parity(world: World, dev) -> tuple[bool, int, bool]:
-    """Solve a world with TorchScheduler on `dev` and a deep copy of it
-    with the port's oracle; (equal snapshots, the oracle's claim count,
-    whether the solve took the runs path)."""
+def oracle_mismatches(world: World, *gots) -> list[str]:
+    """The port's oracle on a world against solves' snapshots of it: the
+    ones that differ (by position)."""
     from karpenter_tpu_torch.solver.oracle import Scheduler
 
+    oracle = Scheduler(world.pools, world.ibp, world.topo, world.views, None, world.options)
+    want = results_snapshot(oracle.solve(world.pods), world.pods)
+    return [f"solve {k} differs from the oracle's" for k, got in enumerate(gots) if got != want]
+
+
+def oracle_parity(world: World, dev, host: "HostChecks", label: str) -> tuple[int, bool]:
+    """Solve a world with TorchScheduler on `dev`, and hand the port's
+    oracle's solve of a deep copy of it to a forked check
+    (`oracle parity, <label>`); (the solve's claim count, whether it took
+    the runs path)."""
     twin = copy.deepcopy(world)
     sched, pods = scheduler_for(world, dev)
     got = results_snapshot(sched.solve(pods), pods)
-    oracle = Scheduler(twin.pools, twin.ibp, twin.topo, twin.views, None, twin.options)
-    want = results_snapshot(oracle.solve(twin.pods), twin.pods)
-    return got == want, len(want[0]), sched.last_used_runs
+    host.fork(f"oracle parity, {label}", oracle_mismatches, twin, got)
+    return len(got[0]), sched.last_used_runs
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -1319,7 +1396,6 @@ def full_size_phase(dev, host: "HostChecks") -> Optional[dict]:
     None when anything disagrees."""
     from karpenter_tpu_torch.solver import tpu_kernel as K
     from karpenter_tpu_torch.solver import tpu_runs as KR
-    from karpenter_tpu_torch.solver.oracle import Scheduler
     from karpenter_tpu_torch.solver.tpu_problem import _pow2
 
     t_phase = time.monotonic()
@@ -1358,25 +1434,24 @@ def full_size_phase(dev, host: "HostChecks") -> Optional[dict]:
             return None
         if screens and any(k3["layout0"]["shared"].values()):
             return None
-        ow = full_world(screens)
-        oracle = Scheduler(ow.pools, ow.ibp, ow.topo, ow.views, None, ow.options)
-        want = results_snapshot(oracle.solve(ow.pods), ow.pods)
+        gots = []
         for force in (False,) if screens else (False, True):
             sched, pods = scheduler_for(full_world(screens), dev)
             sched.debug_force_scan = force
             reset_launches()
             got = results_snapshot(sched.solve(pods), pods)
+            gots.append(got)
             launches = {k: v for c in (K.LAUNCHES, KR.LAUNCHES) for k, v in c.items() if v}
             log(
-                f"oracle parity, full-size {label}{' (forced scan)' if force else ''}: "
-                f"{'equal' if got == want else 'DIFFERENT'} ({len(want[0])} claims, {len(want[1])} existing nodes "
-                f"used, {len(want[2])} errors; runs path={sched.last_used_runs}, relax={sched.last_relax}, "
-                f"launches {launches})"
+                f"full-size {label}{' (forced scan)' if force else ''} on the card: {len(got[0])} claims, "
+                f"{len(got[1])} existing nodes used, {len(got[2])} errors; runs path={sched.last_used_runs}, "
+                f"relax={sched.last_relax}, launches {launches}"
             )
             runs = not (screens or force)
             kernel = ("run_step" if runs else "scan_step") + ("_relax" if sched.last_relax else "")
-            if got != want or sched.last_used_runs != runs or not launches.get(kernel):
+            if sched.last_used_runs != runs or not launches.get(kernel):
                 return None
+        host.fork(f"oracle parity, full-size {label}", oracle_mismatches, full_world(screens), *gots)
         out[label] = {"k3": k3, "k2": k2}
     # the large catalog: tables past the shared-memory budget
     k3l = runs_checked(headline_world(LARGE_CATALOG_PODS, build_universe(LARGE_CATALOG_TYPES)), dev)
@@ -1480,7 +1555,7 @@ def reset_launches() -> None:
     F.reset_counters()
 
 
-def fast_fleet_checks(dev, w, cands, tag: str, seed: int, rows_out: list, profiled: list,
+def fast_fleet_checks(dev, w, cands, tag: str, seed: int, rows_out: list, profiled: list, host: "HostChecks",
                       seeded: int = REFEREE_SEEDED, c0_differs: bool = False) -> bool:
     """K6 (prefix and singleton lanes) and K8 (SET_LANES first-round rows,
     smallest set first) on one fleet: each main path with its launch count
@@ -1639,19 +1714,16 @@ def fast_fleet_checks(dev, w, cands, tag: str, seed: int, rows_out: list, profil
     rows_out.append(row("set_sweep" + tag, "set_sweep.cu", "karpenter_tpu/controllers/disruption/setsweep.py:100",
                         n_launch, mism, ms, plain_ms, b_ms, b_by))
 
-    # ---- the referee ----
-    t0 = time.monotonic()
-    n_checked, bad = 0, []
+    # ---- the referee, forked off ----
     for singleton in (False, True):
         lanes = referee_lanes(verdicts[singleton], seeded, seed=seed + singleton, edges=not c0_differs)
         rows = [(k, [j == k if singleton else j <= k for j in range(len(cands))]) for k in lanes]
-        bad += referee_mismatches(w, cands, rows, verdicts[singleton])
-        n_checked += len(rows)
+        host.fork(f"referee{tag} ({'singleton' if singleton else 'prefix'}, {len(rows)} lanes)", referee_mismatches,
+                  w, cands, rows, verdicts[singleton])
     lanes = referee_lanes(set_verdicts, seeded, seed=seed + 2, edges=not c0_differs)
-    bad += referee_mismatches(w, cands, [(k, member[k]) for k in lanes], set_verdicts)
-    n_checked += len(lanes)
-    log(f"referee{tag}: {n_checked} lanes checked, {len(bad)} disagree ({time.monotonic() - t0:.1f}s host)")
-    return not bad
+    host.fork(f"referee{tag} (sets, {len(lanes)} lanes)", referee_mismatches, w, cands,
+              [(k, member[k]) for k in lanes], set_verdicts)
+    return True
 
 
 def sweep_worlds() -> list:
@@ -1675,7 +1747,7 @@ def sweep_worlds() -> list:
     ]
 
 
-def spread_referee_check(dev, w) -> bool:
+def spread_referee_check(dev, w, host: "HostChecks") -> bool:
     """Every prefix lane of a spread fleet (K7, the full-state lane path)
     against the sequential referee, on a fleet small enough that the
     referee is cheap (SPREAD_CHECK_NODES): the check of the lanes the
@@ -1697,11 +1769,9 @@ def spread_referee_check(dev, w) -> bool:
         f"feasible {sum(v)}/{len(cands)}: {''.join('1' if x else '0' for x in v)}")
     if S.last_sweep["path"] != "sweep_vmap" or n != 1:
         return False
-    t0 = time.monotonic()
-    bad = referee_mismatches(w, cands, [(k, [j <= k for j in range(len(cands))]) for k in range(len(cands))], v)
-    log(f"referee, small spread world (prefix): every lane, {len(cands)} checked, {len(bad)} disagree "
-        f"({time.monotonic() - t0:.1f}s host)")
-    return not bad
+    host.fork(f"referee, small spread world (prefix, every lane of {len(cands)})", referee_mismatches, w, cands,
+              [(k, [j <= k for j in range(len(cands))]) for k in range(len(cands))], v)
+    return True
 
 
 def sweep_phase(dev, worlds: Optional[list], host: "HostChecks") -> Optional[list]:
@@ -1730,19 +1800,20 @@ def sweep_phase(dev, worlds: Optional[list], host: "HostChecks") -> Optional[lis
     w = worlds.pop(0)
     cands = sweep_candidates(w, SWEEP_CANDIDATES)
     log(f"sweep world: {SWEEP_NODES} nodes, {len(cands)} candidates, {SWEEP_PENDING} pending pods")
-    if not fast_fleet_checks(dev, w, cands, "", 7, rows_out, profiled):
+    if not fast_fleet_checks(dev, w, cands, "", 7, rows_out, profiled, host):
         return None
     w = worlds.pop(0)
     cands = sweep_candidates(w, SWEEP_CANDIDATES)
     log(f"leftover world: {SWEEP_NODES} nodes with riders of {LEFTOVER_RIDER}, {len(cands)} candidates, "
         f"{SWEEP_PENDING} pending pods of {LEFTOVER_PENDING}")
-    if not fast_fleet_checks(dev, w, cands, LEFTOVER_TAG, 17, rows_out, profiled):
+    if not fast_fleet_checks(dev, w, cands, LEFTOVER_TAG, 17, rows_out, profiled, host):
         return None
     w = worlds.pop(0)
     cands = sweep_candidates(w, SWEEP_CANDIDATES)
     log(f"c0 world: {SWEEP_NODES} nodes with riders of {LEFTOVER_RIDER}, every {C0_EVERY}rd holding {C0_HEAVY} "
         f"instead, {len(cands)} candidates")
-    if not fast_fleet_checks(dev, w, cands, C0_TAG, 27, rows_out, profiled, C0_REFEREE_SEEDED, c0_differs=True):
+    if not fast_fleet_checks(dev, w, cands, C0_TAG, 27, rows_out, profiled, host, C0_REFEREE_SEEDED,
+                             c0_differs=True):
         return None
     del w, cands
 
@@ -1785,7 +1856,6 @@ def sweep_phase(dev, worlds: Optional[list], host: "HostChecks") -> Optional[lis
         # its own State once
         nb += nbytes(u2.tb, xs, valid_b) + 2 * nbytes(st_b) + nbytes(got[1], got[2])
         ops += int(valid_b.sum()) * st_b.eavail.shape[1] * (u2.tb.va.full_mask.shape[0] + u2.tb.va.num_keys)
-        t0 = time.monotonic()
         if singleton:
             lanes = list(range(len(cands2)))
         else:
@@ -1795,18 +1865,15 @@ def sweep_phase(dev, worlds: Optional[list], host: "HostChecks") -> Optional[lis
             edge = max([k for k in range(1, len(v)) if v[k] != v[k - 1]], default=0)
             lanes = sorted(set(range(min(len(v), edge + 1 + PAST_EDGE))) | set(referee_lanes(v, 4, seed=11)))
         rows = [(k, [j == k if singleton else j <= k for j in range(len(cands2))]) for k in lanes]
-        bad = referee_mismatches(w2, cands2, rows, lane_verdicts)
-        log(f"referee, lane world ({'singleton' if singleton else 'prefix'}): {len(rows)} lanes checked, "
-            f"{len(bad)} disagree ({time.monotonic() - t0:.1f}s host)")
-        if bad:
-            return None
+        host.fork(f"referee, lane world ({'singleton' if singleton else 'prefix'}, {len(rows)} lanes)",
+                  referee_mismatches, w2, cands2, rows, lane_verdicts)
     b_ms, b_by = bound(nb, ops)
     log(f"K7 scan_lanes prefix + singleton: kernel {k7_ms:.3f} ms, bound {b_ms:.6f} ms ({b_by})")
     rows_out.append(dict(row("scan_lanes", "scan_lanes.cu", "karpenter_tpu/controllers/disruption/sweep.py:690",
                              k7_launch, 0, k7_ms, None, b_ms, b_by),
                          plain_positions=LANE_CHECK_POSITIONS, plain_jobs=plain_jobs))
 
-    if not spread_referee_check(dev, worlds.pop(0)):
+    if not spread_referee_check(dev, worlds.pop(0), host):
         return None
 
     # the kernels' own device time, from profiler traces taken after every
@@ -2255,7 +2322,6 @@ def fleet_phase(dev, its, host: "HostChecks") -> Optional[dict]:
 
     from karpenter_tpu_torch.solver import fleet as F
     from karpenter_tpu_torch.solver import tpu_kernel as K
-    from karpenter_tpu_torch.solver.oracle import Scheduler
 
     t_phase = time.monotonic()
     windows = {}
@@ -2325,14 +2391,8 @@ def fleet_phase(dev, its, host: "HostChecks") -> Optional[dict]:
         if B == max(FLEET_WINDOWS) and not n_pref:
             inputs_b8 = (tb, st_b, xs_b, relax)
             for k in FLEET_ORACLE_LANES:
-                w = fleet_world(its, f"{k + 1}00m", FLEET_PODS)
-                t0 = time.monotonic()
-                want = results_snapshot(Scheduler(w.pools, w.ibp, w.topo).solve(w.pods), w.pods)
-                same = want == outcomes[k][0]
-                log(f"fleet lane {k} of {label} vs the oracle: {'equal' if same else 'DIFFERENT'} "
-                    f"({len(want[0])} claims, {time.monotonic() - t0:.1f}s)")
-                if not same:
-                    return None
+                host.fork(f"fleet lane {k} of {label} vs the oracle", oracle_mismatches,
+                          fleet_world(its, f"{k + 1}00m", FLEET_PODS), outcomes[k][0])
 
     # the fleet launch against its plain version, B=8, relax off and on
     ms_cut, cut_bound, cut_args = 0.0, None, None
@@ -2685,7 +2745,15 @@ def entry_point_phase(dev, its) -> Optional[dict]:
                              "claims_view": claims_view(result.created_claims)}
 
 
-def decisions_phase(dev, its) -> bool:
+def partition_oracle_mismatches(twin, card: tuple) -> list[str]:
+    """The oracle on a twin cluster's partition (solve_partitioned_oracle)
+    against the card's partition view."""
+    want = partition_view(solve_partitioned_oracle(*twin.scheduler_inputs(twin.get_pending_pods())),
+                          twin.kube.list("Pod"))
+    return partition_mismatches(card, want)
+
+
+def decisions_phase(dev, its, host: "HostChecks") -> bool:
     """The card's Provisioner on DECISIONS_PODS against the oracle's
     decisions for the same partition (`solve_partitioned_oracle` on a twin
     cluster's solve inputs): equal claims (`partition_view`), every
@@ -2703,21 +2771,15 @@ def decisions_phase(dev, its) -> bool:
     card_s = time.monotonic() - t0
     card = partition_view(result.results, prov.kube.list("Pod"))
     n_claims = sum(1 for c in result.results.new_node_claims if c.pods)
-    twin = entry_cluster(n, n_pvc, its, dev, force_oracle=True)
-    t0 = time.monotonic()
-    want = partition_view(solve_partitioned_oracle(*twin.scheduler_inputs(twin.get_pending_pods())),
-                          twin.kube.list("Pod"))
-    orc_s = time.monotonic() - t0
-    bad = partition_mismatches(card, want)
-    same = not bad
+    host.fork(f"decisions, {n} c6 + {n_pvc} PVC pods, vs the oracle on its partition", partition_oracle_mismatches,
+              entry_cluster(n, n_pvc, its, dev, force_oracle=True), card)
     h = prov.last_scheduler
-    ok = same and prov.last_solver_used == "tpu" and h.fallback_kind == "partition_continuation"
+    ok = prov.last_solver_used == "tpu" and h.fallback_kind == "partition_continuation"
     ok = ok and len(result.created_claims) == n_claims and len(card[1]) == n_pvc
     ok = ok and all(z == (ENTRY_ZONE,) for z in card[1].values()) and not tpu_errors()
     log(f"decisions, {n} c6 + {n_pvc} PVC pods: card Provisioner ({prov.last_solver_used}, {h.fallback_kind}, "
-        f"{card_s:.2f}s, {len(result.created_claims)} NodeClaims) vs the oracle on its partition ({orc_s:.2f}s): "
-        f"{len(card[0])} vs {len(want[0])} claims, {'equal' if same else f'DIFFERENT: {bad}'}; "
-        f"phase {time.monotonic() - t_phase:.1f}s")
+        f"{card_s:.2f}s, {len(result.created_claims)} NodeClaims, {len(card[0])} claims); the oracle on its "
+        f"partition forked off; phase {time.monotonic() - t_phase:.1f}s")
     return ok
 
 
@@ -3642,14 +3704,27 @@ def to_cpu(tree):
     return tree
 
 
+def baseline_oracle_view(name: str) -> tuple:
+    """The port's oracle on a baseline config at its full width, as a
+    `partition_view` (every pod of these configs rides the kernels, so the
+    kernel route's referee is the oracle on the whole batch)."""
+    from karpenter_tpu_torch.solver.oracle import Scheduler
+
+    w = baseline_world(name)
+    return partition_view(Scheduler(w.pools, w.ibp, w.topo).solve(w.pods), w.pods)
+
+
 def plain_check(fn: str):
     """(the plain version, the mismatch function) of a deep check's kind."""
+    from karpenter_tpu_torch.solver import tpu as T
     from karpenter_tpu_torch.solver import tpu_kernel as K
 
     return {
         "solve_scan": (K.solve_scan_plain, scan_mismatches),
         "scan_lanes": (K.scan_lanes_plain, lanes_mismatches),
         "solve_scan_lanes": (K.solve_scan_lanes_plain, lanes_mismatches),
+        "dedup_columns": (T.dedup_columns_plain, dedup_mismatches),
+        "oracle_partition": (baseline_oracle_view, partition_mismatches),
     }[fn]
 
 
@@ -3711,14 +3786,17 @@ class HostChecks(SideProcess):
     """The side process (host_checks_worker), started as soon as the kernels
     are built, with HOST_CHECK_THREADS torch threads. The main process hands
     it each deep check (`submit`), reads the fuzz cases' oracle snapshots
-    from it (`oracle_snapshots`), and at the end waits for every verdict
-    (`finish`): a mismatch, a missing verdict or a dead process fails the
-    run."""
+    from it (`oracle_snapshots`), forks each host-only referee check off
+    itself (`fork`: the sweep referee, the oracle parities, the fleet
+    lanes' and the decisions phase's oracle), and at the end waits for
+    every verdict (`finish`): a mismatch, a missing verdict or a dead
+    process fails the run."""
 
     def __init__(self):
         self.dir = os.path.join("build", f"host-checks-{os.getpid()}")
         super().__init__(("--host-checks", self.dir), "host-checks.log", HOST_CHECK_THREADS)
         self.jobs: dict = {}  # job id -> the check's name
+        self.forks: dict = {}  # fork job id -> (the check's name, its pid, or None once reaped)
 
     def start(self) -> None:
         os.makedirs(self.dir, exist_ok=True)
@@ -3736,6 +3814,54 @@ class HostChecks(SideProcess):
         os.replace(tmp, os.path.join(self.dir, f"job-{job}.pt"))
         self.jobs[job] = name
         log(f"host checks: {name} handed to the side process")
+
+    def fork(self, name: str, fn, *args) -> None:
+        """A referee check that is host work alone, `fn(*args)` -> the
+        disagreements (none: it holds), in a child of this process: it reads
+        the objects as they are now (no rebuild, no pickling) while the main
+        process goes on with the card's phases. The child never touches the
+        card, runs with the garbage collector off (a collection would write
+        every object's header and copy the whole heap), writes its verdict
+        beside the side process's and leaves with os._exit. At most
+        FORK_LIMIT children run at once; `finish` waits for every verdict."""
+        import gc
+        import warnings
+
+        while sum(self._reap(job) for job in self.forks) >= FORK_LIMIT:
+            time.sleep(0.05)
+        job = f"fork-{len(self.forks):03d}"
+        sys.stdout.flush()
+        sys.stderr.flush()
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", DeprecationWarning)  # fork() in a process with threads
+            pid = os.fork()
+        if pid == 0:  # the child: never returns into the caller
+            try:
+                gc.disable()
+                t0 = time.monotonic()
+                try:
+                    verdict = {"name": name, "bad": [str(b) for b in fn(*args)]}
+                except BaseException as e:  # the verdict carries it: the main process fails the run
+                    verdict = {"name": name, "bad": [f"raised {e!r}"]}
+                verdict["plain_ms"] = (time.monotonic() - t0) * 1e3
+                path = os.path.join(self.dir, f"{job}.json")
+                with open(path + ".tmp", "w") as f:
+                    json.dump(verdict, f)
+                os.replace(path + ".tmp", path)
+            finally:
+                os._exit(0)
+        self.forks[job] = (name, pid)
+        log(f"host checks: {name} forked off (pid {pid})")
+
+    def _reap(self, job: str) -> int:
+        """1 while a forked check is still running, else 0 (reaped)."""
+        name, pid = self.forks[job]
+        if pid is None:
+            return 0
+        done, _ = os.waitpid(pid, os.WNOHANG)
+        if done:
+            self.forks[job] = (name, None)
+        return int(not done)
 
     def oracle_snapshots(self, timeout: float = HOST_CHECKS_TIMEOUT) -> Optional[dict]:
         import pickle
@@ -3757,23 +3883,42 @@ class HostChecks(SideProcess):
         with open(os.path.join(self.dir, "done"), "w") as f:
             json.dump(sorted(self.jobs), f)
         waited, text = self.wait(HOST_CHECKS_TIMEOUT)
-        out = {"waited_s": waited, "started_s": self.t_start - _T0, "verdicts": {}}
-        for job, name in self.jobs.items():
-            path = os.path.join(self.dir, f"job-{job}.json")
+        t0 = time.monotonic()
+        while sum(self._reap(job) for job in self.forks) and time.monotonic() - t0 < HOST_CHECKS_TIMEOUT:
+            time.sleep(0.1)
+        out = {"waited_s": waited, "forks_waited_s": time.monotonic() - t0, "started_s": self.t_start - _T0,
+               "verdicts": {}}
+        paths = {name: f"job-{job}.json" for job, name in self.jobs.items()}
+        paths.update({name: f"{job}.json" for job, (name, _) in self.forks.items()})
+        for name, fn in paths.items():
+            path = os.path.join(self.dir, fn)
             if os.path.exists(path):
                 with open(path) as f:
                     out["verdicts"][name] = json.load(f)
+        self._kill_forks()
         shutil.rmtree(self.dir, ignore_errors=True)
         cpu = [ln.split() for ln in text.splitlines() if ln.startswith("HOST_CHECKS cpu_s ")]
-        if self.proc.returncode != 0 or len(out["verdicts"]) != len(self.jobs) or not cpu:
+        if self.proc.returncode != 0 or len(out["verdicts"]) != len(paths) or not cpu:
             self.log_tail(f"host checks: exit {self.proc.returncode}, "
-                          f"{len(out['verdicts'])} of {len(self.jobs)} verdicts")
+                          f"{len(out['verdicts'])} of {len(paths)} verdicts")
             return None
         out["cpu_s"], out["wall_s"] = float(cpu[-1][2]), float(cpu[-1][4])
         return out
 
+    def _kill_forks(self) -> None:
+        import signal
+
+        for job, (name, pid) in self.forks.items():
+            if pid is not None:
+                os.kill(pid, signal.SIGKILL)
+                os.waitpid(pid, 0)
+                self.forks[job] = (name, None)
+
     def close(self) -> None:
+        """The side process and any forked check still running stopped, the
+        job directory removed."""
         super().close()
+        self._kill_forks()
         shutil.rmtree(self.dir, ignore_errors=True)
 
 
@@ -3919,6 +4064,205 @@ def fuzz_phase(dev, host: HostChecks) -> Optional[dict]:
     if violations or errors or supported == 0 or not launches.get("run_step") or not launches.get("scan_step"):
         return None
     return out
+
+
+def baseline_mismatches(sched, res, pods, want: dict) -> list[str]:
+    """Where a solve differs from the JAX package's (a BASELINE_JAX record):
+    path, relax, claims, errors, odometer structure counts, digest."""
+    from karpenter_tpu_torch.testing import fuzz
+
+    odo = sched.last_odometer or {}
+    got = {"runs_path": sched.last_used_runs, "relax": sched.last_relax, "claims": len(res.new_node_claims),
+           "errors": len(res.pod_errors), "digest": fuzz.snapshot_digest(fuzz.results_snapshot(res, pods))}
+    bad = [f"{k} {got[k]} != {v}" for k, v in want.items() if k != "odometer" and got[k] != v]
+    return bad + [f"odometer {k} {odo.get(k)} != {v}" for k, v in want["odometer"].items() if odo.get(k) != v]
+
+
+def baseline_uses(name: str) -> int:
+    """The fresh worlds baseline_phase takes of a config: the warm-up, the
+    counted solve, solve_in_process, the timed solves past the counted
+    one (none for the last config: they wait for the end of the run) and
+    the host phases."""
+    return 4 + (0 if name == list(BASELINE_JAX)[-1] else BASELINE_TIMED - 1)
+
+
+def baseline_worlds() -> dict:
+    """Each baseline config's worlds, as many as baseline_phase takes (host
+    work only: main builds them while nvcc runs)."""
+    return {name: [baseline_world(name) for _ in range(baseline_uses(name))] for name in BASELINE_JAX}
+
+
+def baseline_solve(name: str, dev, world: Optional[World] = None) -> float:
+    """One timed TorchScheduler.solve of a baseline config in a fresh world
+    (host clock to a device sync; the world's build and a collection of
+    the last world's garbage before the clock starts): its seconds."""
+    import gc
+
+    import torch
+
+    sched, pods = scheduler_for(world or baseline_world(name), dev)
+    gc.collect()
+    t0 = time.monotonic()
+    sched.solve(pods)
+    torch.cuda.synchronize()
+    return time.monotonic() - t0
+
+
+def baseline_phase(dev, host: HostChecks, worlds: Optional[dict] = None) -> Optional[dict]:
+    """BASELINE.json's provisioning configs at full width on the card, one
+    fresh world alive at a time: a warm-up solve with every launch table
+    in device memory (equal to the JAX package's too); a TorchScheduler.solve
+    with the launch counts set to 0 just before, equal to the JAX package's
+    (BASELINE_JAX: path, relax, claims, errors, odometer, digest), every pod
+    placed or errored, no kernel-route error, its peak device bytes and
+    where K3 kept its tables; the same problem through solve_in_process (no
+    fallback of any kind, the same digest); BASELINE_TIMED
+    timed solves, the counted one first, and the host phases of one. The
+    last config's further timed solves wait for the end of the run
+    (baseline_late_timing). Worlds come from `worlds` (baseline_worlds)
+    while it has them, else are built here. The oracle referees BASELINE_ORACLE's
+    partitions, and K5's plain version the decode of each config that
+    dedups its claims, in the side process. Returns each config's record
+    and the launches by kernel summed, or None on any failure."""
+    import gc
+
+    import torch
+
+    from karpenter_tpu_torch.solver import tpu as T
+    from karpenter_tpu_torch.solver import tpu_kernel as K
+    from karpenter_tpu_torch.solver import tpu_runs as KR
+    from karpenter_tpu_torch.solver.hybrid import solve_in_process
+    from karpenter_tpu_torch.testing import fuzz
+
+    t_phase = time.monotonic()
+    counted = (T.LAUNCHES, K.LAUNCHES, KR.LAUNCHES)
+    out, total = {}, {}
+    last = list(BASELINE_JAX)[-1]
+    for name, want in BASELINE_JAX.items():
+        t_cfg = time.monotonic()
+        ready = (worlds or {}).pop(name, [])
+
+        def take():
+            return ready.pop() if ready else baseline_world(name)
+
+        # the warm-up: the solve with every launch table in device memory,
+        # which must decide as the JAX package does too
+        sched, pods = scheduler_for(take(), dev)
+        t0 = time.monotonic()
+        res_d, layout_d = device_tables_launch("run_step", lambda: sched.solve(pods))
+        torch.cuda.synchronize()
+        warm_s = time.monotonic() - t0
+        bad_d = baseline_mismatches(sched, res_d, pods, want)
+        log(f"baseline {name} warm-up with every table in device memory ({layout_d}): {warm_s:.3f}s, "
+            f"{bad_d or 'equal'}")
+        if bad_d or any(layout_d["shared"].values()):
+            return None
+        del res_d, sched, pods
+
+        world = take()
+        n_pods, n_types = len(world.pods), len(next(iter(world.ibp.values())))
+        sched, pods = scheduler_for(world, dev)
+        errors_before = tpu_errors()
+        decoded = []  # K5's call in this solve: (the final state's columns, n2, its output)
+        dedup = T.dedup_decode_state
+
+        def captured(st, n2):
+            got = dedup(st, n2)
+            decoded.append((T.decode_columns(st), n2, got))
+            return got
+
+        T.dedup_decode_state = captured
+        try:
+            for counts in counted:
+                for k in counts:
+                    counts[k] = 0
+            gc.collect()
+            torch.cuda.reset_peak_memory_stats()
+            held = torch.cuda.memory_allocated()  # earlier phases' tensors still alive
+            t0 = time.monotonic()
+            res = sched.solve(pods)
+            torch.cuda.synchronize()
+            dt = time.monotonic() - t0
+        finally:
+            T.dedup_decode_state = dedup
+        launches = {k: v for counts in counted for k, v in counts.items() if v}
+        peak = torch.cuda.max_memory_allocated()
+        layout = K.last_layout("run_step")
+        bad = baseline_mismatches(sched, res, pods, want)
+        placed = sum(len(c.pods) for c in res.new_node_claims) + sum(len(n.pods) for n in res.existing_nodes)
+        if placed + len(res.pod_errors) != n_pods:
+            bad.append(f"{placed} placed + {len(res.pod_errors)} errors of {n_pods} pods")
+        if tpu_errors() != errors_before:
+            bad.append("a kernel-route error")
+        if min(launches.get(k, 0) for k in ("typeok_screen", "run_step", "run_arrays")) < 1:
+            bad.append("a kernel of the runs path never launched")
+        if (len(decoded) == 1) != (launches.get("dedup_rows", 0) == 1):
+            bad.append(f"K5 launched {launches.get('dedup_rows', 0)} times for {len(decoded)} decode dedups")
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        odo = sched.last_odometer
+        log(
+            f"baseline {name} on {torch.cuda.get_device_name(0)}: {n_pods} pods x {n_types} types in {dt:.3f}s "
+            f"(warm-up {warm_s:.3f}s); runs path={sched.last_used_runs} relax={sched.last_relax} "
+            f"claims={len(res.new_node_claims)} placed={placed} errors={len(res.pod_errors)} "
+            f"odometer={json.dumps({k: odo.get(k) for k in want['odometer']})} launches={launches} "
+            f"peak device bytes={peak} ({peak - held} above the {held} held before) K3 tables {layout}; "
+            f"vs the JAX package: {bad or 'equal'}"
+        )
+        if bad:
+            return None
+        if name in BASELINE_ORACLE:
+            host.submit(f"oracle {name}", "oracle_partition", (name,), partition_view(res, pods))
+        if decoded:
+            cols, n2, got = decoded[0]
+            host.submit(f"K5 {name} decode", "dedup_columns", (cols, n2), got)
+        del decoded, res, sched, pods, world
+
+        # the entry route: the same problem through solve_in_process
+        w = take()
+        t0 = time.monotonic()
+        sip_res, h = solve_in_process(w.pools, w.ibp, w.pods, device=dev)
+        torch.cuda.synchronize()
+        sip_s = time.monotonic() - t0
+        sip_digest = fuzz.snapshot_digest(fuzz.results_snapshot(sip_res, w.pods))
+        log(f"baseline {name} through solve_in_process: {sip_s:.3f}s, used_tpu={h.used_tpu} "
+            f"fallback_kind={h.fallback_kind} digest {'equal' if sip_digest == want['digest'] else 'DIFFERENT'}")
+        if not h.used_tpu or h.fallback_kind is not None or sip_digest != want["digest"]:
+            return None
+        del sip_res, h, w
+
+        # the timed solves (the counted one first) and the host phases of one
+        times = [dt]
+        while len(times) < (1 if name == last else BASELINE_TIMED):
+            times.append(baseline_solve(name, dev, take()))
+        phases = phase_breakdown(take(), dev)
+        out[name] = {"pods": n_pods, "types": n_types, "seconds": times, "peak_bytes": peak,
+                     "solve_peak_bytes": peak - held, "launches": launches,
+                     "phases": phases, "layout": layout, "solve_in_process_s": sip_s,
+                     "config_s": time.monotonic() - t_cfg}
+        log(f"baseline {name} solve seconds: {[round(x, 4) for x in times]}; phases (s): "
+            f"{json.dumps({k: round(v, 4) for k, v in phases.items()})}; {time.monotonic() - t_cfg:.1f}s for the config")
+    log(f"baseline configs phase: {time.monotonic() - t_phase:.1f}s; launches {json.dumps(total)}")
+    return {"configs": out, "launches": total, "seconds": time.monotonic() - t_phase}
+
+
+def baseline_late_timing(baseline: dict, dev, t_start: float) -> None:
+    """At the end of the run: the last baseline config's further timed
+    solves, up to BASELINE_TIMED, while the run is under BASELINE_LATE_S
+    (past it, that config keeps its one timed solve, and the log says so);
+    then each config's median pods/s."""
+    last = list(BASELINE_JAX)[-1]
+    rec = baseline["configs"][last]
+    while len(rec["seconds"]) < BASELINE_TIMED:
+        if time.monotonic() - t_start > BASELINE_LATE_S:
+            log(f"baseline {last}: the run is past {BASELINE_LATE_S:.0f}s, {len(rec['seconds'])} timed solve(s)")
+            break
+        rec["seconds"].append(baseline_solve(last, dev))
+    for name, r in baseline["configs"].items():
+        r["median_s"] = sorted(r["seconds"])[len(r["seconds"]) // 2]
+        r["pods_per_s"] = r["pods"] / r["median_s"]
+        log(f"baseline {name} solve seconds (n={len(r['seconds'])}): {[round(x, 4) for x in r['seconds']]}; "
+            f"median {r['median_s']:.4f}s = {r['pods_per_s']:.1f} pods/s")
 
 
 def operator_phase(dev, its, oracle: OperatorOracle) -> Optional[dict]:
@@ -4226,6 +4570,9 @@ def _main(oracle: OperatorOracle, host: HostChecks) -> int:
         fleets = sweep_worlds()
         snc_fleet = single_node_world()
         log(f"sweep fleets built on the host while nvcc runs: {time.monotonic() - t0:.1f}s")
+        t1 = time.monotonic()
+        baseline_ready = baseline_worlds()
+        log(f"baseline configs' worlds built on the host while nvcc runs: {time.monotonic() - t1:.1f}s")
         built = building.result()
     oracle.start()  # phase 14c's oracle side: host work alone, beside the card's phases
     host.start()  # the fuzz cases' oracle snapshots, then the deep plain checks
@@ -4562,10 +4909,8 @@ def _main(oracle: OperatorOracle, host: HostChecks) -> int:
         ("reserved", reserved_world),
         ("mixed-bulk", mixed_bulk_world),
     ):
-        same, n_claims, used_runs = oracle_parity(make(), dev)
-        log(f"oracle parity, {label}: {'equal' if same else 'DIFFERENT'} ({n_claims} claims, runs path={used_runs})")
-        if not same:
-            return 1
+        n_claims, used_runs = oracle_parity(make(), dev, host, label)
+        log(f"oracle parity, {label}: the card's solve {n_claims} claims, runs path={used_runs}")
 
     # ---- 10. the relax tier loop: K1 on tier rows, K2 and K3 with relax ----
     # K1 over the c6 mix's tier rows (each relaxable class x tier)
@@ -4833,19 +5178,20 @@ def _main(oracle: OperatorOracle, host: HostChecks) -> int:
         ("lonely", lonely_world),
         ("mixed-bulk+pref", lambda: mixed_bulk_world(12)),
     ):
-        t0 = time.monotonic()
-        same, n_claims, used_runs = oracle_parity(make(), dev)
-        log(
-            f"oracle parity, {label}: {'equal' if same else 'DIFFERENT'} ({n_claims} claims, runs path={used_runs}, "
-            f"{time.monotonic() - t0:.1f}s)"
-        )
-        if not same:
-            return 1
+        n_claims, used_runs = oracle_parity(make(), dev, host, label)
+        log(f"oracle parity, {label}: the card's solve {n_claims} claims, runs path={used_runs}")
+
+    # ---- 11 (last). BASELINE.json's provisioning configs at full width,
+    # held to the JAX package's solves ----
+    baseline = baseline_phase(dev, host, baseline_ready)
+    del baseline_ready
+    if baseline is None:
+        return 1
 
     # ---- 11a. the provisioning entry point: Provisioner.reconcile at full
     # width, its decisions against the oracle's, the small-batch crossover ----
     entry = entry_point_phase(dev, its)
-    if entry is None or not decisions_phase(dev, its):
+    if entry is None or not decisions_phase(dev, its, host):
         return 1
     crossover = crossover_phase(dev, its)
     if crossover is None:
@@ -4940,6 +5286,10 @@ def _main(oracle: OperatorOracle, host: HostChecks) -> int:
     k2r_plain_ms = verdicts["K2+relax preference round"]["plain_ms"]
     k2one_plain_ms = verdicts["K2+relax preference round, one trip a pod"]["plain_ms"]
 
+    # ---- 14e. the last baseline config's further timed solves, while the
+    # run's clock allows; each config's median ----
+    baseline_late_timing(baseline, dev, t_start)
+
     # ---- 15. the kernels line ----
     kernels = [
         row("typeok_screen", "typeok.cu", "karpenter_tpu/solver/tpu.py:61", launches["typeok_screen"], k1_mism,
@@ -4981,6 +5331,7 @@ def _main(oracle: OperatorOracle, host: HostChecks) -> int:
         if jobs or r["name"] in ("scan_step", "scan_step+relax", "relax_step"):
             r["plain_device"] = "cpu (side process)"
         r["launches_fuzz"] = sum(fuzz_out["launches"].get(k, 0) for k in ROW_COUNTERS.get(r["name"], ()))
+        r["launches_baseline"] = sum(baseline["launches"].get(k, 0) for k in ROW_COUNTERS.get(r["name"], ()))
         r.update(apart.get(r["name"], {}))
         if r["name"] in CONSOLIDATION_ROWS:
             r["launches_consolidation"] = sum(consolidation["launches"].get(k, 0) for k in CONSOLIDATION_ROWS[r["name"]])

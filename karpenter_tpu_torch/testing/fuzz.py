@@ -53,7 +53,9 @@ port's own.
 
 from __future__ import annotations
 
+import hashlib
 import json
+import numbers
 import os
 import random
 from dataclasses import dataclass, field
@@ -602,6 +604,31 @@ def results_snapshot(r: Results, pods) -> tuple:
     )
     errors = tuple(sorted(name[u] for u in r.pod_errors))
     return claims, existing, errors, bool(r.timed_out)
+
+
+def _canonical(x):
+    """A snapshot as plain JSON values: sequences as lists, flags as bools,
+    every other number as a Python int, every name as a str (a numpy int
+    and a Python int of one value give the same text)."""
+    if isinstance(x, (tuple, list)):
+        return [_canonical(v) for v in x]
+    if isinstance(x, bool):
+        return x
+    if isinstance(x, str):
+        return str(x)
+    if isinstance(x, numbers.Number):
+        if int(x) != x:
+            raise ValueError(f"a snapshot holds a fraction: {x!r}")
+        return int(x)
+    raise TypeError(f"a snapshot holds a {type(x).__name__}: {x!r}")
+
+
+def snapshot_digest(snapshot: tuple) -> str:
+    """The sha256 hex of a `results_snapshot` (this package's or the JAX
+    package's) as canonical JSON: two solves agree on their decisions when
+    their digests are equal."""
+    text = json.dumps(_canonical(snapshot), separators=(",", ":"), ensure_ascii=True)
+    return hashlib.sha256(text.encode()).hexdigest()
 
 
 def solve_oracle(case: FuzzCase, ignore_preferences=None):

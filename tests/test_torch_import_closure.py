@@ -59,6 +59,29 @@ def test_fuzz_harness_loads_no_jax_or_reference():
     assert out.stdout.strip() == "[]"
 
 
+_CONFIGS_PROBE = """
+import sys
+from karpenter_tpu_torch.solver.tpu import TorchScheduler
+from karpenter_tpu_torch.testing import configs, fuzz
+for name in configs.CONFIGS:
+    pools, ibp, pods, topo = configs.build(name, n_pods=20, its=configs.build_universe(20))
+res = TorchScheduler(pools, ibp, topo, device="cpu").solve(pods)
+fuzz.snapshot_digest(fuzz.results_snapshot(res, pods))
+print(sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "karpenter_tpu.")) or m == "karpenter_tpu"))
+"""
+
+
+def test_configs_load_no_jax_or_reference():
+    """The BASELINE.json config makers, a solve of one and its digest
+    load neither jax nor the JAX package."""
+    out = subprocess.run(
+        [sys.executable, "-c", _CONFIGS_PROBE], cwd=ROOT, capture_output=True, text=True, timeout=120,
+        env={k: v for k, v in os.environ.items() if k != "PYTHONPATH"},
+    )
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+
+
 def _forbidden(name: str) -> bool:
     return name in ("jax", "karpenter_tpu") or name.startswith(("jax.", "karpenter_tpu."))
 
