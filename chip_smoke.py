@@ -141,7 +141,20 @@ its probe endpoints, a headline solve under `profiling.device_trace`; and a
 2040-pod cluster provisioned, half emptied and consolidated by the card's
 Operator (a Command executed through the OrchestrationQueue and
 NodeTermination) against the oracle's Operator in a process of its own
-(equal claims, first Command and final nodes). Then the runtime budgets
+(equal claims, first Command and final nodes); process A's prewarm also
+launches K7 at each fleet lane bucket, and a 2-lane fleet window after it
+needs no nvcc, library load or new allocator segment. Then the gates phase
+(`gates_phase`): the paths that ran only on the CPU before, at full width,
+each held to a referee — a consolidation replace Command on a 2000-node
+fleet through K8, K6, K6's singleton lanes and the kernel route, vetoed by
+the Validator's re-simulation on the kernels once pending pods need more
+new claims than it replaces, then carried through by the lifecycle and
+termination controllers; Drift, Emptiness and the Validator's emptiness
+veto on a fleet of the c4 shape, StaticDrift's reservations; the Operator
+with all five feature gates on (a static pool drifted and scaled down, a
+price and a capacity NodeOverlay, pods that request the extended resource,
+nodes repaired) against the oracle's Operator in a process of its own; and
+the table cache across an overlay change. Then the runtime budgets
 (phase 14c, karpenter_tpu_torch/analysis/runtime.py against
 torch_budgets.json): every CPU-scope entry measured on the card, where it
 must read what it reads on the CPU, and every `cuda:` entry: a profiled
@@ -153,7 +166,7 @@ problems, and prints:
 
 - the card's name and power limit (nvidia-smi),
 - one JSON line {"kernels": [...]} with each kernel's launches on its path
-  (and on the consolidation, sidecar, Operator and prewarm paths), its
+  (and on the consolidation, sidecar, Operator, prewarm and gates paths), its
   agreement with the plain version, and its times,
 - as the last line, {"ok": true, "device": {...}}.
 
@@ -229,7 +242,7 @@ BASELINE_JAX = {
 # process (the others' oracle takes longer than the run: their referee is
 # the JAX package's digest)
 BASELINE_ORACLE = ("c1_500x50_requests_only", "c2_10kx500_selector_taints")
-BASELINE_TIMED = 3  # timed solves a config (the median's)
+BASELINE_TIMED = 1  # timed solves a config (the median's): one, for the run's clock
 # past this many seconds of the run, the largest config takes one timed solve
 BASELINE_LATE_S = 1000.0
 # the consolidation sweeps (the reference's c4 bench shape, sweep.py:763
@@ -364,6 +377,7 @@ K5_BOOL = (False, False, True, True, True, False, False, False, False)  # other,
 # consolidation round, and at DECISIONS_PODS against the oracle's Operator
 COLD_START_TIMEOUT = 300.0
 PREWARM_DEGRADED_PODS = 1024  # the solve sent to the sidecar mid-prewarm
+PREWARM_FLEET_BUCKETS = (2, 8)  # the lane buckets of A's prewarm (a fleet-serving sidecar's K7 combos)
 OPERATOR_TICKS = 24  # the tick budget of each half of the Operator's run
 # (c)'s oracle side runs in a process of its own from the end of the build
 # (about 320 s of host on the card's machine: each provisioning round
@@ -373,6 +387,43 @@ OPERATOR_ORACLE_TIMEOUT = 600.0
 OPERATOR_CLAIM_SEQ0 = 50000  # (c)'s claims are named from here on both sides
 OPERATOR_FLEET_NODES = 200  # the under-utilized fleet whose consolidation runs the sweeps
 OPERATOR_STILL_TICKS = 10  # ticks the node set holds still to end the run
+# the gates phase (gates_phase, after phase 14): (a) a replace Command on a
+# fleet of REPLACE_FLEETS[0]'s shape (tests/test_torch_consolidation.py) at
+# SWEEP_NODES nodes, vetoed by the Validator's re-simulation once
+# GATES_VETO_PODS pending pods of GATES_VETO_REQUESTS (hostname
+# anti-affinity among them) need more new claims than it replaces, then
+# carried through by the lifecycle and termination controllers, a tick of
+# GATES_TICK_S at a time, at most GATES_ROUND_TRIP_TICKS; (b) Drift and
+# Emptiness (GATES_EMPTIED nodes emptied) on a fleet of the c4 shape, and
+# StaticDrift's reservations at replicas 2 by nodes limit, pinned as the
+# CPU test pins them
+GATES_FLEET = {"seed": 11, "rider_requests": {"cpu": "1200m", "memory": "256Mi"},
+               "seed_requests": {"cpu": "1500m", "memory": "512Mi"}}
+GATES_VETO_PODS = 2
+GATES_VETO_REQUESTS = {"cpu": "6", "memory": "1Gi"}
+GATES_TICK_S = 2.0
+GATES_ROUND_TRIP_TICKS = 20
+GATES_EMPTIED = 10
+STATIC_DRIFT_PINS = {None: 2, "3": 1, "2": 0}
+# (c) the Operator with every feature gate on at DECISIONS_PODS, beside a
+# static pool of GATED_STATIC[0] replicas scaled to GATED_STATIC[1], a
+# NodeOverlay of GATED_PRICE on one instance family (then changed, for the
+# table cache), and one giving GATED_GPU (family, resource, count a node)
+# to another (then GATED_GPU_AFTER), requested by every GATED_GPU_EVERY-th
+# c6 pod; every GATED_REPAIR_EVERY-th node of the dynamic pool goes
+# Ready=False; after the settle each step ticks GATED_TICK_S seconds at
+# most GATED_TICKS times; its oracle side (`--gates-oracle`) runs in a
+# process of its own from the end of the build
+GATED_STATIC = (8, 4)
+GATED_PRICE = ("c", "-50%", "-40%")
+GATED_GPU = ("m", "example.com/gpu", 4)
+GATED_GPU_AFTER = 8
+GATED_GPU_EVERY = 100
+GATED_REPAIR_EVERY = 20
+GATED_TICK_S = 16.0
+GATED_TICKS = 60
+GATES_CLAIM_SEQ0 = 70000  # (c)'s claims are named from here on both sides
+GATES_STATIC_SEQ0 = 7000  # and its static claims and drift replacements from here
 # the side process (HostChecks, `--host-checks`): the oracle's snapshots of
 # the fuzz cases, then the plain versions of the five deep checks on the CPU
 # against the card's outputs; its torch threads, and the seconds the main
@@ -385,7 +436,7 @@ HOST_CHECKS_TIMEOUT = 600.0
 FORK_LIMIT = 2
 # the fuzz phase (fuzz_phase): seeds from fuzz.fuzz_seed_base(), the corpus
 # of tests/fuzz_corpus and the shrunk runs-path stall case
-FUZZ_SEEDS = 128
+FUZZ_SEEDS = 64  # 64 seeds, for the run's clock
 # the stall phase (stall_phase): the seconds a K3 launch on the stall case
 # may take before the run fails
 STALL_LAUNCH_SECONDS = 60.0
@@ -1916,10 +1967,12 @@ def fleet_digest(world) -> tuple:
 
 def command_view(cmd) -> tuple:
     """A Command as the consolidation phase compares it: candidate names in
-    order, decision, each replacement's instance type names in order."""
+    order, decision, each replacement's instance type names in order (a
+    StaticDrift replacement, a bare NodeClaim, by its name)."""
     return (
         tuple(c.name for c in cmd.candidates), cmd.decision,
-        tuple(tuple(it.name for it in r.instance_type_options) for r in cmd.replacements),
+        tuple(tuple(it.name for it in r.instance_type_options) if hasattr(r, "instance_type_options")
+              else (r.metadata.name,) for r in cmd.replacements),
     )
 
 
@@ -1937,14 +1990,65 @@ def single_node_world():
     return underutilized_world(SINGLE_NODES, seed=7, n_pending=SWEEP_PENDING)
 
 
-def consolidation_phase(dev, w, digest, w_single) -> Optional[dict]:
+def command_key(cmd) -> tuple:
+    """A Command as the referees compare it: command_view and its
+    savings."""
+    from karpenter_tpu_torch.controllers.disruption.types import command_savings
+
+    return command_view(cmd), command_savings(cmd)
+
+
+def commands_differ(got: list, want: list) -> list[str]:
+    """Two lists of command_key: equal views, savings within 1e-12."""
+    if [g[0] for g in got] != [w[0] for w in want] or any(abs(g[1] - w[1]) > 1e-12 for g, w in zip(got, want)):
+        return [f"card {got} / referee {want}"]
+    return []
+
+
+def referee_commands(got: list, method) -> list[str]:
+    """A forked referee: `method`'s Commands (a force_oracle method) against
+    the card's command_keys."""
+    return commands_differ(got, [command_key(c) for c in method.compute_commands()])
+
+
+def counted_path(total: dict, label: str, fn):
+    """fn() as one main path of a phase: the launch counts set to 0 just
+    before and read just after (added to `total`), the host seconds and
+    the launches logged after `label`. Returns (fn's result, its
+    launches)."""
+    import torch
+
+    reset_launches()
+    t0 = time.monotonic()
+    out = fn()
+    torch.cuda.synchronize()
+    dt = time.monotonic() - t0
+    counts = launch_counts()
+    for k, v in counts.items():
+        total[k] = total.get(k, 0) + v
+    log(f"{label}: {dt:.3f}s host, launches={counts}")
+    return out, counts
+
+
+def show_command(label: str, cmd) -> None:
+    """Log a Command after `label`: decision, reason, nodes, replacements
+    and their types, savings."""
+    from karpenter_tpu_torch.controllers.disruption.types import command_savings
+
+    log(f"{label}: {cmd.decision} ({cmd.reason}), {len(cmd.candidates)} nodes, "
+        f"{len(cmd.replacements)} replacement(s) of {[len(r.instance_type_options) for r in cmd.replacements]} "
+        f"types, {command_savings(cmd):.6f} $/h saved")
+
+
+def consolidation_phase(dev, w, digest, w_single, host: "HostChecks") -> Optional[dict]:
     """The consolidation controllers on the card at the c4 width, on the
     sweep phase's c4 fleet `w` (held unchanged to `digest`, its state
     before the sweep phase): 2000 nodes, 100 candidates, 20 pending pods.
 
     (a) MultiNodeConsolidation(sweep="sets"): a Command, K8 launched, its
         removal feasible for the referee, its savings >= the batched rung's;
-    (b) the batched rung (K6) against the binary search on the oracle;
+    (b) the batched rung (K6) against the binary search on the oracle
+        (forked off with `host`);
     (c) SingleNodeConsolidation against its force_oracle sequential walk,
         on `w` (2000 candidates: no sweep) and on `w_single`
         (single_node_world(): one K6 singleton launch over every
@@ -1954,8 +2058,9 @@ def consolidation_phase(dev, w, digest, w_single) -> Optional[dict]:
         (K5 runs from _DEDUP_DECODE_MIN claim slots up: lowered to 1 here),
         against the default route's;
     (e) a DisruptionController round trip: propose; validate after the TTL
-        and start; with the replacements initialized by hand (the port has
-        no lifecycle controller yet), delete the originals. The cluster
+        and start; with the replacements initialized by hand (this phase
+        drives the controller alone, without the lifecycle controller that
+        the gates phase's (a5) runs), delete the originals. The cluster
         then has as many fewer live nodes as the Command removed, and
         every pod is bound to a live node or waits for the next round.
 
@@ -1979,36 +2084,20 @@ def consolidation_phase(dev, w, digest, w_single) -> Optional[dict]:
     total: dict = {}
     bad: list = []
 
-    def main_path(label, fn):
-        reset_launches()
-        t0 = time.monotonic()
-        out = fn()
-        torch.cuda.synchronize()
-        dt = time.monotonic() - t0
-        counts = launch_counts()
-        for k, v in counts.items():
-            total[k] = total.get(k, 0) + v
-        log(f"consolidation {label}: {dt:.3f}s host, launches={counts}")
-        return out, counts
-
-    def show(label, cmd):
-        log(f"consolidation {label}: {cmd.decision}, {len(cmd.candidates)} nodes removed, "
-            f"{len(cmd.replacements)} replacement(s), {command_savings(cmd):.6f} $/h saved")
-
     if fleet_digest(w) != digest:
         log("consolidation phase: the sweep phase changed the c4 fleet")
         return None
     args = (w.kube, w.cluster, w.cloud, w.clock)
 
     # (a) the sets rung (K8)
-    cmds, n = main_path("(a) MultiNodeConsolidation(sweep='sets')",
-                        CN.MultiNodeConsolidation(*args, sweep="sets", device=dev).compute_commands)
+    cmds, n = counted_path(total, "consolidation (a) MultiNodeConsolidation(sweep='sets')",
+                           CN.MultiNodeConsolidation(*args, sweep="sets", device=dev).compute_commands)
     log(f"consolidation (a) last_search_stats: {json.dumps(SS.last_search_stats)}")
     if not cmds or n.get("set_sweep", 0) < 1:
         log("consolidation (a): no Command, or K8 not launched")
         return None
     cmd_a = cmds[0]
-    show("(a)", cmd_a)
+    show_command("consolidation (a)", cmd_a)
     t0 = time.monotonic()
     sim = simulate_scheduling(w.kube, w.cluster, w.cloud, cmd_a.candidates, force_oracle=True)
     referee_ok = sim.all_pods_scheduled() and len(sim.non_empty_new_claims()) <= 1
@@ -2018,17 +2107,14 @@ def consolidation_phase(dev, w, digest, w_single) -> Optional[dict]:
         bad.append("(a) referee")
 
     # (b) the batched rung (K6) against the binary search on the oracle
-    cmds_b, n = main_path("(b) MultiNodeConsolidation(sweep='batched')",
-                          CN.MultiNodeConsolidation(*args, sweep="batched", device=dev).compute_commands)
-    t0 = time.monotonic()
-    cmds_bin = CN.MultiNodeConsolidation(*args, sweep="binary", force_oracle=True).compute_commands()
-    log(f"consolidation (b) binary search on the oracle: {time.monotonic() - t0:.1f}s host")
-    if not cmds_b or n.get("fast_sweep", 0) < 1 or [command_view(c) for c in cmds_b] != [
-        command_view(c) for c in cmds_bin
-    ]:
-        bad.append("(b) batched against binary")
+    cmds_b, n = counted_path(total, "consolidation (b) MultiNodeConsolidation(sweep='batched')",
+                             CN.MultiNodeConsolidation(*args, sweep="batched", device=dev).compute_commands)
+    host.fork("consolidation (b) batched vs the binary search on the oracle", referee_commands,
+              [command_key(c) for c in cmds_b], CN.MultiNodeConsolidation(*args, sweep="binary", force_oracle=True))
+    if not cmds_b or n.get("fast_sweep", 0) < 1:
+        bad.append("(b) batched: no Command, or K6 not launched")
     else:
-        show("(b) batched = binary", cmds_b[0])
+        show_command("consolidation (b) batched", cmds_b[0])
         if command_savings(cmd_a) < command_savings(cmds_b[0]):
             bad.append("(a) savings below the batched rung's")
 
@@ -2036,8 +2122,8 @@ def consolidation_phase(dev, w, digest, w_single) -> Optional[dict]:
     # candidates than lanes: no sweep), then one singleton launch
     for label, world, lanes in (("c4 fleet", w, 0), (f"{SINGLE_NODES}-node fleet", w_single, 1)):
         a = (world.kube, world.cluster, world.cloud, world.clock)
-        cmds_c, n = main_path(f"(c) SingleNodeConsolidation, {label}",
-                              CN.SingleNodeConsolidation(*a, device=dev).compute_commands)
+        cmds_c, n = counted_path(total, f"consolidation (c) SingleNodeConsolidation, {label}",
+                                 CN.SingleNodeConsolidation(*a, device=dev).compute_commands)
         t0 = time.monotonic()
         cmds_seq = CN.SingleNodeConsolidation(*a, force_oracle=True).compute_commands()
         log(f"consolidation (c) sequential walk on the oracle, {label}: {time.monotonic() - t0:.1f}s host")
@@ -2046,15 +2132,15 @@ def consolidation_phase(dev, w, digest, w_single) -> Optional[dict]:
         ]:
             bad.append(f"(c) single-node against the sequential walk, {label}")
         else:
-            show(f"(c) single-node = sequential, {label}", cmds_c[0])
+            show_command(f"consolidation (c) single-node = sequential, {label}", cmds_c[0])
 
     # (d) (a)'s Command with the simulation on the kernels
     kernels_route = CN.MultiNodeConsolidation(*args, options=Options(tpu_min_pods=0), device=dev)
     dedup_min = T._DEDUP_DECODE_MIN
     T._DEDUP_DECODE_MIN = 1
     try:
-        cmd_d, n = main_path("(d) compute_consolidation, tpu_min_pods=0",
-                             lambda: kernels_route.compute_consolidation(cmd_a.candidates))
+        cmd_d, n = counted_path(total, "consolidation (d) compute_consolidation, tpu_min_pods=0",
+                                lambda: kernels_route.compute_consolidation(cmd_a.candidates))
     finally:
         T._DEDUP_DECODE_MIN = dedup_min
     k_step = n.get("run_step", 0) + n.get("run_step_relax", 0) + n.get("scan_step", 0) + n.get("scan_step_relax", 0)
@@ -2070,27 +2156,28 @@ def consolidation_phase(dev, w, digest, w_single) -> Optional[dict]:
     prov = Provisioner(w.kube, w.cluster, w.cloud, w.clock, device=dev)
     ctrl = DisruptionController(w.kube, w.cluster, w.cloud, prov, w.clock, device=dev)
     t_e = time.monotonic()
-    main_path("(e) reconcile 1 (propose)", ctrl.reconcile)
+    counted_path(total, "consolidation (e) reconcile 1 (propose)", ctrl.reconcile)
     proposal = ctrl._pending_validation[1] if ctrl._pending_validation else None
     if proposal is None or command_view(proposal) != command_view(cmd_a):
         bad.append("(e) proposal")
         log(f"consolidation phase: {time.monotonic() - t_phase:.1f}s; failed: {', '.join(bad)}")
         return None
     w.clock.advance(VALIDATION_TTL_SECONDS)
-    started, _ = main_path("(e) reconcile 2 (validate, start)", ctrl.reconcile)
+    started, _ = counted_path(total, "consolidation (e) reconcile 2 (validate, start)", ctrl.reconcile)
     if started is None or command_view(started) != command_view(cmd_a):
         bad.append("(e) validation")
         log(f"consolidation phase: {time.monotonic() - t_phase:.1f}s; failed: {', '.join(bad)}")
         return None
     new_claims = list(ctrl.queue.in_flight[0].replacement_names)
-    # the lifecycle controller's part (not yet ported): the replacements
-    # launch, register and initialize
+    # the lifecycle controller's part, done by hand here (the gates
+    # phase's (a5) runs the controller): the replacements launch,
+    # register and initialize
     for name in new_claims:
         claim = w.kube.get("NodeClaim", name)
         claim.status.conditions[COND_INITIALIZED] = "True"
         w.kube.update("NodeClaim", claim)
     w.clock.advance(2.0)
-    main_path("(e) reconcile 3 (delete the originals)", ctrl.reconcile)
+    counted_path(total, "consolidation (e) reconcile 3 (delete the originals)", ctrl.reconcile)
     removed = {c.name for c in started.candidates}
     after = live_nodes(w)
     deleting = {c.name for c in w.kube.list("NodeClaim") if c.metadata.deletion_timestamp is not None}
@@ -3131,10 +3218,11 @@ def sidecar_phase(dev, its, entry_claims: list) -> Optional[dict]:
 
 def cold_start_run(mode: str, dev) -> dict:
     """One fresh process's first headline solve (phase 14a): with
-    mode "prewarm", `aot.prewarm()` on `dev` first. Returns its seconds,
-    the prewarm's record, the launches, the decisions' digest and each
-    library's build seconds as `_build.build_all` saw them here (0: no
-    nvcc)."""
+    mode "prewarm", `aot.prewarm()` on `dev` first, its fleet lanes
+    included, and after the solve prewarmed_fleet_window. Returns its
+    seconds, the prewarm's record, the launches, the decisions' digest and
+    each library's build seconds as `_build.build_all` saw them here (0:
+    no nvcc)."""
     import hashlib
 
     import torch
@@ -3149,7 +3237,7 @@ def cold_start_run(mode: str, dev) -> dict:
     reset_launches()
     if mode == "prewarm":
         t0 = time.monotonic()
-        pw = aot.prewarm(device=dev)
+        pw = aot.prewarm(device=dev, include_fleet=True, fleet_lane_buckets=PREWARM_FLEET_BUCKETS)
         out["prewarm_s"] = time.monotonic() - t0
         out["prewarm"] = {k: pw[k] for k in ("completed", "built", "build_seconds", "launched", "skipped")}
         out["combos"] = {k: {"first_launch_ms": v["first_launch_ms"], "build_seconds": v["build_seconds"]}
@@ -3165,8 +3253,59 @@ def cold_start_run(mode: str, dev) -> dict:
     out["used_tpu"] = bool(sched.used_tpu)
     out["launches_solve"] = launch_counts()
     out["decisions"] = hashlib.sha256(repr(results_snapshot(res, w.pods)).encode()).hexdigest()
+    if mode == "prewarm":
+        out["fleet_window"] = prewarmed_fleet_window(dev)
     out["build"] = {} if dev.type != "cuda" else {k: v["seconds"] for k, v in _build.build_all().items()}
     return out
+
+
+def prewarmed_fleet_window(dev) -> dict:
+    """After the prewarm's fleet lanes: a FleetCoalescer window of two
+    concurrent scan-path lanes (analysis/runtime.py's fleet lane, the
+    runtime budgets' problem) in one DeviceWindow. Returns the K7 launches
+    (its LAUNCHES), the nvcc runs and library loads the window read
+    (`second_solve_builds`, `second_solve_library_loads`), the allocator
+    segments it added and whether the lanes coalesced."""
+    import threading
+
+    import torch
+
+    from karpenter_tpu_torch.analysis import runtime as R
+    from karpenter_tpu_torch.solver import epochs
+    from karpenter_tpu_torch.solver.fleet import FleetCoalescer
+
+    lanes: list = []
+    errors: list = []
+
+    def window(_) -> None:
+        coalescer = FleetCoalescer(window_seconds=FLEET_WINDOW_SECONDS, max_lanes=2)
+        cache = epochs.DeviceTableCache()
+        lanes[:] = [R._fleet_lane(dev, cache, coalescer) for _ in range(2)]
+
+        def run(sched, pods) -> None:
+            try:
+                sched.solve(pods)
+            except BaseException as e:  # raised below, never swallowed
+                errors.append(e)
+
+        threads = [threading.Thread(target=run, args=lane, daemon=True) for lane in lanes]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=FLEET_JOIN_SECONDS)
+        if errors:
+            raise errors[0]
+
+    windows = R.Windows(dev)
+    torch.cuda.synchronize()
+    segments = R._segments(dev)
+    reset_launches()
+    windows.run("prewarmed fleet window", window)
+    m = windows.metrics["prewarmed fleet window"]
+    return {"launches": launch_counts(), "builds": m["second_solve_builds"],
+            "library_loads": m["second_solve_library_loads"], "new_segments": R._segments(dev) - segments,
+            "coalesced": all(s.last_used_fleet for s, _ in lanes), "windows_discarded":
+            len(windows.detail["prewarmed fleet window"]["discarded"])}
 
 
 def cold_start_worker(mode: str) -> int:
@@ -3182,12 +3321,35 @@ def cold_start_worker(mode: str) -> int:
     return 0
 
 
+def prewarm_fleet_checks(a: dict) -> list[str]:
+    """The prewarm's fleet lanes in cold_start_run("prewarm")'s record `a`:
+    the manifest holds a K7 combo with its first-launch ms and build
+    seconds for each lane bucket of PREWARM_FLEET_BUCKETS, and the 2-lane
+    window after it coalesced onto K7 with no nvcc, no library load and no
+    new allocator segment. The failures' names."""
+    k7 = {B: {k: v for k, v in a["combos"].items() if k.startswith("fleet_solve_scan[") and f"@B={B}," in k}
+          for B in PREWARM_FLEET_BUCKETS}
+    fw = a["fleet_window"]
+    log(f"cold start A's fleet lanes: K7 combos by lane bucket (first-launch ms, build s) {json.dumps(k7)}; "
+        f"a 2-lane window after the prewarm {json.dumps(fw)}")
+    bad = []
+    if not all(k7.values()) or any(set(v) < {"first_launch_ms", "build_seconds"} for c in k7.values()
+                                   for v in c.values()):
+        bad.append("the prewarm's K7 combos")
+    if (not fw["coalesced"] or fw["builds"] or fw["library_loads"] or fw["new_segments"]
+            or fw["launches"].get("fleet_lanes", 0) < 1):
+        bad.append("the fleet window after the prewarm")
+    return bad
+
+
 def cold_start_phase(dev, its, steady_s: float) -> Optional[dict]:
     """Phase 14a. Two fresh processes on the card after this one built the
-    kernels: A runs `aot.prewarm()` then the headline's first solve, B the
-    same first solve without a prewarm. Neither may invoke nvcc, A's
-    prewarm must complete, and A's decisions must equal B's. A's first
-    solve is printed beside B's and the headline phase's steady median.
+    kernels: A runs `aot.prewarm()` (with the fleet lanes of
+    PREWARM_FLEET_BUCKETS) then the headline's first solve and a 2-lane
+    fleet window, B the same first solve without a prewarm. Neither may
+    invoke nvcc, A's prewarm must complete, A's decisions must equal B's,
+    and A's fleet lanes must pass prewarm_fleet_checks. A's first solve is
+    printed beside B's and the headline phase's steady median.
     Then a SolverServer(prewarm=True) on the card in this process, its
     default prewarm held after its first combo: a solve sent then is
     served by the oracle (`prewarm_degraded` on the server's trace) with
@@ -3236,6 +3398,7 @@ def cold_start_phase(dev, its, steady_s: float) -> Optional[dict]:
         bad.append("nvcc in a fresh process")
     if not a["prewarm"]["completed"] or a["prewarm"]["built"]:
         bad.append("prewarm")
+    bad += prewarm_fleet_checks(a)
     if a["decisions"] != b["decisions"] or not (a["used_tpu"] and b["used_tpu"]):
         bad.append("first solves")
 
@@ -3310,20 +3473,20 @@ def cold_start_phase(dev, its, steady_s: float) -> Optional[dict]:
             "combos": sorted(a["combos"])}
 
 
-def operator_cluster(n_pods: int, n_pvc: int, its, dev, force_oracle: bool = False, probe_port=None):
+def operator_cluster(n_pods: int, n_pvc: int, its, dev, force_oracle: bool = False, probe_port=None, gates=None):
     """The port's Operator over a KWOK provider holding `its`, with one
     default NodePool that consolidates at once (consolidateAfter 0, a 100%
     budget) and entry_cluster's pending pods (the c6 mix at n_pods, n_pvc
-    PVC pods in ENTRY_ZONE); Options(tpu_min_pods=0) on `dev`, or the
-    oracle's with force_oracle."""
+    PVC pods in ENTRY_ZONE); Options(tpu_min_pods=0, feature_gates=gates)
+    on `dev`, or the oracle's with force_oracle."""
     from karpenter_tpu_torch.api.objects import Budget
     from karpenter_tpu_torch.controllers.kube import FakeClock
     from karpenter_tpu_torch.controllers.operator import Operator
-    from karpenter_tpu_torch.options import Options
+    from karpenter_tpu_torch.options import FeatureGates, Options
     from karpenter_tpu_torch.testing import fixtures
 
-    op = Operator(clock=FakeClock(), options=Options(tpu_min_pods=0, probe_port=probe_port),
-                  force_oracle=force_oracle, device=None if force_oracle else dev)
+    opts = Options(tpu_min_pods=0, probe_port=probe_port, feature_gates=gates or FeatureGates())
+    op = Operator(clock=FakeClock(), options=opts, force_oracle=force_oracle, device=None if force_oracle else dev)
     op.raw_cloud.types = its
     op.raw_cloud._by_name = {it.name: it for it in its}
     op.kube.create("NodePool", fixtures.node_pool(name="default", budgets=[Budget(nodes="100%")],
@@ -3510,12 +3673,14 @@ def operator_checks(op, run: OperatorRun, n_pvc: int = 0, provisioning: bool = T
 
 def command_record(cmd) -> dict:
     """A started Command as phase 14 keeps it (taken when it starts: its
-    candidates' state goes with their nodes)."""
+    candidates' state goes with their nodes; no savings for a StaticDrift
+    Command, whose replacement is a bare NodeClaim)."""
     from karpenter_tpu_torch.controllers.disruption.types import command_savings
 
     return {"view": command_view(cmd), "nodes": [c.name for c in cmd.candidates], "reason": cmd.reason,
             "decision": cmd.decision, "replacements": len(cmd.replacements),
-            "usd_per_hour": round(command_savings(cmd), 6)}
+            "usd_per_hour": round(command_savings(cmd), 6)
+            if all(hasattr(r, "instance_type_options") for r in cmd.replacements) else None}
 
 
 def show_commands(commands) -> list:
@@ -3631,26 +3796,31 @@ class SideProcess:
             self.log.close()
 
 
-class OperatorOracle(SideProcess):
-    """(c)'s oracle side (operator_oracle_worker). It is host work alone, so
-    it is started as soon as the kernels are built."""
+class RecordProcess(SideProcess):
+    """`python3 chip_smoke.py FLAG` in a process of its own, whose record is
+    the one line it prints (FLAG's name in capitals, then JSON): phase 14
+    (c)'s oracle side (operator_oracle_worker, the default), the gates
+    phase's (c) oracle side (`--gates-oracle`, gates_oracle_worker), both
+    host work alone and started as soon as the kernels are built, and the
+    gates phase's (c) card side (`--gates-card`, gates_card_worker)."""
 
-    def __init__(self):
-        super().__init__(("--operator-oracle",), "operator-oracle.log")
+    def __init__(self, flag: str = "--operator-oracle", what: str = "operator (c)"):
+        super().__init__((flag,), f"{flag[2:]}.log")
+        self.tag, self.what = flag[2:].replace("-", "_").upper() + " ", what
 
     def result(self) -> Optional[dict]:
-        """Its OPERATOR_ORACLE record, waited for at most
+        """Its record (the line its worker prints), waited for at most
         OPERATOR_ORACLE_TIMEOUT seconds; None (and its log's tail printed)
         when it failed."""
         if self.proc is None:
-            log("operator (c) oracle process: never started")
+            log(f"{self.what} oracle process: never started")
             return None
         waited, text = self.wait(OPERATOR_ORACLE_TIMEOUT)
-        line = next((ln for ln in text.splitlines() if ln.startswith("OPERATOR_ORACLE ")), None)
+        line = next((ln for ln in text.splitlines() if ln.startswith(self.tag)), None)
         if self.proc.returncode != 0 or line is None:
-            self.log_tail(f"operator (c) oracle process: exit {self.proc.returncode}")
+            self.log_tail(f"{self.what} oracle process: exit {self.proc.returncode}")
             return None
-        rec = json.loads(line[len("OPERATOR_ORACLE "):])
+        rec = json.loads(line[len(self.tag):])
         rec["waited_s"] = waited
         rec["started_s"] = self.t_start - _T0
         return rec
@@ -3660,7 +3830,7 @@ class OperatorOracle(SideProcess):
 # the side process: the fuzz cases' oracle snapshots and the deep plain checks
 
 
-# the side processes of a run (OperatorOracle, HostChecks), stopped on
+# the side processes of a run (RecordProcess, HostChecks), stopped on
 # every way out
 _CHILDREN: list = []
 
@@ -4265,7 +4435,7 @@ def baseline_late_timing(baseline: dict, dev, t_start: float) -> None:
             f"median {r['median_s']:.4f}s = {r['pods_per_s']:.1f} pods/s")
 
 
-def operator_phase(dev, its, oracle: OperatorOracle) -> Optional[dict]:
+def operator_phase(dev, its, oracle: RecordProcess) -> Optional[dict]:
     """Phase 14b-d: the port's Operator on the card, with
     Options(tpu_min_pods=0), over the headline's types and
     operator_cluster's pool (consolidateAfter 0, a 100% budget).
@@ -4438,6 +4608,733 @@ def operator_phase(dev, its, oracle: OperatorOracle) -> Optional[dict]:
     return {"launches": launches_op, "seconds": seconds, "ticks": n_ticks, "commands": show_commands(r.commands)}
 
 
+# ---------------------------------------------------------------------------
+# the gates phase (gates_phase): the paths that ran only on the CPU before,
+# on the card
+
+
+def gates_worlds() -> dict:
+    """The gates phase's fleets (host work: main builds them while nvcc
+    runs): (a)'s replace fleet at SWEEP_NODES and at SINGLE_NODES, and
+    (b)'s fleet of the c4 shape."""
+    from karpenter_tpu_torch.testing.fixtures import underutilized_world
+
+    return {
+        "replace": underutilized_world(SWEEP_NODES, n_pending=SWEEP_PENDING, **GATES_FLEET),
+        "replace_single": underutilized_world(SINGLE_NODES, n_pending=SWEEP_PENDING, **GATES_FLEET),
+        "c4": underutilized_world(SWEEP_NODES, seed=7, n_pending=SWEEP_PENDING),
+    }
+
+
+def gates_options(**kw):
+    """The gates phase's Options: the spot-to-spot gate on (the KWOK
+    catalog launches spot, so a replace of spot nodes needs it)."""
+    from karpenter_tpu_torch.options import FeatureGates, Options
+
+    return Options(feature_gates=FeatureGates(spot_to_spot_consolidation=True), **kw)
+
+
+def referee_verdict(got: bool, validator, cmd) -> list[str]:
+    """A forked referee: the force_oracle Validator's verdict on `cmd`
+    against the card's."""
+    want = validator.validate(cmd)
+    return [] if want == got else [f"card {got} / oracle {want}"]
+
+
+def removal_referee(w, cmd, opts) -> list[str]:
+    """A forked referee: the oracle's simulation of removing the Command's
+    candidates places every pod with at most one new claim."""
+    from karpenter_tpu_torch.controllers.disruption.helpers import simulate_scheduling
+
+    sim = simulate_scheduling(w.kube, w.cluster, w.cloud, cmd.candidates, opts, force_oracle=True)
+    return [] if sim.all_pods_scheduled() and len(sim.non_empty_new_claims()) <= 1 else ["removal infeasible"]
+
+
+def gates_replace(dev, host: "HostChecks", w, w_single, total: dict, bad: list):
+    """(a): a replace Command at the c4 width, on gates_worlds()'s replace
+    fleet `w` (REPLACE_FLEETS[0] of tests/test_torch_consolidation.py at
+    SWEEP_NODES nodes) with the spot-to-spot gate on.
+
+    (a1) the DisruptionController's first reconcile proposes
+         MultiNodeConsolidation(sweep="sets")'s Command: a replace, K8
+         launched; the oracle's simulation of the removal feasible
+         (forked);
+    (a2) the batched rung (K6) against the binary search on the oracle
+         (forked);
+    (a3) SingleNodeConsolidation on `w_single` (one K6 singleton launch)
+         against its sequential walk on the oracle (forked);
+    (a4) (a1)'s Command rebuilt by compute_consolidation with
+         tpu_min_pods=0 (K1, K3 or K2, K4, K5 with _DEDUP_DECODE_MIN
+         lowered to 1) equal to the default route's: candidates, decision,
+         each replacement's types in order, savings to 1e-12;
+    the Validator's re-simulation on the kernels: (a1)'s Command passes on
+         the fleet as it is and is vetoed once GATES_VETO_PODS pending pods
+         need more new claims than its replacements, each verdict equal to
+         the force_oracle Validator's (forked);
+    (a5) the round trip of (a1)'s proposal (gates_round_trip).
+    Appends each failure to `bad`."""
+    from karpenter_tpu_torch.controllers import provisioning as P
+    from karpenter_tpu_torch.controllers.disruption import consolidation as CN
+    from karpenter_tpu_torch.controllers.disruption import setsweep as SS
+    from karpenter_tpu_torch.controllers.disruption.controller import DisruptionController
+    from karpenter_tpu_torch.controllers.disruption.queue import Validator
+    from karpenter_tpu_torch.controllers.disruption.types import command_savings
+    from karpenter_tpu_torch.controllers.provisioning import Provisioner
+    from karpenter_tpu_torch.solver import tpu as T
+
+    opts = gates_options()
+    args = (w.kube, w.cluster, w.cloud, w.clock)
+    # the replacement is named after the fleet's claims
+    P._claim_name_seq[0] = max([P._claim_name_seq[0]] + [int(n.rsplit("-", 1)[1]) for n in w.kube._store("NodeClaim")])
+    prov = Provisioner(*args, opts, device=dev)
+    ctrl = DisruptionController(*args[:3], prov, w.clock, opts, device=dev)
+    before = live_nodes(w)
+    _, n = counted_path(total, "gates (a1) DisruptionController.reconcile 1 (propose)", ctrl.reconcile)
+    log(f"gates (a1) last_search_stats: {json.dumps(SS.last_search_stats)}")
+    cmd_a = ctrl._pending_validation[1] if ctrl._pending_validation else None
+    if cmd_a is None or cmd_a.decision != "replace" or cmd_a.reason != "underutilized" or n.get("set_sweep", 0) < 1:
+        bad.append("(a1) no replace Command, or K8 not launched")
+        return
+    show_command("gates (a1)", cmd_a)
+    host.fork("gates (a1) the removal on the oracle", removal_referee, w, cmd_a, opts)
+
+    cmds_b, n = counted_path(total, "gates (a2) MultiNodeConsolidation(sweep='batched')",
+                             CN.MultiNodeConsolidation(*args, options=opts, sweep="batched", device=dev).compute_commands)
+    if not cmds_b or n.get("fast_sweep", 0) < 1:
+        bad.append("(a2) no Command, or K6 not launched")
+    else:
+        show_command("gates (a2)", cmds_b[0])
+        host.fork("gates (a2) batched vs the binary search on the oracle", referee_commands,
+                  [command_key(c) for c in cmds_b], CN.MultiNodeConsolidation(*args, options=opts, sweep="binary",
+                                                                            force_oracle=True))
+        if command_savings(cmd_a) < command_savings(cmds_b[0]):
+            bad.append("(a1) savings below the batched rung's")
+
+    a1 = (w_single.kube, w_single.cluster, w_single.cloud, w_single.clock)
+    cmds_c, n = counted_path(total, f"gates (a3) SingleNodeConsolidation, {SINGLE_NODES}-node fleet",
+                             CN.SingleNodeConsolidation(*a1, options=opts, device=dev).compute_commands)
+    if n.get("fast_sweep_singleton", 0) != 1:
+        bad.append("(a3) not one K6 singleton launch")
+    for c in cmds_c:
+        show_command("gates (a3)", c)
+    host.fork("gates (a3) single-node vs the sequential walk on the oracle", referee_commands,
+              [command_key(c) for c in cmds_c], CN.SingleNodeConsolidation(*a1, options=opts, force_oracle=True))
+
+    kernels = CN.MultiNodeConsolidation(*args, options=gates_options(tpu_min_pods=0), device=dev)
+    dedup_min, T._DEDUP_DECODE_MIN = T._DEDUP_DECODE_MIN, 1
+    try:
+        cmd_d, n = counted_path(total, "gates (a4) compute_consolidation, tpu_min_pods=0",
+                                lambda: kernels.compute_consolidation(cmd_a.candidates))
+    finally:
+        T._DEDUP_DECODE_MIN = dedup_min
+    k_step = sum(n.get(k, 0) for k in ("run_step", "run_step_relax", "scan_step", "scan_step_relax"))
+    same = not commands_differ([command_key(cmd_d)], [command_key(cmd_a)])
+    log(f"gates (a4) the kernel route's Command vs the default route's: {'equal' if same else 'DIFFERENT'}")
+    if not same:
+        bad.append("(a4) the kernel route's Command")
+    if min(n.get(k, 0) for k in ("typeok_screen", "run_arrays", "dedup_rows")) < 1 or not k_step:
+        bad.append("(a4) kernel launches")
+
+    # the Validator's re-simulation on the kernels: a pass, then a veto
+    card = Validator(*args, gates_options(tpu_min_pods=0), device=dev)
+    oracle = Validator(*args, opts, force_oracle=True)
+    verdicts = {}
+    for label in ("pass", "veto"):
+        if label == "veto":
+            veto_pods(w.kube)
+        ok, n = counted_path(total, f"gates (a) Validator, {label}", lambda: card.validate(cmd_a))
+        verdicts[label] = ok
+        host.fork(f"gates (a) Validator {label} vs the oracle's", referee_verdict, ok, oracle, cmd_a)
+        if not n.get("typeok_screen", 0) or not sum(n.get(k, 0) for k in ("run_step", "scan_step")):
+            bad.append(f"(a) Validator {label}: the re-simulation not on the kernels")
+    for p in veto_pods(None):
+        w.kube.delete("Pod", p)
+    log(f"gates (a) Validator verdicts on (a1)'s Command: {verdicts}")
+    if verdicts != {"pass": True, "veto": False}:
+        bad.append("(a) Validator verdicts")
+    gates_round_trip(w, ctrl, prov, cmd_a, before, total, bad)
+
+
+def veto_pods(kube) -> list:
+    """(a)'s veto: GATES_VETO_PODS pending pods of GATES_VETO_REQUESTS with
+    hostname anti-affinity among themselves (each needs a new claim of its
+    own) created in `kube`; their names either way."""
+    from karpenter_tpu_torch.api import labels as well_known
+    from karpenter_tpu_torch.api.objects import LabelSelector, PodAffinityTerm
+    from karpenter_tpu_torch.testing import fixtures
+
+    names = [f"veto-{i}" for i in range(GATES_VETO_PODS)]
+    if kube is not None:
+        for name in names:
+            kube.create("Pod", fixtures.pod(
+                name=name, labels={"fleet": "veto"}, requests=dict(GATES_VETO_REQUESTS),
+                pod_anti_requirements=[PodAffinityTerm(topology_key=well_known.HOSTNAME_LABEL_KEY,
+                                                       label_selector=LabelSelector(match_labels={"fleet": "veto"}))]))
+    return names
+
+
+def gates_round_trip(w, ctrl, prov, cmd_a, before: set, total: dict, bad: list) -> None:
+    """(a5): the DisruptionController `ctrl` that proposed (a1)'s Command
+    (`before`: the live nodes then) validates it after the TTL and starts
+    it (the replacement through its Provisioner `prov`); then, a tick of
+    GATES_TICK_S at a time (at most
+    GATES_ROUND_TRIP_TICKS), the KWOK provider registers nodes, the
+    lifecycle controller launches, registers and initializes the
+    replacement, the queue deletes the originals' claims and
+    NodeTermination drains their nodes, until they are gone."""
+    from karpenter_tpu_torch.api.objects import COND_INITIALIZED, COND_LAUNCHED, COND_REGISTERED
+    from karpenter_tpu_torch.controllers.disruption.queue import VALIDATION_TTL_SECONDS
+    from karpenter_tpu_torch.controllers.lifecycle import NodeClaimLifecycle
+    from karpenter_tpu_torch.controllers.termination import NodeTermination
+
+    lifecycle = NodeClaimLifecycle(w.kube, w.cluster, w.cloud, w.clock, ctrl.opts)
+    termination = NodeTermination(w.kube, w.cluster, w.cloud, w.clock)
+    t0 = time.monotonic()
+    w.clock.advance(VALIDATION_TTL_SECONDS)
+    started, _ = counted_path(total, "gates (a5) reconcile 2 (validate, start)", ctrl.reconcile)
+    if started is None or command_key(started)[0] != command_key(cmd_a)[0]:
+        bad.append("(a5) validation")
+        return
+    new_claims = list(ctrl.queue.in_flight[0].replacement_names)
+    removed = {c.name for c in started.candidates}
+    claims = {c.claim_name() for c in started.candidates}
+    riders = {p.name for c in started.candidates for p in c.reschedulable_pods}
+
+    def drive():
+        for n in range(1, GATES_ROUND_TRIP_TICKS + 1):
+            w.clock.advance(GATES_TICK_S)
+            w.cloud.reconcile()
+            lifecycle.reconcile_all()
+            ctrl.queue.reconcile()
+            termination.reconcile_all()
+            if not ctrl.queue.busy and not (removed & set(w.kube._store("Node"))) and not (
+                    claims & set(w.kube._store("NodeClaim"))):
+                return n
+        return GATES_ROUND_TRIP_TICKS
+
+    ticks, _ = counted_path(total, "gates (a5) lifecycle, queue and termination", drive)
+    conds = [tuple(w.kube.get("NodeClaim", name).status.conditions.get(k)
+                   for k in (COND_LAUNCHED, COND_REGISTERED, COND_INITIALIZED))
+             if w.kube.try_get("NodeClaim", name) is not None else None for name in new_claims]
+    after = live_nodes(w)
+    waiting = {p.name for p in prov.get_pending_pods()}
+    pods = w.kube.list("Pod")
+    stray = [p.name for p in pods if p.node_name not in after and p.name not in waiting]
+    evicted = riders - {p.name for p in pods if p.node_name}
+    log(f"gates (a5): {len(before)} -> {len(after)} live nodes ({len(removed)} removed, replacement claim(s) "
+        f"{new_claims} launched/registered/initialized {conds}), {len(evicted)} of {len(riders)} riders evicted, "
+        f"{len(waiting)} pods for the next provisioning round, {len(stray)} stray; {ticks} ticks; "
+        f"{time.monotonic() - t0:.1f}s for the round trip")
+    if len(new_claims) != len(started.replacements) or any(c != ("True",) * 3 for c in conds):
+        bad.append("(a5) the replacement not brought up by the lifecycle controller")
+    if ctrl.queue.busy or after != (before - removed) | set(new_claims):
+        bad.append("(a5) the originals not drained and removed")
+    if stray or evicted != riders:
+        bad.append("(a5) pods")
+
+
+def gates_disruption(dev, host: "HostChecks", w, total: dict, bad: list) -> None:
+    """(b) on gates_worlds()'s fleet of the c4 shape (SWEEP_NODES nodes):
+    Drift — the NodePool's template label changed, every claim drifted
+    (NodePoolHash, Hydration, NodeClaimDisruptionConditions), DriftConsolidation with
+    tpu_min_pods=0 (its simulation on the kernels) against the
+    force_oracle route's (forked); Emptiness — the pods of GATES_EMPTIED
+    nodes deleted, EmptinessConsolidation's Command names exactly those
+    nodes; the Validator's emptiness branch passes it, then vetoes it
+    once a pod is bound to one of them, each verdict equal to the
+    force_oracle Validator's. Appends each failure to `bad`."""
+    from karpenter_tpu_torch.controllers.disruption import consolidation as CN
+    from karpenter_tpu_torch.controllers.disruption.queue import Validator
+    from karpenter_tpu_torch.controllers.nodeclaim_aux import Hydration, NodeClaimDisruptionConditions
+    from karpenter_tpu_torch.controllers.nodepool_aux import NodePoolHash
+    from karpenter_tpu_torch.testing import fixtures
+
+    opts = gates_options(tpu_min_pods=0)
+    args = (w.kube, w.cluster, w.cloud, w.clock)
+    t0 = time.monotonic()
+    # the fleet's claims carry no drift hash: Hydration stamps the pool's
+    NodePoolHash(w.kube).reconcile_all()
+    Hydration(w.kube).reconcile_all()
+    pool = w.kube.get("NodePool", "default")
+    pool.template.labels["fleet"] = "v2"
+    w.kube.update("NodePool", pool)
+    NodePoolHash(w.kube).reconcile_all()
+    NodeClaimDisruptionConditions(*args).reconcile_all()
+    drifted = sum(1 for c in w.kube._store("NodeClaim").values() if c.status.conditions.get("Drifted") == "True")
+    log(f"gates (b) drift: {drifted} of {len(w.kube._store('NodeClaim'))} claims drifted "
+        f"({time.monotonic() - t0:.1f}s host)")
+    cmds, n = counted_path(total, "gates (b) DriftConsolidation, tpu_min_pods=0",
+                           CN.DriftConsolidation(*args, options=opts, device=dev).compute_commands)
+    for c in cmds:
+        show_command("gates (b) drift", c)
+    if drifted != SWEEP_NODES or not cmds or cmds[0].reason != "drifted":
+        bad.append("(b) drift: no drifted Command")
+    if not n.get("typeok_screen", 0) or not sum(n.get(k, 0) for k in ("run_step", "scan_step")):
+        bad.append("(b) drift: the simulation not on the kernels")
+    host.fork("gates (b) drift vs the oracle's", referee_commands, [command_key(c) for c in cmds],
+              CN.DriftConsolidation(*args, options=opts, force_oracle=True))
+
+    emptied = sorted(sn.name for sn in w.cluster.state_nodes() if sn.node is not None)[:GATES_EMPTIED]
+    for name in emptied:
+        for p in w.cluster.pods_on(name):
+            w.kube.delete("Pod", p.name)
+    cmds, _ = counted_path(total, "gates (b) EmptinessConsolidation",
+                           CN.EmptinessConsolidation(*args, options=opts, device=dev).compute_commands)
+    named = sorted(c.name for c in cmds[0].candidates) if cmds else []
+    log(f"gates (b) emptiness: {len(emptied)} nodes emptied, the Command names {len(named)} "
+        f"({'exactly those' if named == emptied else 'OTHERS'})")
+    if named != emptied or cmds[0].reason != "empty" or cmds[0].decision != "delete":
+        bad.append("(b) emptiness")
+        return
+    card = Validator(*args, opts, device=dev)
+    oracle = Validator(*args, opts, force_oracle=True)
+    verdicts = {}
+    for label in ("pass", "veto"):
+        if label == "veto":
+            w.kube.create("Pod", fixtures.pod(name="intruder", requests={"cpu": "100m"}))
+            w.kube.bind("intruder", emptied[0])
+        verdicts[label] = (card.validate(cmds[0]), oracle.validate(cmds[0]))
+    log(f"gates (b) Validator on the emptiness Command (card, oracle): {verdicts}")
+    if verdicts != {"pass": (True, True), "veto": (False, False)}:
+        bad.append("(b) Validator on the emptiness Command")
+
+
+def gates_static_drift(dev, bad: list) -> None:
+    """(b)'s StaticDrift: a static pool of 2 replicas under each `nodes`
+    limit of STATIC_DRIFT_PINS, drifted; the Commands and their node-count
+    reservations must be what tests/test_torch_consolidation.py pins for
+    the same limits (one Command and one reserved node a replacement the
+    limit grants, none at the replica count). StaticDrift runs no device
+    code; the pool settles on an Operator on the card."""
+    from karpenter_tpu_torch.controllers.disruption.staticdrift import StaticDrift
+    from karpenter_tpu_torch.controllers.kube import FakeClock
+    from karpenter_tpu_torch.controllers.operator import Operator
+    from karpenter_tpu_torch.options import FeatureGates, Options
+    from karpenter_tpu_torch.testing import fixtures
+
+    got = {}
+    for limit in STATIC_DRIFT_PINS:
+        op = Operator(clock=FakeClock(), options=Options(feature_gates=FeatureGates(static_capacity=True)), device=dev)
+        op.kube.create("NodePool", fixtures.node_pool(name="warm", replicas=2, limits={"nodes": limit} if limit else {}))
+        op.run_until_settled(max_ticks=40)
+        pool = op.kube.list("NodePool")[0]
+        pool.template.labels["fleet"] = "v2"
+        pool.disruption.budgets[0].nodes = "100%"
+        op.kube.update("NodePool", pool)
+        op.nodepool_hash.reconcile_all()
+        op.claim_conditions.reconcile_all()
+        cmds = StaticDrift(op.kube, op.cluster, op.cloud, op.clock).compute_commands()
+        got[limit] = (len(cmds), sum(c.reserved_count for c in cmds), op.cluster.nodepool_state._reserved.get("warm", 0))
+        op.stop()
+    want = {limit: (n, n, n) for limit, n in STATIC_DRIFT_PINS.items()}
+    log(f"gates (b) StaticDrift (Commands, reserved by the Commands, reserved in the pool's state) by nodes limit: "
+        f"{got}; pinned {want}")
+    if got != want:
+        bad.append("(b) StaticDrift reservations")
+
+def gated_operator(its, dev, force_oracle: bool = False):
+    """(c)'s cluster: operator_cluster's dynamic pool and DECISIONS_PODS
+    pending pods under an Operator with all five feature gates on, beside
+    a static NodePool of GATED_STATIC[0] replicas (a 100% budget), a
+    NodeOverlay that adjusts one instance family's prices (GATED_PRICE) and
+    one that gives another family an extended resource (GATED_GPU), of
+    which every GATED_GPU_EVERY-th c6 pod requests one. KWOK fabricates a
+    node from its raw instance type, so a node of the capacity overlay's
+    family comes up here with the resource on its capacity and allocatable,
+    as its device plugin would advertise it: without that, a pod that
+    requests the resource fits no registered node, and the Provisioner
+    launches claims for it without end (in the JAX package too)."""
+    from karpenter_tpu_torch.api.objects import Budget, NodeSelectorRequirement, ObjectMeta
+    from karpenter_tpu_torch.api.objects import Operator as Op
+    from karpenter_tpu_torch.cloudprovider.kwok import INSTANCE_FAMILY_LABEL_KEY
+    from karpenter_tpu_torch.controllers.nodeoverlay import NodeOverlay
+    from karpenter_tpu_torch.options import FeatureGates
+    from karpenter_tpu_torch.testing import fixtures
+
+    gates = FeatureGates(node_repair=True, reserved_capacity=True, spot_to_spot_consolidation=True,
+                         node_overlay=True, static_capacity=True)
+    op = operator_cluster(*DECISIONS_PODS, its, dev, force_oracle=force_oracle, gates=gates)
+    op.kube.create("NodePool", fixtures.node_pool(name="static", replicas=GATED_STATIC[0],
+                                                  budgets=[Budget(nodes="100%")]))
+    (price_family, price, _), (gpu_family, gpu, gpu_count) = GATED_PRICE, GATED_GPU
+    for name, family, patch in (("price", price_family, {"price_adjustment": price}),
+                                ("gpu", gpu_family, {"capacity": {gpu: gpu_count * 1000}})):
+        op.kube.create("NodeOverlay", NodeOverlay(
+            metadata=ObjectMeta(name=name),
+            requirements=[NodeSelectorRequirement(INSTANCE_FAMILY_LABEL_KEY, Op.IN, [family])], **patch))
+    for i in range(0, DECISIONS_PODS[0], GATED_GPU_EVERY):
+        p = op.kube.get("Pod", f"c6-{i}")
+        p.requests[gpu] = 1000
+        op.kube.update("Pod", p)
+    raw_create = op.raw_cloud.create
+
+    def create(claim):
+        out = raw_create(claim)
+        if out.metadata.labels.get(INSTANCE_FAMILY_LABEL_KEY) == gpu_family:
+            node = op.raw_cloud._pending_nodes[-1][1]
+            for rl in (out.status.capacity, out.status.allocatable, node.capacity, node.allocatable):
+                rl[gpu] = gpu_count * 1000
+        return out
+
+    op.raw_cloud.create = create
+    return op
+
+
+def gated_run(op) -> dict:
+    """(c)'s scenario on gated_operator(): run_until_settled; then Ready=False
+    on every GATED_REPAIR_EVERY-th node of the dynamic pool (by name) and
+    a tick past the repair policy's toleration, then ticks of 2 s until
+    settled with every pod of those nodes re-created after its eviction
+    (as its workload would: the same spec, unbound) and placed again;
+    then the static pool's template drifted, then its replicas cut to
+    GATED_STATIC[1], each followed by ticks of GATED_TICK_S until the pool
+    holds its replicas on the new template with nothing deleting (at most
+    GATED_TICKS). Returns what (c) compares and shows: the claims after
+    provisioning (claims_view), every Command started, the nodes repaired,
+    the final node set, the families the extended-resource pods run on,
+    the repaired nodes' pods evicted, re-created and placed again with the
+    launches of that settle, the ticks of each step and the host seconds,
+    JSON as the oracle's process prints it."""
+    from karpenter_tpu_torch.api import labels as well_known
+    from karpenter_tpu_torch.api.objects import PodPhase
+    from karpenter_tpu_torch.cloudprovider.kwok import INSTANCE_FAMILY_LABEL_KEY
+    from karpenter_tpu_torch.controllers import nodepool_aux
+
+    commands: list = []
+    reconcile = op.disruption.reconcile
+
+    def recorded():
+        cmd = reconcile()
+        if cmd is not None:
+            commands.append(command_record(cmd))
+        return cmd
+
+    op.disruption.reconcile = recorded
+    gpu = GATED_GPU[1]
+    ticks: dict = {}
+    host: dict = {}
+
+    def static_nodes() -> list:
+        return [n for n in op.kube._store("Node").values()
+                if n.metadata.labels.get(well_known.NODEPOOL_LABEL_KEY) == "static"]
+
+    def until(label: str, done) -> None:
+        t0 = time.monotonic()
+        n = 0
+        while n < GATED_TICKS and not done():
+            op.step(GATED_TICK_S)
+            n += 1
+        ticks[label], host[label] = n, time.monotonic() - t0
+
+    t0 = time.monotonic()
+    ticks["settle"] = op.run_until_settled(max_ticks=OPERATOR_TICKS)
+    host["settle"] = time.monotonic() - t0
+    settled = op.settled()
+    claims = claims_view(op.kube.list("NodeClaim"))
+    nodes_provisioned = len(op.kube._store("Node"))
+    # the repair: Ready=False past the toleration
+    toleration = max(p.toleration_seconds for p in op.cloud.repair_policies())
+    dynamic = sorted(n.name for n in op.kube._store("Node").values()
+                     if n.metadata.labels.get(well_known.NODEPOOL_LABEL_KEY) == "default")
+    broken = dynamic[::GATED_REPAIR_EVERY]
+    # their pods, which their workload re-creates (unbound, under the same
+    # names) once the drain has deleted them
+    evictees = {p.name: copy.deepcopy(p) for p in op.kube._store("Pod").values() if p.node_name in broken}
+    recreated: set = set()
+
+    def step(advance: float) -> None:
+        op.step(advance)
+        for name, pod in evictees.items():
+            if name not in op.kube._store("Pod"):
+                fresh = copy.deepcopy(pod)
+                fresh.node_name, fresh.phase, fresh.terminating = "", PodPhase.PENDING, False
+                fresh.metadata.creation_timestamp = 0.0
+                op.kube.create("Pod", fresh)
+                recreated.add(name)
+
+    for name in broken:
+        node = op.kube.get("Node", name)
+        node.conditions["Ready"] = "False"
+        node.ready = False
+        op.kube.update("Node", node)
+    repaired0 = nodepool_aux.NODES_REPAIRED.value({"condition": "Ready"})
+    launches0 = launch_counts()
+    t0 = time.monotonic()
+    step(GATED_TICK_S)
+    step(toleration + 1.0)
+    repaired = nodepool_aux.NODES_REPAIRED.value({"condition": "Ready"}) - repaired0
+    host["repair"] = time.monotonic() - t0
+    t0 = time.monotonic()
+    n = 0
+    while n < GATED_TICKS and not (n and op.settled() and recreated == set(evictees)):
+        step(2.0)
+        n += 1
+    ticks["repair_settle"], host["repair_settle"] = n, time.monotonic() - t0
+    launches_repair = {k: v - launches0.get(k, 0) for k, v in launch_counts().items() if v != launches0.get(k, 0)}
+    pods = op.kube._store("Pod")
+    replaced = sum(1 for name in evictees if pods[name].node_name and pods[name].node_name not in broken)
+    # StaticDrift: a new template label, then the scale-down
+    pool = op.kube.get("NodePool", "static")
+    pool.template.labels["fleet"] = "v2"
+    op.kube.update("NodePool", pool)
+
+    def static_holds(n: int):
+        def holds() -> bool:
+            claims = [c for c in op.kube._store("NodeClaim").values() if c.nodepool_name == "static"]
+            return len(claims) == len(static_nodes()) == n and all(
+                c.metadata.deletion_timestamp is None and c.metadata.labels.get("fleet") == "v2" for c in claims)
+        return holds
+
+    until("static_drift", static_holds(GATED_STATIC[0]))
+    pool = op.kube.get("NodePool", "static")
+    pool.replicas = GATED_STATIC[1]
+    op.kube.update("NodePool", pool)
+    until("static_scale_down", static_holds(GATED_STATIC[1]))
+    op.disruption.reconcile = reconcile
+    nodes = op.kube._store("Node")
+    gpu_families = sorted({nodes[p.node_name].metadata.labels.get(INSTANCE_FAMILY_LABEL_KEY)
+                           if p.node_name in nodes else None
+                           for p in op.kube._store("Pod").values() if p.requests.get(gpu)})
+    return {"claims": claims, "settled": settled, "nodes_provisioned": nodes_provisioned,
+            "commands": json.loads(json.dumps(commands)), "broken": broken, "repaired": repaired,
+            "evicted": len(evictees), "recreated": len(recreated), "replaced": replaced,
+            "launches_repair": launches_repair,
+            "nodes": sorted(nodes), "static_nodes": sorted(n.name for n in static_nodes()),
+            "gpu_families": gpu_families, "pending": len(op.kube.pending_pods()), "ticks": ticks, "host_s": host}
+
+
+def gates_oracle_run() -> dict:
+    """(c)'s oracle side: gated_run on the port's Operator(force_oracle=True)
+    under the PartitionReferee, its claims named from GATES_CLAIM_SEQ0 and
+    its static claims and drift replacements from GATES_STATIC_SEQ0 like the
+    card's."""
+    t0 = time.monotonic()
+    gated_names()
+    op = gated_operator(build_universe(HEADLINE_TYPES), None, force_oracle=True)
+    with PartitionReferee():
+        rec = gated_run(op)
+    op.stop()
+    rec["seconds"] = time.monotonic() - t0
+    return rec
+
+
+def gated_names() -> None:
+    """Both sides of (c) name their claims from the same counters."""
+    from karpenter_tpu_torch.controllers import provisioning as P
+    from karpenter_tpu_torch.controllers import static as ST
+    from karpenter_tpu_torch.controllers.disruption import staticdrift as SD
+
+    P._claim_name_seq[0] = GATES_CLAIM_SEQ0
+    ST._static_seq[0] = SD._replacement_seq[0] = GATES_STATIC_SEQ0
+
+
+def gates_oracle_worker() -> int:
+    """`python3 chip_smoke.py --gates-oracle`: gates_oracle_run in this
+    process (the oracle alone: no card), printed as one GATES_ORACLE line."""
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    print("GATES_ORACLE " + json.dumps(gates_oracle_run()), flush=True)
+    return 0
+
+def gates_table_cache(dev, op) -> dict:
+    """(c)'s table cache: solve_in_process with one DeviceTableCache on the
+    gated Operator's default pool and its overlaid instance types, the c6
+    mix at DECISIONS_PODS[0] with (c)'s extended-resource pods: a first
+    solve (a miss), the same solve again (a hit, no K1), again after the
+    price overlay's adjustment changes to GATED_PRICE[2] (a hit: no device
+    table holds a price; the decode prices the claims on the host from the
+    overlaid types) and after the capacity overlay gives GATED_GPU_AFTER a
+    node (a miss: the problem's fingerprint follows the capacities), each
+    of the last two against the port's oracle on its partition. Returns
+    each solve's cache outcome, K1 launches and route, the referee's
+    disagreements and the launches."""
+    import torch
+
+    from karpenter_tpu_torch.solver import epochs
+    from karpenter_tpu_torch.solver.hybrid import solve_in_process
+    from karpenter_tpu_torch.solver.oracle import SchedulerOptions
+
+    pool = op.kube.get("NodePool", "default")
+    cache = epochs.DeviceTableCache()
+    opts = SchedulerOptions(tpu_min_pods=0)
+    pods = c6_pods(DECISIONS_PODS[0])
+    for p in pods[::GATED_GPU_EVERY]:
+        p.requests[GATED_GPU[1]] = 1000
+    changes = {"price changed": ("price", {"price_adjustment": GATED_PRICE[2]}),
+               "capacity changed": ("gpu", {"capacity": {GATED_GPU[1]: GATED_GPU_AFTER * 1000}})}
+    out: dict = {"outcomes": {}, "referee": {}, "launches": {}}
+    for label in ("first", "again", *changes):
+        if label in changes:
+            name, patch = changes[label]
+            ov = op.kube.get("NodeOverlay", name)
+            for k, v in patch.items():
+                setattr(ov, k, v)
+            op.kube.update("NodeOverlay", ov)
+            op.node_overlay.reconcile_all()
+        ibp = {pool.name: op.cloud.get_instance_types(pool)}
+        before = {k: epochs.TABLE_CACHE.value({"outcome": k}) for k in ("hit", "miss")}
+        reset_launches()
+        res, sched = solve_in_process([pool], ibp, pods, options=opts, table_cache=cache, device=dev)
+        torch.cuda.synchronize()
+        n = launch_counts()
+        for k, v in n.items():
+            out["launches"][k] = out["launches"].get(k, 0) + v
+        out["outcomes"][label] = {k: int(epochs.TABLE_CACHE.value({"outcome": k}) - v) for k, v in before.items()}
+        out["outcomes"][label].update(typeok_screen=n.get("typeok_screen", 0), used_tpu=bool(sched.used_tpu))
+        if label in changes:
+            want = partition_view(solve_partitioned_oracle([pool], ibp, pods, None, None, opts, None), pods)
+            out["referee"][label] = partition_mismatches(partition_view(res, pods), want)
+    return out
+
+
+def gates_card_run(dev) -> dict:
+    """(c)'s card side, in a process of its own on the card `dev` (`python3
+    chip_smoke.py --gates-card`, beside the main process's phase 14):
+    gated_run on gated_operator() with Options(tpu_min_pods=0), its claims
+    named as the oracle side's, then gates_table_cache on its cluster.
+    Returns gated_run's record with the run's launches (counted from 0),
+    the route of the last provisioning round, the table cache's record,
+    the tpu_error fallbacks and the seconds."""
+    import torch
+
+    t0 = time.monotonic()
+    gated_names()
+    op = gated_operator(build_universe(HEADLINE_TYPES), dev)
+    try:
+        reset_launches()
+        rec = gated_run(op)
+        torch.cuda.synchronize()
+        rec["launches"] = launch_counts()
+        rec["route"] = op.provisioner.last_solver_used
+        rec["table_cache"] = gates_table_cache(dev, op)
+    finally:
+        op.stop()
+    rec["tpu_errors"] = tpu_errors()
+    rec["seconds"] = time.monotonic() - t0
+    return rec
+
+
+def gates_card_worker() -> int:
+    """`python3 chip_smoke.py --gates-card`: gates_card_run on the card in
+    this process, printed as one GATES_CARD line."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; this test needs the card", file=sys.stderr)
+        return 2
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    print("GATES_CARD " + json.dumps(gates_card_run(torch.device("cuda"))), flush=True)
+    return 0
+
+
+def gates_operator(card: "RecordProcess", oracle: "RecordProcess", total: dict, bad: list) -> None:
+    """(c): the card side (`card`, gates_card_run, started before phase 14)
+    held to the port's Operator(force_oracle=True) on the same scenario
+    under the PartitionReferee (`oracle`, started at the end of the build):
+    equal claims after provisioning, Commands, repaired count, pods placed
+    again, final nodes and ticks. On the card alone: settled, nothing
+    pending, the route the kernels (K1, K3, K4), every repaired node
+    counted and its pods placed again on the kernels, the
+    extended-resource pods on the capacity overlay's family, every static
+    node replaced by StaticDrift and the pool at GATED_STATIC[1], the table
+    cache's outcomes and its solves equal to the oracle's partition, no
+    tpu_error. The card side's launches go into `total`."""
+    rec = card.result()
+    if rec is None:
+        bad.append("(c) the card's Operator")
+        return
+    n, tc = rec["launches"], rec["table_cache"]
+    for counts in (n, tc["launches"]):
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+    drifts = [c for c in rec["commands"] if c["reason"] == "drifted"]
+    host_s = {k: round(v, 2) for k, v in rec["host_s"].items()}
+    log(f"gates (c) card (its own process, started at {rec['started_s']:.1f}s, waited {rec['waited_s']:.1f}s for): "
+        f"{rec['seconds']:.1f}s; ticks {json.dumps(rec['ticks'])}, host s {json.dumps(host_s)}; launches {n}; "
+        f"{len(rec['claims'])} claims, {rec['nodes_provisioned']} -> {len(rec['nodes'])} nodes; {len(rec['broken'])} "
+        f"nodes Ready=False, {rec['repaired']:g} repaired, their {rec['evicted']} pods evicted, {rec['recreated']} "
+        f"re-created, {rec['replaced']} placed again (launches {json.dumps(rec['launches_repair'])}); "
+        f"{len(drifts)} StaticDrift Commands, static nodes {len(rec['static_nodes'])}; extended-resource pods on "
+        f"{rec['gpu_families']}; Commands {json.dumps(show_commands(rec['commands']))}")
+    log(f"gates (c) table cache: {json.dumps(tc['outcomes'])}; the solves after the changes vs the oracle on "
+        f"their partition: {json.dumps({k: v or 'equal' for k, v in tc['referee'].items()})}; launches {tc['launches']}")
+    k_runs = n.get("run_step", 0) + n.get("run_step_relax", 0)
+    if rec["route"] != "tpu" or min(n.get(k, 0) for k in ("typeok_screen", "run_arrays")) < 1 or not k_runs:
+        bad.append("(c) the kernel route")
+    if not rec["settled"] or rec["pending"] or not rec["broken"] or rec["repaired"] != len(rec["broken"]):
+        bad.append("(c) settle and repair")
+    lr = rec["launches_repair"]
+    if not rec["evicted"] == rec["recreated"] == rec["replaced"] > 0 or not lr.get("typeok_screen") or not (
+            lr.get("run_step", 0) + lr.get("run_step_relax", 0)):
+        bad.append("(c) the repaired nodes' pods not placed again on the kernels")
+    if rec["gpu_families"] != [GATED_GPU[0]]:
+        bad.append("(c) the extended-resource pods' family")
+    if len(drifts) != GATED_STATIC[0] or len(rec["static_nodes"]) != GATED_STATIC[1]:
+        bad.append("(c) StaticDrift and the scale-down")
+    if rec["tpu_errors"]:
+        bad.append("(c) tpu_error")
+    hit, miss = (1, 0), (0, 1)
+    want = {"first": miss, "again": hit, "price changed": hit, "capacity changed": miss}
+    got = tc["outcomes"]
+    if {k: (v["hit"], v["miss"]) for k, v in got.items()} != want or any(
+            bool(v["typeok_screen"]) != (want[k] == miss) or not v["used_tpu"] for k, v in got.items()):
+        bad.append("(c) table cache outcomes")
+    if any(tc["referee"].values()):
+        bad.append("(c) table cache: a solve against the oracle's partition")
+    orc = oracle.result()
+    if orc is None:
+        bad.append("(c) the oracle's Operator")
+        return
+    log(f"gates (c) oracle (its own process, started at {orc['started_s']:.1f}s, waited {orc['waited_s']:.1f}s for): "
+        f"{orc['seconds']:.1f}s, ticks {json.dumps(orc['ticks'])}")
+    keys = ("claims", "commands", "repaired", "replaced", "nodes", "ticks")
+    same = {k: rec[k] == orc[k] for k in keys}
+    log("gates (c) card vs the oracle's Operator: "
+        + ", ".join(f"{k} {'equal' if v else 'DIFFERENT'}" for k, v in same.items()))
+    if not all(same.values()):
+        bad.append("(c) card against the oracle")
+        if not same["commands"]:
+            log(f"gates (c) Commands: card {json.dumps(show_commands(rec['commands']))} / oracle "
+                f"{json.dumps(show_commands(orc['commands']))}")
+        if not same["nodes"]:
+            log(f"gates (c) final nodes only the card kept: {sorted(set(rec['nodes']) - set(orc['nodes']))[:20]}, "
+                f"only the oracle: {sorted(set(orc['nodes']) - set(rec['nodes']))[:20]}")
+
+
+def gates_phase(dev, host: "HostChecks", card: "RecordProcess", oracle: "RecordProcess",
+                worlds: dict) -> Optional[dict]:
+    """The paths that ran only on the CPU before, through the port's own
+    controllers on the card at full width, each held to a referee: (a) a
+    replace Command at the c4 width (gates_replace), (b) Drift, Emptiness,
+    the Validator's emptiness veto and StaticDrift's reservations
+    (gates_disruption, gates_static_drift), (c) the Operator with all five
+    feature gates on and the table cache across an overlay change
+    (gates_operator: its card side `card` and its oracle side `oracle` run
+    in processes of their own). `worlds` is gates_worlds(), built while
+    nvcc ran.
+    Each main path with its launch counts reset just before and read just
+    after; a tpu_error fallback anywhere fails the phase. Returns
+    {"launches": totals over the main paths, "seconds"}, or None when a
+    check failed."""
+    t_phase = time.monotonic()
+    total: dict = {}
+    bad: list = []
+    t0 = time.monotonic()
+    gates_replace(dev, host, worlds["replace"], worlds["replace_single"], total, bad)
+    log(f"gates (a): {time.monotonic() - t0:.1f}s")
+    t0 = time.monotonic()
+    gates_disruption(dev, host, worlds["c4"], total, bad)
+    gates_static_drift(dev, bad)
+    log(f"gates (b): {time.monotonic() - t0:.1f}s")
+    t0 = time.monotonic()
+    gates_operator(card, oracle, total, bad)
+    log(f"gates (c): {time.monotonic() - t0:.1f}s")
+    if tpu_errors():
+        bad.append("tpu_error")
+    seconds = time.monotonic() - t_phase
+    log(f"gates phase: {seconds:.1f}s; launches on its main paths {json.dumps(total)}; "
+        f"{'failed: ' + ', '.join(bad) if bad else 'ok'}")
+    return None if bad else {"launches": total, "seconds": seconds}
+
 def device_failure_check(dev, its) -> bool:
     """A failure of the card inside a solve propagates out of
     TorchHybridScheduler.solve instead of being re-solved on the oracle:
@@ -4524,17 +5421,27 @@ def budgets_phase(dev, its, smi: str) -> Optional[dict]:
     return None if issues else {"seconds": seconds}
 
 
+def gates_oracle() -> RecordProcess:
+    """The gates phase's (c) oracle side (`--gates-oracle`)."""
+    return RecordProcess("--gates-oracle", "gates (c)")
+
+
+def gates_card() -> RecordProcess:
+    """The gates phase's (c) card side (`--gates-card`)."""
+    return RecordProcess("--gates-card", "gates (c) card")
+
+
 def main() -> int:
-    oracle, host = OperatorOracle(), HostChecks()
-    _CHILDREN.extend((oracle, host))
+    oracle, g_oracle, g_card, host = RecordProcess(), gates_oracle(), gates_card(), HostChecks()
+    _CHILDREN.extend((oracle, g_oracle, g_card, host))
     try:
-        return _main(oracle, host)
+        return _main(oracle, g_oracle, g_card, host)
     finally:
         for child in _CHILDREN:
             child.close()
 
 
-def _main(oracle: OperatorOracle, host: HostChecks) -> int:
+def _main(oracle: RecordProcess, g_oracle: RecordProcess, g_card: RecordProcess, host: HostChecks) -> int:
     try:
         import torch
     except ImportError:
@@ -4573,8 +5480,12 @@ def _main(oracle: OperatorOracle, host: HostChecks) -> int:
         t1 = time.monotonic()
         baseline_ready = baseline_worlds()
         log(f"baseline configs' worlds built on the host while nvcc runs: {time.monotonic() - t1:.1f}s")
+        t1 = time.monotonic()
+        gates_ready = gates_worlds()
+        log(f"gates phase's fleets built on the host while nvcc runs: {time.monotonic() - t1:.1f}s")
         built = building.result()
-    oracle.start()  # phase 14c's oracle side: host work alone, beside the card's phases
+    oracle.start()  # phase 14 (c)'s oracle side: host work alone, beside the card's phases
+    g_oracle.start()  # the gates phase's (c) oracle side, the same
     host.start()  # the fuzz cases' oracle snapshots, then the deep plain checks
     log(f"build: {time.monotonic() - t0:.1f}s wall for {len(built)} libraries (parallel nvcc)")
     for name, info in built.items():
@@ -5212,7 +6123,7 @@ def _main(oracle: OperatorOracle, host: HostChecks) -> int:
         return 1
 
     # ---- 12b. the consolidation controllers on the c4 fleet ----
-    consolidation = consolidation_phase(dev, c4_fleet, c4_digest, snc_fleet)
+    consolidation = consolidation_phase(dev, c4_fleet, c4_digest, snc_fleet, host)
     del c4_fleet, snc_fleet
     if consolidation is None:
         return 1
@@ -5233,8 +6144,20 @@ def _main(oracle: OperatorOracle, host: HostChecks) -> int:
     cold = cold_start_phase(dev, its, med)
     if cold is None:
         return 1
+    # the gates phase's (c) card side: host work mostly, beside phase 14
+    # (after the cold start, whose first solves it would slow down)
+    g_card.start()
     operator = operator_phase(dev, its, oracle)
     if operator is None:
+        return 1
+
+    # ---- the gates phase (after phase 14, before 14c): the paths that ran
+    # only on the CPU before: a replace Command, drift, emptiness, the
+    # Validator's vetoes, StaticDrift, the Operator with every feature
+    # gate on ----
+    gates = gates_phase(dev, host, g_card, g_oracle, gates_ready)
+    del gates_ready
+    if gates is None:
         return 1
 
     # ---- 14. K1, K4 and K5 apart: device time (profiler) and the wrapper's
@@ -5338,6 +6261,7 @@ def _main(oracle: OperatorOracle, host: HostChecks) -> int:
         r["launches_sidecar"] = sum(sidecar["launches"].get(k, 0) for k in SIDECAR_ROWS.get(r["name"], ()))
         r["launches_operator"] = sum(operator["launches"].get(k, 0) for k in ROW_COUNTERS.get(r["name"], ()))
         r["launches_prewarm"] = sum(cold["launches_prewarm"].get(k, 0) for k in ROW_COUNTERS.get(r["name"], ()))
+        r["launches_gates"] = sum(gates["launches"].get(k, 0) for k in ROW_COUNTERS.get(r["name"], ()))
     log(f"chip_smoke: {time.monotonic() - t_start:.1f}s in all")
     print(json.dumps({"kernels": kernels}))
     print(smi)
@@ -5357,6 +6281,10 @@ if __name__ == "__main__":
         sys.exit(cold_start_worker(sys.argv[2]))
     if len(sys.argv) == 2 and sys.argv[1] == "--operator-oracle":
         sys.exit(operator_oracle_worker())
+    if len(sys.argv) == 2 and sys.argv[1] == "--gates-oracle":
+        sys.exit(gates_oracle_worker())
+    if len(sys.argv) == 2 and sys.argv[1] == "--gates-card":
+        sys.exit(gates_card_worker())
     if len(sys.argv) == 3 and sys.argv[1] == "--host-checks":
         sys.exit(host_checks_worker(sys.argv[2]))
     sys.exit(main())

@@ -10,8 +10,8 @@ The Validator re-simulates through `helpers.simulate_scheduling` on its
 `device` (None = the card, "cpu" for the plain versions; resolved at
 construction unless `force_oracle`). Replacements launch through the
 port's `Provisioner.create_node_claims`. The queue waits for each
-replacement NodeClaim's Initialized condition; the port has no lifecycle
-controller yet, so whoever drives it sets that condition.
+replacement NodeClaim's Initialized condition, which the lifecycle
+controller (`controllers/lifecycle.py`) sets once the node initializes.
 """
 
 from __future__ import annotations

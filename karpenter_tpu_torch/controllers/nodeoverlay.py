@@ -76,12 +76,18 @@ class NodeOverlay:
 
 class NodeOverlayController:
     """nodeoverlay/controller.go:69: re-evaluate overlays into the store
-    whenever overlays or instance types change."""
+    whenever overlays or instance types change. A pool whose active
+    overlays (by name and resource version) and instance types (the same
+    list the provider returned last time) are unchanged keeps its store
+    entry: re-applying would copy every matching instance type again on
+    every reconcile for the same values."""
 
     def __init__(self, kube, cloud_provider, store: InstanceTypeStore):
         self.kube = kube
         self.cloud = cloud_provider
         self.store = store
+        # pool name -> (the active overlays' key, the base list, its length)
+        self._applied: dict[str, tuple] = {}
 
     def reconcile_all(self) -> dict[str, str]:
         """Returns overlay name -> validation error for bad overlays."""
@@ -96,9 +102,17 @@ class NodeOverlayController:
                 problems[o.name] = err
                 continue
             active.append(o)
-        for np in self.kube.list("NodePool"):
+        key = tuple((o.name, o.metadata.resource_version) for o in active)
+        pools = self.kube.list("NodePool")
+        for np in pools:
             base = self.cloud.get_instance_types(np)
+            seen = self._applied.get(np.name)
+            if seen is not None and seen[0] == key and seen[1] is base and seen[2] == len(base):
+                continue
             self.store.update(np.name, self._apply(active, base))
+            self._applied[np.name] = (key, base, len(base))
+        for name in set(self._applied) - {np.name for np in pools}:
+            del self._applied[name]
         return problems
 
     def _apply(self, overlays: list[NodeOverlay], its) -> InstanceTypes:

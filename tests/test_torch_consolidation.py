@@ -424,8 +424,8 @@ def controllers(ref, port, ropts, popts):
 
 
 def initialize_replacements(kube, names, cond) -> None:
-    """What the lifecycle controller would do once a replacement's node
-    initializes (the port has none yet)."""
+    """What the lifecycle controller does once a replacement's node
+    initializes (these tests drive the DisruptionController alone)."""
     for name in names:
         claim = kube.get("NodeClaim", name)
         claim.status.conditions[cond] = "True"

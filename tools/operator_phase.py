@@ -35,7 +35,7 @@ def main() -> int:
     os.chdir(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
     t0 = time.monotonic()
     built = _build.build_all()
-    oracle = CS.OperatorOracle()
+    oracle = CS.RecordProcess()
     try:
         oracle.start()
         return _phase14(CS, built, t0, oracle)
