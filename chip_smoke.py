@@ -129,7 +129,17 @@ K7 launch a round), a Provisioner(solver=ResilientSolver) reconcile of the
 entry cluster answered by the sidecar with the entry phase's claims, and,
 with the server stopped, a reconcile that degrades in-process to the card;
 the server-side phases beside the in-process solve's give the wire's
-cost; last, a solve with every free byte of the card held
+cost; and a fault segment: the port's FaultyProxy between a
+ResilientSolver and a server on the card, a 1000-pod c6 mix a solve
+(K1, K4, K3, K5), each fault once (a blackhole and a delay past the
+client's deadline, a truncated and a corrupted answer, the server stopped
+with a solve in flight), each followed by a clean solve from the sidecar
+equal to the in-process solve, the breaker opening and closing again; the
+whole phase runs under the port's race witness (no lock-order inversion,
+no thread exception, the long holds printed with their creation sites)
+and protocol recorder, whose trace must refine the port's protocol model
+(karpenter_tpu_torch/analysis/proto.py); last, a solve with every free
+byte of the card held
 must raise out of TorchHybridScheduler.solve, not be re-solved on the
 oracle by the last-resort guard. Then process start and the Operator (phase
 14): two fresh processes' first headline solve, one after `aot.prewarm()`
@@ -161,12 +171,16 @@ must read what it reads on the CPU, and every `cuda:` entry: a profiled
 window around each entry's repeat whose hand-kernel records equal the
 wrappers' count, the headline and the c6 mix re-solved under the profiler,
 each kernel's ptxas resources; one {"budgets": ...} line, and any finding
+fails the run. The side process that runs the deep plain checks also runs
+the analysis's AST and race tiers (`python -m karpenter_tpu_torch.analysis
+--ast`, `--race`) over the shipped tree: a finding outside their baselines
 fails the run. It checks decisions against the port's oracle on twelve
 problems, and prints:
 
 - the card's name and power limit (nvidia-smi),
 - one JSON line {"kernels": [...]} with each kernel's launches on its path
-  (and on the consolidation, sidecar, Operator, prewarm and gates paths), its
+  (and on the consolidation, sidecar, Operator, prewarm and gates paths, and
+  apart those of the sidecar's fault segment), its
   agreement with the plain version, and its times,
 - as the last line, {"ok": true, "device": {...}}.
 
@@ -347,7 +361,22 @@ SIDECAR_TIMEOUT = 600.0  # the clients' wire deadline
 SIDECAR_ROWS = {
     "typeok_screen": ("typeok_screen",), "run_step": ("run_step",), "run_arrays": ("run_arrays",),
     "dedup_rows": ("dedup_rows",), "fleet_lanes": ("fleet_lanes", "fleet_lanes_relax"),
+    "run_step+relax": ("run_step_relax",),
 }
+# the sidecar phase runs under the port's race witness (its holds past
+# SIDECAR_LONG_HOLD_MS printed with their creation sites) and protocol
+# recorder, whose trace the port's judge reads (proto.check_refinement)
+SIDECAR_LONG_HOLD_MS = 50.0
+# its fault segment (sidecar_faults): the port's FaultyProxy between a
+# ResilientSolver and a SolverServer on the card, c6_world(FAULT_PODS) a
+# solve (above tpu_min_pods: K1, K4, K3), each fault of FAULT_SCHEDULE once
+# and a clean solve after each; the decode's dedup goes through K5 here
+# (`_DEDUP_DECODE_MIN` lowered: these solves open about 200 claims)
+FAULT_PODS = 1000
+FAULT_SCHEDULE = ("blackhole", "truncate", "corrupt", "delay", "stop")
+FAULT_WIRE_TIMEOUT = 5.0  # the client's deadline: a clean solve takes about 1 s over the wire
+FAULT_COOLDOWN = 30.0  # the breaker's cooldown, on the segment's own clock
+FAULT_BUDGET_S = 60.0  # the segment's time on the main process
 # the device functions of K6 and K8, as the profiler names them
 SWEEP_KERNELS = ("sweep_cache_kernel", "fast_sweep_lanes", "set_sweep_lanes")
 # K5's edge checks (k5_edge_checks): (label, rows, widths of the nine
@@ -2990,10 +3019,17 @@ def sidecar_phase(dev, its, entry_claims: list) -> Optional[dict]:
         degrades in-process to the card and the breaker records it;
     (f) the server-side phases of (a) beside the in-process solve's: the
         wire's own cost; the client's and the server's traces share one
-        wire id.
+        wire id;
+    (g) the fault segment (sidecar_faults): each fault of FAULT_SCHEDULE
+        once through the port's FaultyProxy, a clean solve after each.
 
-    No solve degrades to the oracle on the server. Returns {launches,
-    seconds, upload_bytes, phases}, or None when a check failed."""
+    The whole phase runs under the port's race witness (racert; 0
+    lock-order inversions and 0 thread exceptions, the holds past
+    SIDECAR_LONG_HOLD_MS printed with their creation sites) and protocol
+    recorder (protorec), whose trace must refine the port's protocol model
+    (proto.check_refinement: 0 violations). No solve degrades to the oracle
+    on the server. Returns {launches, seconds, upload_bytes, phases,
+    faults, witness}, or None when a check failed."""
     import shutil
     import tempfile
     import threading
@@ -3001,6 +3037,7 @@ def sidecar_phase(dev, its, entry_claims: list) -> Optional[dict]:
     import torch
 
     from karpenter_tpu_torch import tracing
+    from karpenter_tpu_torch.analysis import proto, protorec, racert
     from karpenter_tpu_torch.solver import epochs as E
     from karpenter_tpu_torch.solver import fleet as F
     from karpenter_tpu_torch.solver import tpu as T
@@ -3012,6 +3049,10 @@ def sidecar_phase(dev, its, entry_claims: list) -> Optional[dict]:
     os.makedirs("build", exist_ok=True)
     sock_dir = os.path.relpath(tempfile.mkdtemp(prefix="sidecar-", dir="build"))  # short: AF_UNIX paths
     bad = []
+    faults = None
+    # the witness and the recorder before the servers make their locks
+    witness = racert.instrument(hold_ms=SIDECAR_LONG_HOLD_MS)
+    recorder = protorec.install()
     srv = SolverServer(os.path.join(sock_dir, "solver.sock"), device=dev, table_cache=E.DeviceTableCache(),
                        epoch_store=E.EpochStore(), admission=E.AdmissionGate(max_inflight=8))
     srv.start()
@@ -3199,21 +3240,198 @@ def sidecar_phase(dev, its, entry_claims: list) -> Optional[dict]:
             bad.append("a server-side oracle degrade or device failure")
         if tpu_errors():
             bad.append("tpu_error")
+
+        # (g) the fault segment
+        faults = sidecar_faults(dev, its, sock_dir, bad)
     finally:
         srv.stop()
         if fleet_srv is not None:
             fleet_srv.stop()
+        protorec.uninstall()
+        racert.uninstrument()
         srv.table_cache.clear()
         shutil.rmtree(sock_dir, ignore_errors=True)
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
+    # the port's judge on the phase's whole trace, and the witness
+    events = recorder.snapshot()
+    violations = proto.check_refinement(events)
+    report = witness.report()
+    holds = [f"{h['site']} {h['held_ms']} ms [{h['thread']}]" for h in report["long_holds"]]
+    log(f"sidecar protocol trace: {len(events)} events, {len(violations)} violations of the port's model "
+        f"{violations[:3] or ''}")
+    log(f"sidecar witness: {report['acquires']} acquires, {len(report['edges'])} lock-order edges, "
+        f"{len(report['inversions'])} inversions, {len(report['thread_exceptions'])} thread exceptions; "
+        f"holds past {SIDECAR_LONG_HOLD_MS:.0f} ms ({len(holds)}): {json.dumps(holds)}")
+    if violations:
+        bad.append("the trace does not refine the protocol model")
+    if report["inversions"]:
+        log(witness.render_inversions())
+        bad.append("lock-order inversions")
+    if report["thread_exceptions"]:
+        bad.append(f"thread exceptions {report['thread_exceptions']}")
     seconds = time.monotonic() - t_phase
     log(f"sidecar phase: {seconds:.1f}s; {'failed: ' + ', '.join(bad) if bad else 'ok'}")
     if bad:
         return None
     launches = dict(launches_a)
     launches.update({k: v for k, v in launches_d.items() if k.startswith("fleet_lanes")})
-    return {"launches": launches, "seconds": seconds, "upload_bytes": upload_a, "phases": phases}
+    return {"launches": launches, "seconds": seconds, "upload_bytes": upload_a, "phases": phases,
+            "faults": faults, "witness": {"events": len(events), "long_holds": len(holds)}}
+
+
+def decision_view(r, pods) -> tuple:
+    """fuzz.results_snapshot's picture of a Results answered by the sidecar
+    (its RemoteNodeClaims carry the launchable NodeClaim, not a template)
+    or solved here: each claim's pods by name, its NodePool, the instance
+    types its NodeClaim may launch and its requests; the existing-node
+    placements; the failed pods; the timeout flag."""
+    from karpenter_tpu_torch.api import labels as wk
+
+    name = {p.uid: p.name for p in pods}
+    claims = []
+    for c in r.new_node_claims:
+        if not c.pods:
+            continue
+        nc = c.to_node_claim({})
+        types = next((tuple(sorted(q.values)) for q in nc.requirements if q.key == wk.INSTANCE_TYPE_LABEL_KEY), ())
+        claims.append((tuple(sorted(name[p.uid] for p in c.pods)), c.nodepool_name, types,
+                       tuple(sorted((k, int(v)) for k, v in c.requests.items()))))
+    existing = sorted((n.name, tuple(sorted(name[p.uid] for p in n.pods))) for n in r.existing_nodes if n.pods)
+    return sorted(claims), existing, tuple(sorted(name[u] for u in r.pod_errors)), bool(r.timed_out)
+
+
+def sidecar_faults(dev, its, sock_dir: str, bad: list) -> dict:
+    """Sidecar check (g), the fault segment: the port's FaultyProxy
+    (testing/faults.py) between a ResilientSolver (breaker threshold 1, a
+    cooldown on its own clock) and a SolverServer on the card, a fresh
+    c6_world(FAULT_PODS) a solve. Each fault of FAULT_SCHEDULE once —
+    `blackhole` and `delay` past the client's deadline (which must trip),
+    `truncate`, `corrupt`, then the server's `stop()` while a solve is in
+    flight (the drain must flush its RESULT; a new server then takes the
+    socket) — and after each a clean solve, answered by the sidecar with
+    the breaker closed and equal (fuzz.results_snapshot) to
+    solve_in_process on the card. A fault solve that failed opened the
+    breaker and degraded in-process to the card (equal too); its clean
+    solve is the half-open probe after the cooldown. Returns {launches,
+    seconds, outcomes}; a failed check is appended to `bad`."""
+    import threading
+
+    import torch
+
+    from karpenter_tpu_torch.solver import epochs as E
+    from karpenter_tpu_torch.solver import tpu as T
+    from karpenter_tpu_torch.solver.hybrid import ResilientSolver, solve_in_process
+    from karpenter_tpu_torch.solver.service import SolverServer
+    from karpenter_tpu_torch.testing import fuzz
+    from karpenter_tpu_torch.testing.faults import FaultyProxy
+
+    t0 = time.monotonic()
+    path = os.path.join(sock_dir, "faults.sock")
+
+    def server():
+        srv_ = SolverServer(path, device=dev, table_cache=E.DeviceTableCache(), epoch_store=E.EpochStore(),
+                            admission=E.AdmissionGate(max_inflight=8))
+        srv_.start()
+        return srv_
+
+    dedup_min = T._DEDUP_DECODE_MIN
+    T._DEDUP_DECODE_MIN = 1
+    srv = server()
+    proxy = FaultyProxy(os.path.join(sock_dir, "proxy.sock"), path)
+    now = [0.0]
+    rs = ResilientSolver(proxy.listen_path, failure_threshold=1, cooldown_seconds=FAULT_COOLDOWN,
+                         request_timeout_seconds=FAULT_WIRE_TIMEOUT, clock=lambda: now[0], device=dev)
+    outcomes = []
+    try:
+        w = c6_world(FAULT_PODS, its)
+        local, _ = solve_in_process(w.pools, w.ibp, w.pods, device=dev)
+        want = {"snapshot": fuzz.results_snapshot(local, w.pods), "view": decision_view(local, w.pods)}
+        torch.cuda.synchronize()
+        reset_launches()
+
+        def solve():
+            """(who answered, equal to the in-process solve): a degraded
+            answer by its fuzz.results_snapshot, the sidecar's by its
+            decision_view."""
+            w_ = c6_world(FAULT_PODS, its)
+            got = rs.solve(w_.pools, w_.ibp, w_.pods)
+            if rs.last_used == "sidecar":
+                return rs.last_used, decision_view(got, w_.pods) == want["view"]
+            return rs.last_used, fuzz.results_snapshot(got, w_.pods) == want["snapshot"]
+
+        solve()  # the segment's first solve: a snapshot that sets up the client's epoch
+        for mode in FAULT_SCHEDULE:
+            t1 = time.monotonic()
+            if mode == "stop":
+                # the solve reaches the server's solver, the drain starts, then
+                # the solve goes on: it is in flight across stop()
+                started, proceed = threading.Event(), threading.Event()
+                inner = srv._solve_decoded
+
+                def held(*a, **k):
+                    started.set()
+                    proceed.wait(FAULT_WIRE_TIMEOUT)
+                    return inner(*a, **k)
+
+                srv._solve_decoded = held
+                out: list = []
+                solver = threading.Thread(target=lambda: out.append(solve()), daemon=True)
+                solver.start()
+                stopper = None
+                if started.wait(FAULT_WIRE_TIMEOUT):
+                    stopper = threading.Thread(target=srv.stop, daemon=True)
+                    stopper.start()
+                    while not srv._stop.is_set():
+                        time.sleep(0.001)
+                proceed.set()
+                solver.join(timeout=4 * FAULT_WIRE_TIMEOUT)
+                if stopper is not None:
+                    stopper.join(timeout=4 * FAULT_WIRE_TIMEOUT)
+                got = out[0] if out else ("none", False)
+                srv.stop()
+                srv = server()  # the sidecar comes back on the same socket
+            else:
+                # the proxy arms a fault for its next connection: the client
+                # dials afresh for the faulted solve
+                proxy.set_fault(mode, once=True, delay=FAULT_WIRE_TIMEOUT + 1.0)
+                rs.client.close()
+                got = solve()
+            state = rs.breaker.state
+            if state != "closed":
+                now[0] += FAULT_COOLDOWN + 1.0  # the cooldown elapses: the next solve is the probe
+            clean = solve()
+            rec = {"fault": mode, "answered_by": got[0], "equal": got[1], "breaker": state,
+                   "clean": clean[0], "clean_equal": clean[1], "breaker_after": rs.breaker.state,
+                   "s": round(time.monotonic() - t1, 3)}
+            outcomes.append(rec)
+            log(f"sidecar (g) fault {mode}: {json.dumps(rec)}")
+            failed = got[0] != "sidecar"
+            holds = [got[1], clean[1], clean[0] == "sidecar", rec["breaker_after"] == "closed",
+                     state == ("open" if failed else "closed"), not failed or got[0] == "tpu"]
+            if mode in ("blackhole", "delay"):
+                holds.append(failed)  # the client's deadline trips
+            if mode == "stop":
+                holds.append(not failed)  # the drain flushes the in-flight RESULT
+            if not all(holds):
+                bad.append(f"(g) {mode}")
+        torch.cuda.synchronize()
+        launches = launch_counts()
+    finally:
+        T._DEDUP_DECODE_MIN = dedup_min
+        proxy.stop()
+        srv.stop()
+    seconds = time.monotonic() - t0
+    missing = [k for k in ("typeok_screen", "run_arrays", "dedup_rows") if not launches.get(k)]
+    if not launches.get("run_step", 0) + launches.get("run_step_relax", 0):
+        missing.append("run_step")
+    log(f"sidecar (g) fault segment: {seconds:.1f}s (budget {FAULT_BUDGET_S:.0f}s); launches {launches}; "
+        f"missing launches: {missing or 'none'}")
+    if missing:
+        bad.append("(g) launches")
+    if seconds > FAULT_BUDGET_S:
+        bad.append("(g) past its budget")
+    return {"launches": launches, "seconds": seconds, "outcomes": outcomes}
 
 
 def cold_start_run(mode: str, dev) -> dict:
@@ -3898,10 +4116,37 @@ def plain_check(fn: str):
     }[fn]
 
 
+STATIC_TIERS = "static tiers (--ast, --race)"
+
+
+def static_tiers() -> dict:
+    """The analysis's AST and race tiers (`python -m
+    karpenter_tpu_torch.analysis --ast` and `--race`) over the shipped
+    tree, as a verdict: every finding outside torch_graftlint.baseline.json
+    and torch_graftlint.race.baseline.json, every stale or unjustified
+    entry and every file that does not parse is a disagreement. Needs no
+    card."""
+    from karpenter_tpu_torch.analysis import locks
+    from karpenter_tpu_torch.analysis.engine import run_analysis
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.monotonic()
+    bad, tiers = [], {}
+    for tier, run in (("ast", run_analysis), ("race", locks.run_race_analysis)):
+        rep = run(root)
+        bad += [f"{tier}: {f.render()}" for f in rep["findings"]]
+        bad += [f"{tier}: stale baseline entry [{e.get('rule')}] {e.get('path')}: {e.get('text')!r}" for e in rep["stale"]]
+        bad += [f"{tier}: unjustified baseline entry [{e.get('rule')}] {e.get('path')}" for e in rep["unjustified"]]
+        bad += [f"{tier}: {e}" for e in rep["errors"]]
+        tiers[tier] = {"findings": len(rep["findings"]), "baselined": rep["total"] - len(rep["findings"])}
+    return {"name": STATIC_TIERS, "bad": bad, "plain_ms": (time.monotonic() - t0) * 1e3, "tiers": tiers}
+
+
 def host_checks_worker(dirpath: str) -> int:
     """`python3 chip_smoke.py --host-checks DIR`: first the port's oracle
     snapshots of every kernel-supported fuzz case (`fuzz.oracle_snapshots`,
-    pickled to DIR/oracle.pkl), then each deep check the main process
+    pickled to DIR/oracle.pkl), then the static tiers (`static_tiers`, to
+    DIR/static.json), then each deep check the main process
     writes to DIR (job-*.pt: the cut's inputs and the kernel's outputs, on
     the CPU) through its plain version on the CPU, a verdict (job-*.json:
     the fields that differ, the plain version's ms) for each, until DIR/done
@@ -3923,6 +4168,12 @@ def host_checks_worker(dirpath: str) -> int:
         pickle.dump(snaps, f)
     os.replace(os.path.join(dirpath, "oracle.pkl.tmp"), os.path.join(dirpath, "oracle.pkl"))
     print(f"HOST_CHECKS oracle {len(snaps)} cases {time.monotonic() - t0:.1f}s", flush=True)
+    verdict = static_tiers()
+    with open(os.path.join(dirpath, "static.json.tmp"), "w") as f:
+        json.dump(verdict, f)
+    os.replace(os.path.join(dirpath, "static.json.tmp"), os.path.join(dirpath, "static.json"))
+    print(f"HOST_CHECKS static tiers {json.dumps(verdict['tiers'])}: {verdict['bad'] or 'clean'} "
+          f"({verdict['plain_ms']:.0f} ms)", flush=True)
     done = set()
     while True:
         listed = None
@@ -4060,6 +4311,7 @@ class HostChecks(SideProcess):
                "verdicts": {}}
         paths = {name: f"job-{job}.json" for job, name in self.jobs.items()}
         paths.update({name: f"{job}.json" for job, (name, _) in self.forks.items()})
+        paths[STATIC_TIERS] = "static.json"
         for name, fn in paths.items():
             path = os.path.join(self.dir, fn)
             if os.path.exists(path):
@@ -5391,8 +5643,10 @@ def budgets_phase(dev, its, smi: str) -> Optional[dict]:
     `cuda:` entry: a profiled window around each entry's repeat (the hand
     kernels' records held to the wrappers' count), the headline and the c6
     mix re-solved at full width under the profiler, each kernel's ptxas
-    resources. Prints one {"budgets": ...} line with every measured value,
-    the census behind each window and the card; None on any finding."""
+    resources; each counted seam of rules_kernel.COUNTED_SEAMS must sync
+    inside the window of the entry it names (runtime.seam_issues). Prints
+    one {"budgets": ...} line with every measured value, the census behind
+    each window and the card; None on any finding."""
     from karpenter_tpu_torch.analysis import budgets as B
     from karpenter_tpu_torch.analysis import runtime as R
 
@@ -5408,7 +5662,8 @@ def budgets_phase(dev, its, smi: str) -> Optional[dict]:
         return None
     manifest = B.BudgetManifest.load(os.path.join(os.path.dirname(os.path.abspath(__file__)), B.DEFAULT_MANIFEST))
     cmp = manifest.check(cpu, cuda)
-    issues, slack = [i.render() for i in cmp.issues], [i.render() for i in cmp.improvements]
+    issues = [i.render() for i in cmp.issues + R.seam_issues(detail)]
+    slack = [i.render() for i in cmp.improvements]
     seconds = time.monotonic() - t0
     print(json.dumps({"budgets": {
         "card": smi, "seconds": round(seconds, 3), "measured": {**cpu, **cuda}, "issues": issues, "slack": slack,
@@ -6259,6 +6514,8 @@ def _main(oracle: RecordProcess, g_oracle: RecordProcess, g_card: RecordProcess,
         if r["name"] in CONSOLIDATION_ROWS:
             r["launches_consolidation"] = sum(consolidation["launches"].get(k, 0) for k in CONSOLIDATION_ROWS[r["name"]])
         r["launches_sidecar"] = sum(sidecar["launches"].get(k, 0) for k in SIDECAR_ROWS.get(r["name"], ()))
+        r["launches_sidecar_faults"] = sum(
+            sidecar["faults"]["launches"].get(k, 0) for k in SIDECAR_ROWS.get(r["name"], ()))
         r["launches_operator"] = sum(operator["launches"].get(k, 0) for k in ROW_COUNTERS.get(r["name"], ()))
         r["launches_prewarm"] = sum(cold["launches_prewarm"].get(k, 0) for k in ROW_COUNTERS.get(r["name"], ()))
         r["launches_gates"] = sum(gates["launches"].get(k, 0) for k in ROW_COUNTERS.get(r["name"], ()))

@@ -73,12 +73,14 @@ def build_dir() -> Path:
     return BUILD_ROOT / _source_hash()
 
 
-# nvcc processes started by this process (the budgets' rebuild count)
+# nvcc processes started and libraries loaded by this process (the
+# budgets' rebuild and load counts)
 NVCC_STARTS = 0
+LIBRARY_LOADS = 0
 
-# held around the first build and load: functools.lru_cache alone lets two
-# threads that miss together both run the body (two nvcc into one
-# directory); re-entrant because `library` calls `build_all`
+# held around the first build and each first load: functools.lru_cache
+# alone lets two threads that miss together both run the body (two nvcc
+# into one directory)
 _LOCK = threading.RLock()
 
 
@@ -204,19 +206,29 @@ def ptxas_resources(log: str) -> dict:
     return out
 
 
+_library: dict[str, ctypes.CDLL] = {}  # the loaded libraries by source name
+
+
 def library(name: str) -> ctypes.CDLL:
-    """The loaded library of one source (built on first use)."""
-    with _LOCK:
-        return _library(name)
-
-
-@functools.lru_cache(maxsize=None)
-def _library(name: str) -> ctypes.CDLL:
+    """The loaded library of one source (built on first use). A library
+    already loaded is returned without `_LOCK`, so a caller never waits
+    behind a build in flight; a first use builds (`build_all`, single
+    flight under the lock), then loads under the lock, once."""
+    global LIBRARY_LOADS
+    lib = _library.get(name)
+    if lib is not None:
+        return lib
     path = build_all()[name]["path"]
-    try:
-        return ctypes.CDLL(path)
-    except OSError as e:
-        raise DeviceError(f"{name}: cannot load {path}: {e}") from e
+    with _LOCK:
+        lib = _library.get(name)
+        if lib is None:
+            LIBRARY_LOADS += 1
+            try:
+                lib = ctypes.CDLL(path)
+            except OSError as e:
+                raise DeviceError(f"{name}: cannot load {path}: {e}") from e
+            _library[name] = lib
+        return lib
 
 
 def check_launch(name: str, code: int) -> None:

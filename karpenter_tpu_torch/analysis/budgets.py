@@ -101,7 +101,7 @@ class BudgetIssue:
 
     kind: str  # regression | structure-mismatch | missing-entry |
     #            orphaned-entry | unknown-metric | missing-metric |
-    #            unjustified | improvement
+    #            unjustified | unseen-seam | improvement
     entry: str
     metric: Optional[str]
     budget: Optional[int]
@@ -139,6 +139,12 @@ class BudgetIssue:
             return (
                 f"{self.entry}: no justification — add a one-line reason "
                 f"in {DEFAULT_MANIFEST}"
+            )
+        if self.kind == "unseen-seam":
+            return (
+                f"{self.entry}: the counted seam {self.metric} made no host "
+                "sync in this entry's window — name the entry whose window "
+                "runs it (rules_kernel.COUNTED_SEAMS)"
             )
         if self.kind == "improvement":
             return (

@@ -5,15 +5,17 @@ real wire and breaker code paths — SolverClient roundtrips and epoch
 commits, SolverServer frame recv/send/close and epoch stores,
 CircuitBreaker transitions (solver/service.py, solver/hybrid.py) — append
 structured events to a process-global recorder while one is installed.
-The reference's `analysis.proto.check_refinement` then verifies that the
-recorded trace is an accepted behavior of its protocol model: the same
-acceptors that judge model-generated traces judge this code's traces.
+The port's `analysis.proto.check_refinement` (a copy of the reference's
+judge) then verifies that the recorded trace is an accepted behavior of
+the protocol model: the same acceptors that judge model-generated traces
+judge this code's traces.
 
 Off by default, and free when off: every hook site is
 `if protorec.RECORDER is not None:` — one module-attribute load and an
 identity test on the serving hot path. A test installs a recorder
 (`install`), drives the boundary, and hands `RECORDER.snapshot()` to the
-judge. Stdlib-only.
+judge; chip_smoke.py's sidecar phase does the same on the card.
+Stdlib-only.
 """
 
 from __future__ import annotations

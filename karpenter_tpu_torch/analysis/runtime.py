@@ -343,7 +343,7 @@ class DeviceWindow:
         self._calls = dict(CALLS)
         self._records = collections.Counter(RECORDS)
         self._nvcc = _build.NVCC_STARTS
-        self._loads = _build._library.cache_info().misses
+        self._loads = _build.LIBRARY_LOADS
         torch.cuda.synchronize(self.dev)
         self._prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
         self._prof.__enter__()
@@ -402,7 +402,7 @@ class DeviceWindow:
             "d2h_copies": c["d2h_copies"],
             "peak_device_bytes": max(0, int(peak)),
             "second_solve_builds": _build.NVCC_STARTS - self._nvcc,
-            "second_solve_library_loads": _build._library.cache_info().misses - self._loads,
+            "second_solve_library_loads": _build.LIBRARY_LOADS - self._loads,
         }
         self.detail = {k: v for k, v in c.items() if k not in self.metrics and k != "annotated"}
         self.detail.update(
@@ -734,6 +734,38 @@ def kernel_metrics() -> dict:
     if missing:
         raise RuntimeError(f"ptxas logs name no resources for {missing}")
     return {f"cuda:kernel:{k}": merged[k] for k in sorted(merged)}
+
+
+def seam_issues(detail: dict) -> list:
+    """The counted seams (rules_kernel.COUNTED_SEAMS) whose named `cuda:`
+    entry saw no host sync inside the seam's function: one `unseen-seam`
+    BudgetIssue each. `detail` is measure_cuda_scope's census, whose
+    `sync_sites` are the sync-debug warnings' `<dir>/<file>:<line>`. A seam
+    that names a window which never runs it counts nothing, so the static
+    rule's allow-list would rest on an unmeasured sync."""
+    import ast
+    import os
+
+    from karpenter_tpu_torch.analysis.budgets import BudgetIssue
+    from karpenter_tpu_torch.analysis.rules_kernel import COUNTED_SEAMS, _functions
+
+    root = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    trees: dict = {}
+    out = []
+    for (module, qualname), seam in sorted(COUNTED_SEAMS.items()):
+        if module not in trees:
+            with open(os.path.join(root, module), encoding="utf-8") as f:
+                trees[module] = _functions(ast.parse(f.read()))
+        fn = trees[module][qualname]
+        short = "/".join(module.split("/")[-2:])
+        sites = detail.get(seam["entry"], {}).get("sync_sites", {})
+        seen = any(
+            path == short and fn.lineno <= int(line) <= fn.end_lineno
+            for path, _, line in (site.rpartition(":") for site in sites)
+        )
+        if not seen:
+            out.append(BudgetIssue("unseen-seam", seam["entry"], f"{short} {qualname}", None, None))
+    return out
 
 
 def measure_cuda_scope(device=None, worlds: Optional[dict] = None) -> tuple[dict, dict, dict]:

@@ -3,7 +3,8 @@
 A fleet window's lanes are concurrent threads, and each reaches its first
 kernel on first use. With `nvcc` and the library loader stubbed, eight
 threads that call `build_all` and `library` together must compile every
-source once, into one hash-keyed directory, and load each library once.
+source once, into one hash-keyed directory, and load each library once; a
+library already loaded is returned without waiting for the build's lock.
 """
 
 import threading
@@ -43,10 +44,10 @@ def stubbed_build(monkeypatch, tmp_path):
     monkeypatch.setattr(_build.subprocess, "Popen", _FakeNvcc)
     monkeypatch.setattr(_build.ctypes, "CDLL", lambda path: loads.append(path) or path)
     _build._build_all.cache_clear()
-    _build._library.cache_clear()
+    _build._library.clear()
     yield loads
     _build._build_all.cache_clear()
-    _build._library.cache_clear()
+    _build._library.clear()
 
 
 def test_concurrent_first_use_builds_and_loads_once(stubbed_build):
@@ -78,3 +79,32 @@ def test_concurrent_first_use_builds_and_loads_once(stubbed_build):
     _build.build_all()
     _build.library(_build.SOURCES[0])
     assert len(_FakeNvcc.runs) == len(_build.SOURCES) and len(loads) == len(set(loads))
+
+
+def test_a_loaded_library_does_not_wait_behind_the_build_lock(stubbed_build):
+    """`library` returns a library already loaded without `_LOCK`: a thread
+    that holds the lock (a build in flight) does not delay it."""
+    name = _build.SOURCES[0]
+    loads0 = _build.LIBRARY_LOADS
+    lib = _build.library(name)
+    assert _build.LIBRARY_LOADS == loads0 + 1, "a first use counts one load (the budgets' library loads)"
+    held, release = threading.Event(), threading.Event()
+
+    def hold():
+        with _build._LOCK:
+            held.set()
+            release.wait(30)
+
+    holder = threading.Thread(target=hold, daemon=True)
+    holder.start()
+    assert held.wait(30)
+    try:
+        got = []
+        caller = threading.Thread(target=lambda: got.append(_build.library(name)), daemon=True)
+        caller.start()
+        caller.join(5)
+        assert got == [lib], "library() waited behind the held build lock"
+    finally:
+        release.set()
+        holder.join(30)
+    assert len(stubbed_build) == 1 and _build.LIBRARY_LOADS == loads0 + 1, "loaded once"

@@ -190,11 +190,11 @@ def test_unexpected_kernel_error_degrades_to_pristine_oracle(monkeypatch):
 
 
 def _missing_library():
-    _build._library.cache_clear()
+    _build._library.clear()
     try:
         _build.library("no_such_kernel")
     finally:
-        _build._library.cache_clear()
+        _build._library.clear()
 
 
 DEVICE_FAILURES = {

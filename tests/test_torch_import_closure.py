@@ -117,3 +117,12 @@ def test_default_device_without_cuda_raises(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA"):
         resolve_device("cuda")
     assert resolve_device("cpu").type == "cpu"
+
+
+def test_the_walk_covers_the_analysis_tiers():
+    """The checks above walk the analysis tiers too (the AST, race and
+    protocol tiers' modules, their runtime witness and recorder)."""
+    walked = {str(p.relative_to(PORT)) for p in PORT.rglob("*.py")}
+    tiers = {"engine", "rules_kernel", "rules_data", "rules_threads", "rules_metrics", "rules_wire", "rules_docs",
+             "locks", "racert", "proto", "protorec", "__main__"}
+    assert {f"analysis/{m}.py" for m in tiers} <= walked

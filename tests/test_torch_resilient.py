@@ -17,7 +17,10 @@ the CPU (`device="cpu"`):
   sidecar on the same cluster.
 
 Every test records the port's protocol events (`analysis.protorec`) and
-hands them to the reference's judge, `proto.check_refinement`.
+hands them to both judges, the reference's `proto.check_refinement` and the
+port's (`karpenter_tpu_torch.analysis.proto`), which must agree; and runs
+under the port's race witness (`analysis.racert`), which must see no
+lock-order inversion and no uncaught thread exception.
 """
 
 from __future__ import annotations
@@ -36,7 +39,8 @@ from karpenter_tpu.controllers.provisioning import Provisioner as RProvisioner
 from karpenter_tpu.options import Options as ROptions
 from karpenter_tpu.solver.hybrid import ResilientSolver as RefResilientSolver
 from karpenter_tpu.solver.service import SolverServer as RefSolverServer
-from karpenter_tpu_torch.analysis import protorec
+from karpenter_tpu_torch.analysis import proto as port_proto
+from karpenter_tpu_torch.analysis import protorec, racert
 from karpenter_tpu_torch.api import codec as pcodec
 from karpenter_tpu_torch.cloudprovider.kwok import construct_instance_types
 from karpenter_tpu_torch.controllers import provisioning as pprovisioning
@@ -74,11 +78,22 @@ def _no_persistent_compile_cache():
 
 @pytest.fixture(autouse=True)
 def recorder():
+    """The port's protocol recorder and race witness around each test: its
+    trace must be an accepted behavior of the protocol model to both
+    judges, and the witness must see no inversion and no thread exception."""
+    witness = racert.instrument()
     rec = protorec.install()
-    yield rec
-    protorec.uninstall()
-    findings = proto.check_refinement(rec.snapshot())
+    try:
+        yield rec
+    finally:
+        protorec.uninstall()
+        racert.uninstrument()
+    events = rec.snapshot()
+    findings = proto.check_refinement(events)
+    assert port_proto.check_refinement(events) == findings
     assert not findings, findings
+    witness.assert_no_inversions()
+    witness.assert_no_thread_exceptions()
 
 
 @pytest.fixture()

@@ -6,9 +6,11 @@
 Builds the kernels, reconciles chip_smoke.py's entry cluster (the c6 mix
 plus its PVC pods) in-process on the card for the claims the sidecar's
 reconcile must equal, then runs `chip_smoke.sidecar_phase`: the port's
-SolverServer on a unix socket at the headline's width, its checks (a)-(f)
-and the server-side phases beside the in-process solve's. Exits 0 when
-every check held, 1 when one failed, 2 without a CUDA device.
+SolverServer on a unix socket at the headline's width, its checks (a)-(f),
+the server-side phases beside the in-process solve's, and (g) the fault
+segment through the port's FaultyProxy, the whole phase under the port's
+race witness and protocol judge. Exits 0 when every check held, 1 when one
+failed, 2 without a CUDA device.
 """
 
 from __future__ import annotations
