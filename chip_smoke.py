@@ -5636,6 +5636,11 @@ def device_failure_check(dev, its) -> bool:
     return ok
 
 
+# the window of the full-state lane scan's counted fetch (K7 on the sweep
+# path), whose census phase 14c prints on a line of its own
+LANE_WINDOW = "cuda:sweep_lanes[runtime]"
+
+
 def budgets_phase(dev, its, smi: str) -> Optional[dict]:
     """Phase 14c: the port's runtime budgets (karpenter_tpu_torch/analysis/
     runtime.py against torch_budgets.json). Every CPU-scope entry measured
@@ -5646,7 +5651,9 @@ def budgets_phase(dev, its, smi: str) -> Optional[dict]:
     resources; each counted seam of rules_kernel.COUNTED_SEAMS must sync
     inside the window of the entry it names (runtime.seam_issues). Prints
     one {"budgets": ...} line with every measured value, the census behind
-    each window and the card; None on any finding."""
+    each window and the card, then the lane scan's window (LANE_WINDOW:
+    host syncs, D2H copies, hand launches, sync sites) on a line of its
+    own; None on any finding."""
     from karpenter_tpu_torch.analysis import budgets as B
     from karpenter_tpu_torch.analysis import runtime as R
 
@@ -5671,6 +5678,9 @@ def budgets_phase(dev, its, smi: str) -> Optional[dict]:
     }}, sort_keys=True), flush=True)
     log(f"budgets: {len(cpu)} CPU-scope and {len(cuda)} cuda: entries on the card in {seconds:.1f}s, "
         f"{len(issues)} findings, {len(slack)} under their ceilings")
+    census = {k: cuda.get(LANE_WINDOW, {}).get(k) for k in ("host_syncs", "d2h_copies", "launches_hand")}
+    census["sync_sites"] = detail.get(LANE_WINDOW, {}).get("sync_sites")
+    log(f"budgets {LANE_WINDOW} window: {json.dumps(census, sort_keys=True)}")
     for line in issues:
         log(f"  budget finding: {line}")
     return None if issues else {"seconds": seconds}

@@ -118,6 +118,13 @@ COUNTED_SEAMS = {
         "entry": "cuda:sweep[runtime]",
         "why": "K6's verdicts and its step count, fetched once a sweep",
     },
+    (_PKG + "controllers/disruption/sweep.py", "_lane_scan_feasibility"): {
+        "syncs": (".cpu()", ".numpy()", ".tolist()"),
+        "entry": "cuda:sweep_lanes[runtime]",
+        "why": "K7's kinds, overflow flags, claim counts and step counts, "
+        "packed on the card and fetched once a sweep (.tolist() reads the "
+        "fetched host array)",
+    },
     (_PKG + "controllers/disruption/setsweep.py", "SetSweepContext.evaluate"): {
         "syncs": (".cpu()", ".numpy()", "int(steps)"),
         "entry": "cuda:setsweep[runtime]",

@@ -7,21 +7,23 @@ here on the port's own objects:
 
 - **The CPU scope** (entries `solve[runtime]`, `solve_relax[runtime]`,
   `epoch[runtime]`, `fleet[runtime]`, `setsweep[runtime]`,
-  `sweep[runtime]`): table uploads (`TorchScheduler._tables`,
-  `_upload_pod_tables`, `_pod_xs_with_idx` calls), dispatches, and the
-  calls of each kernel seam (`CALLS`, counted where a wrapper picks its
-  plain version or its kernel, on both routes). These do not depend on
-  the route, so they read the same on the CPU and on the card.
+  `sweep[runtime]`, `sweep_lanes[runtime]`): table uploads
+  (`TorchScheduler._tables`, `_upload_pod_tables`, `_pod_xs_with_idx`
+  calls), dispatches, and the calls of each kernel seam (`CALLS`,
+  counted where a wrapper picks its plain version or its kernel, on both
+  routes). These do not depend on the route, so they read the same on
+  the CPU and on the card.
 - **The `cuda:` scope**, on the card only: over one `torch.profiler`
   window around the repeat solve, window, batch or sweep, the kernel
   records of the hand-written kernels (`launches_hand`, exact, held to
   the wrappers' own count), torch's own kernels (`launches_torch`), host
   syncs and copies (ceilings), nvcc processes and library loads (0), new
-  allocator segments of a same-bucket solve (0) and the peak device bytes
-  above what the window started with; the same over a re-solve of the
-  10000-pod headline and the c6 mix (`cuda:headline[runtime]`,
-  `cuda:c6[runtime]`); and each kernel's registers, shared memory and
-  spill stores from ptxas (`cuda:kernel:<name>`).
+  allocator segments of a same-bucket solve or sweep (0) and the peak
+  device bytes above what the window started with; the same over a
+  re-solve of the 10000-pod headline and the c6 mix
+  (`cuda:headline[runtime]`, `cuda:c6[runtime]`); and each kernel's
+  registers, shared memory and spill stores from ptxas
+  (`cuda:kernel:<name>`).
 
 Every measurement takes `device=` (None = the card, which raises without
 one; "cpu" for the plain versions). `python -m karpenter_tpu_torch.analysis
@@ -673,6 +675,46 @@ def sweep_metrics(device=None, windows: Optional[Windows] = None) -> dict:
     return dict(calls)
 
 
+def _spread_fleet():
+    """(World, candidates) of a five-node under-utilized fleet whose riders
+    carry a zone spread (max skew 4), built as chip_smoke.py builds its
+    spread fleet: on the host with the port's oracle, no Operator and no
+    device work. The fast gates refuse it ("topology constraints among
+    union pods"), so its sweeps take the full-state lane scan."""
+    from karpenter_tpu_torch.controllers.disruption.helpers import build_candidates
+    from karpenter_tpu_torch.testing import fixtures
+
+    w = fixtures.underutilized_world(5, seed=7, rider_spread=4)
+    cands = build_candidates(w.kube, w.cluster, w.cloud, w.clock, lambda c: c.consolidatable())
+    cands.sort(key=lambda c: (c.disruption_cost, c.name))
+    return w, cands
+
+
+def sweep_lanes_metrics(device=None, windows: Optional[Windows] = None) -> dict:
+    """Entry `sweep_lanes[runtime]`: one prefix and one singleton sweep of
+    the spread fleet, each one `scan_lanes` call (K7, the full-state lane
+    scan) and no `fast_sweep` call. The window is around a repeat of both;
+    with `windows` (on the card) the repeat's new allocator segments are
+    counted."""
+    from karpenter_tpu_torch.controllers.disruption.sweep import prefix_feasibility, singleton_feasibility
+
+    dev = _resolve(device)
+    w, candidates = _spread_fleet()
+
+    def both() -> None:
+        prefix_feasibility(w.kube, w.cluster, w.cloud, candidates, device=dev)
+        singleton_feasibility(w.kube, w.cluster, w.cloud, candidates, device=dev)
+
+    entry = "cuda:sweep_lanes[runtime]"
+    with count_seams(("fast_sweep", "scan_lanes")) as calls:
+        both()
+    seg0 = _segments(dev) if windows is not None else 0
+    _repeat(windows, entry, both)
+    if windows is not None:
+        windows.metrics[entry]["same_bucket_solve_segments"] = _segments(dev) - seg0
+    return dict(calls)
+
+
 # the CPU scope's entries and their measurements
 CPU_ENTRIES: dict = {
     "solve[runtime]": functools.partial(solve_metrics, "generic"),
@@ -681,6 +723,7 @@ CPU_ENTRIES: dict = {
     "fleet[runtime]": fleet_metrics,
     "setsweep[runtime]": setsweep_metrics,
     "sweep[runtime]": sweep_metrics,
+    "sweep_lanes[runtime]": sweep_lanes_metrics,
 }
 
 

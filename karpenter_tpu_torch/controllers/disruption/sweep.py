@@ -660,15 +660,18 @@ def _lane_scan_feasibility(cluster, candidates, u: UnionSweep, singleton: bool, 
     """The full-state lane scan (the reference's `vmap(solve_scan)` path,
     kernel K7 on the card): every lane walks the union's pods over its own
     State; a lane is feasible when none of its pods fails, no claim slot
-    overflows and at most one claim opens."""
+    overflows and at most one claim opens. The verdicts come back in one
+    fetch: a lane's row holds its pods' kinds, then its overflow flag, its
+    claim count and its step count (int32 [B, P + 3])."""
     st_b, xs, valid_b, lane_pods, relax = lane_scan_args(cluster, candidates, u, singleton)
+    P = lane_pods.shape[1]
     with tracing.span_of(trace, "dispatch", path="sweep_vmap", lanes=len(candidates)) as dsp:
         st_out, kinds, _, over, odo = K.scan_lanes(u.tb, st_b, xs, valid_b, relax)
-        kinds = kinds.cpu().numpy()[:, : lane_pods.shape[1]]
-        over = over.cpu().numpy()
-        n_claims = st_out.n_claims.cpu().numpy()
-        steps = int(odo.steps.sum())
+        cols = (kinds[:, :P], over[:, None], st_out.n_claims[:, None], odo.steps[:, None])
+        host = torch.cat([c.to(torch.int32) for c in cols], dim=1).cpu().numpy()
+        steps = sum(host[:, P + 2].tolist())  # in Python ints: no int32 total
         dsp["kernel"] = {"steps": steps, "lanes": len(candidates)}
+    kinds, over, n_claims = host[:, :P], host[:, P], host[:, P + 1]
     tracing.KERNEL_ITERATIONS.inc({"path": "sweep"}, by=steps)
     tracing.SOLVE_DISPATCHES.inc({"path": "sweep"})
     if trace is not None:

@@ -12,8 +12,10 @@
   a jax.numpy value).
 - The torch `kernel-purity` rule on a copy of solver/tpu_runs.py: a
   `.item()` put into a card-path function is flagged, the same put into a
-  `*_plain` function is not; the counted seams, their manifest entries
-  and the card windows they must sync in (runtime.seam_issues).
+  `*_plain` function is not; on a copy of the sweeps' module, the lane
+  scan's one counted fetch passes and a second is flagged; the counted
+  seams, their manifest entries and the card windows they must sync in
+  (runtime.seam_issues).
 - dtype-overflow's baselined findings: the int64 guards at the 2^31 edge.
 - The CLI: `--ast` exits 0 on the tree; the baseline is canonical,
   justified and not stale.
@@ -117,13 +119,12 @@ def test_reference_fixture_gives_the_same_findings(name, rule_id, source, path):
 
 
 # ---------------------------------------------------------------------------
-# kernel-purity on the card path of solver/tpu_runs.py
+# kernel-purity on the card paths of solver/tpu_runs.py and the sweeps
 
 
-def _runs_copy(tmp_path, edit) -> list:
-    """kernel-purity's findings on a copy of solver/tpu_runs.py after
-    `edit(source)`."""
-    rel = "karpenter_tpu_torch/solver/tpu_runs.py"
+def _copy_findings(tmp_path, edit, rel: str = "karpenter_tpu_torch/solver/tpu_runs.py") -> list:
+    """kernel-purity's and tracer-leak's findings on a copy of `rel`
+    (solver/tpu_runs.py by default) after `edit(source)`."""
     with open(os.path.join(REPO_ROOT, rel), encoding="utf-8") as f:
         source = edit(f.read())
     dst = tmp_path / rel
@@ -141,23 +142,42 @@ _PLAIN = '    w = _Walk(tb, st, rx, seq, next_seq, relax)\n'
 
 
 def test_kernel_purity_flags_item_on_the_card_path(tmp_path):
-    assert _runs_copy(tmp_path, lambda s: s) == []
-    got = _runs_copy(tmp_path, lambda s: s.replace(_LAUNCH, _LAUNCH + "    probe_n = seq.sum().item()\n"))
+    assert _copy_findings(tmp_path, lambda s: s) == []
+    got = _copy_findings(tmp_path, lambda s: s.replace(_LAUNCH, _LAUNCH + "    probe_n = seq.sum().item()\n"))
     assert [(f.rule, f.text) for f in got] == [("kernel-purity", "probe_n = seq.sum().item()")]
     assert "_launch_run_step()" in got[0].message
     branch = "    if bool(rx.bulk.any()):\n        pass\n"
-    got = _runs_copy(tmp_path, lambda s: s.replace(_LAUNCH, _LAUNCH + branch))
+    got = _copy_findings(tmp_path, lambda s: s.replace(_LAUNCH, _LAUNCH + branch))
     assert sorted(f.rule for f in got) == ["kernel-purity", "tracer-leak"]
 
 
 def test_kernel_purity_passes_the_plain_versions(tmp_path):
     assert _PLAIN in open(os.path.join(REPO_ROOT, "karpenter_tpu_torch/solver/tpu_runs.py")).read()
-    got = _runs_copy(tmp_path, lambda s: s.replace(_PLAIN, _PLAIN + "    probe_n = seq.sum().item()\n"))
+    got = _copy_findings(tmp_path, lambda s: s.replace(_PLAIN, _PLAIN + "    probe_n = seq.sum().item()\n"))
     assert got == []
     # the seam wrapper's CPU branch runs the plain version: not card path
     wrapper = '    if st.rank.device.type == "cpu":\n        return solve_runs_plain('
-    got = _runs_copy(tmp_path, lambda s: s.replace(wrapper, wrapper.replace("return", "seq.tolist()\n        return")))
+    got = _copy_findings(tmp_path, lambda s: s.replace(wrapper, wrapper.replace("return", "seq.tolist()\n        return")))
     assert got == []
+
+
+_SWEEP = "karpenter_tpu_torch/controllers/disruption/sweep.py"
+_FETCH = "        host = torch.cat([c.to(torch.int32) for c in cols], dim=1).cpu().numpy()\n"
+
+
+def test_lane_scan_fetch_is_one_counted_seam(tmp_path):
+    """The full-state lane scan's one packed fetch is a counted seam,
+    counted by cuda:sweep_lanes[runtime]: the tree's source gives no
+    finding; a second fetch put beside it gives one kernel-purity
+    finding; the baseline keeps no kernel-purity entry of sweep.py."""
+    assert _FETCH in open(os.path.join(REPO_ROOT, _SWEEP)).read()
+    assert rules_kernel.COUNTED_SEAMS[(_SWEEP, "_lane_scan_feasibility")]["entry"] == "cuda:sweep_lanes[runtime]"
+    assert _copy_findings(tmp_path, lambda s: s, _SWEEP) == []
+    got = _copy_findings(tmp_path, lambda s: s.replace(_FETCH, _FETCH + "        n_over = int(over.sum())\n"), _SWEEP)
+    assert [(f.rule, f.text) for f in got] == [("kernel-purity", "n_over = int(over.sum())")]
+    assert "_lane_scan_feasibility()" in got[0].message and "no counted seam names it" in got[0].message
+    base = engine.Baseline.load(os.path.join(REPO_ROOT, engine.DEFAULT_BASELINE))
+    assert not [e for e in base.entries if e["path"] == _SWEEP and e["rule"] == "kernel-purity"]
 
 
 def test_counted_seams_name_live_manifest_entries():

@@ -3,9 +3,10 @@ mechanics of torch_budgets.json, twins of tests/test_budget_manifest.py's
 cases; every CPU-scope entry held to a measurement with the plain versions;
 the names the port shares with kernel_budgets.json held to the JAX
 package's values (read as a file: no JAX compile); injected regressions
-caught; the CLI's exit codes; ptxas's spill lines and the profiler census
-behind the `cuda:` scope, which only the card measures (chip_smoke.py
-phase 14c)."""
+caught (an extra table build, extra run arrays, a lane scan run twice);
+the CLI's exit codes; ptxas's spill lines and the profiler census behind
+the `cuda:` scope, which only the card measures (chip_smoke.py phase
+14c)."""
 
 from __future__ import annotations
 
@@ -215,21 +216,36 @@ def _extra_run_arrays(monkeypatch):
     monkeypatch.setattr(TorchScheduler, "_run_x", twice)
 
 
+def _lane_scan_twice(monkeypatch):
+    """Every full-state lane sweep runs its lane scan twice (a seam call
+    too many)."""
+    from karpenter_tpu_torch.solver import tpu_kernel
+
+    orig = tpu_kernel.scan_lanes
+
+    def twice(*args, **kwargs):
+        orig(*args, **kwargs)
+        return orig(*args, **kwargs)
+
+    monkeypatch.setattr(tpu_kernel, "scan_lanes", twice)
+
+
 @pytest.mark.parametrize(
-    "inject,want",
+    "inject,entry,want",
     [
         # the second build screens its class rows again: K1's seam counts it too
-        (_extra_tables, [("calls_typeok_screen", 5, 10), ("table_uploads", 1, 2)]),
-        (_extra_run_arrays, [("calls_run_arrays", 3, 6)]),
+        (_extra_tables, "solve[runtime]", [("calls_typeok_screen", 5, 10), ("table_uploads", 1, 2)]),
+        (_extra_run_arrays, "solve[runtime]", [("calls_run_arrays", 3, 6)]),
+        (_lane_scan_twice, "sweep_lanes[runtime]", [("calls_scan_lanes", 2, 4)]),
     ],
-    ids=["extra_tables", "extra_run_arrays"],
+    ids=["extra_tables", "extra_run_arrays", "lane_scan_twice"],
 )
-def test_injected_regression_is_caught(monkeypatch, inject, want):
+def test_injected_regression_is_caught(monkeypatch, inject, entry, want):
     inject(monkeypatch)
-    measured = {"solve[runtime]": R.solve_metrics("generic", device="cpu")}
+    measured = {entry: R.CPU_ENTRIES[entry](device="cpu")}
     cmp = B.BudgetManifest.load(MANIFEST).scoped(False).compare(measured)
     found = [(i.kind, i.entry, i.metric, i.budget, i.measured) for i in cmp.issues if i.kind != "orphaned-entry"]
-    assert found == [("structure-mismatch", "solve[runtime]", *w) for w in want]
+    assert found == [("structure-mismatch", entry, *w) for w in want]
 
 
 # ---------------------------------------------------------------------------
